@@ -6,18 +6,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
-each against its plain PyTorch version at the shapes of the main path, then
-drives the main path — the batched pushT splat env step, forward (B=128
-envs, N=100k gaussians, SH degree 3, 256×256, fixed camera) — through
-``entry.make_step_cached_batch`` and checks that every kernel of the path
-was launched, that the render is exact (no dropped tiles) and that its
-images agree with the port's plain path.  Any disagreement raises.
+each against its plain PyTorch version at the shapes of the main path
+(K1f, K1b, K2f, K2b), then drives the main path (B=128 envs, N=100k
+gaussians, SH degree 3, 256×256, fixed camera) twice through the port's
+entry points: the batched pushT splat env step, forward
+(``entry.make_step_cached_batch``), and the train step
+(``entry.loss_and_grads``: the mean-square image loss and its gradient to
+every gaussian parameter).  It checks that every kernel of each path was
+launched (and no backward kernel by the forward step), that the render is
+exact (no dropped tiles), that all gradients are finite, and that the
+images and the gradients agree with the port's plain path.  Any
+disagreement raises.
 
 Output: phase reports, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with per-kernel launches, max |Δ|, kernel / plain
 times and the roofline bound, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result where there is no CUDA device.  The top
-rows of a device profile of one step are printed with the phase reports.
+rows of a device profile of one forward step and one train step are
+printed with the phase reports.
 """
 
 from __future__ import annotations
@@ -35,12 +41,23 @@ ITERS = 5
 # conic quadratic, exp, opacity, clamp) is evaluated for every entry of an
 # applied chunk; the blend (w = αT, four FMAs, T·(1-α)) only where α > 0
 ALPHA_FLOPS, BLEND_FLOPS = 15, 11
+# the gradient of one (pixel, entry) pair with α > 0: b = ct·rgbd, w, the
+# prefix and suffix, dalpha, the 10 payload-row terms and the T update
+# (42), and the pair's share of the 10 sums over the tile's pixels (10)
+GRAD_FLOPS = 52
 # H100 SXM published peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 TOL = 1e-4   # kernel vs plain: float32 products accumulated in another
              # order (per-pixel sequential vs cumprod / log space) over up
              # to 1,152 entries; depth rows are held to TOL × max depth
+TOL_GRAD = 2e-4  # gradients, kernel vs plain: each payload row (and each
+             # scene field) within TOL_GRAD × its largest plain gradient.
+             # The plain backward is autograd through the plain forward; in
+             # float32 it is held to the same bound against a float64 run on
+             # near-opaque tiles with random cotangents
+             # (tests/test_torch_grad.py), while the kernels' suffix sums
+             # are taken against the forward's own accumulators
 
 
 def log(msg=""):
@@ -82,6 +99,24 @@ def bound(nbytes, flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def check_rows(name, got, want, what):
+    """Each payload row (axis -2) of ``got`` within TOL_GRAD × that row's
+    largest |want|; returns the max |Δ| over all rows."""
+    worst = 0.0
+    for r in range(want.shape[-2]):
+        g, w = got[..., r, :], want[..., r, :]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+        if not err <= TOL_GRAD * scale:
+            raise AssertionError(f"{name} {what} row {r}: max|Δ| {err} > "
+                                 f"{TOL_GRAD} × {scale}")
+    err = float((got - want).abs().max())
+    log(f"  {name} {what}: max|Δ| = {err:.3e}, largest per-row max|Δ| / "
+        f"max|g| = {worst:.3e} (tolerance {TOL_GRAD:.1e})")
+    return err
+
+
 def check(name, got, want, atol, what):
     err = float((got - want).abs().max())
     log(f"  {name} {what}: max|Δ| = {err:.3e} (tolerance {atol:.1e})")
@@ -92,6 +127,7 @@ def check(name, got, want, atol, what):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a "
@@ -202,6 +238,34 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by})")
     kernels.append(k1)
 
+    # 3b. K1b at full size, for a numpy-seeded cotangent ----------------------
+    log("K1b composite_static_bwd vs composite_static_bwd_plain:")
+    ct1 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=tuple(out_k.shape)).astype(np.float32), device=dev)
+    a1b = (pay, counts, skip, ct1, out_k, car_k, *a1[3:])
+    g_k = composite.composite_static_bwd(*a1b)
+    g_p = composite.composite_static_bwd_plain(pay, counts, skip, ct1,
+                                               *a1[3:])
+    e1b = check_rows("K1b", g_k, g_p, "payload grad")
+    if not bool(torch.isfinite(g_k).all()):
+        raise AssertionError("K1b: gradient not finite")
+    # reads: applied payload columns, counts/skip, 5 channels each of ct and
+    # out, carries; writes every gradient column once
+    b_ms, b_by = bound(entries * 40 + T * 8 + T * P_ * (2 * 5 + nc) * 4
+                       + T * 10 * K * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k1b = dict(name="composite_static_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite.py:277",
+               max_abs_err=e1b,
+               ms=cuda_ms(lambda: composite.composite_static_bwd(*a1b), 20),
+               plain_ms=cuda_ms(lambda: composite.composite_static_bwd_plain(
+                   pay, counts, skip, ct1, *a1[3:]), 3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms, "
+        f"plain {k1b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernels.append(k1b)
+
     # 4. K2 at full size --------------------------------------------------------
     a2 = seen["k2"]
     spay, dpay, ids, cs_pad, cd = a2[:5]
@@ -250,9 +314,71 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by})")
     kernels.append(k2)
 
-    # 5. the main path, timed ------------------------------------------------------
-    composite.launches = 0
-    composite_sel.launches = 0
+    # 4b. K2b at full size, for a numpy-seeded cotangent on the selected rows -
+    B_, TT = ids.shape
+    log(f"K2b composite_pair_sel_bwd vs composite_pair_sel_bwd_plain "
+        f"(all {B_ * TT} slots; the plain version 8 envs at a time):")
+    ct2 = torch.zeros_like(out_k)
+    ct2[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(B_, TT, 5, P_)).astype(np.float32), device=dev)
+    ct2[:, T1 - 1] = 0.0                       # the trash row: pads only
+    a2b = (spay, dpay, ids, cs_pad, cd, ct2, out_k, *a2[5:])
+    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
+
+    def k2b_plain():
+        g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
+        for b0 in range(0, B_, 8):
+            sl = slice(b0, b0 + 8)
+            s_, d_ = composite_sel.composite_pair_sel_bwd_plain(
+                spay, dpay[sl], ids[sl], cs_pad, cd[sl], ct2[sl], *a2[5:])
+            g_s += s_
+            g_d[sl] = d_
+        return g_s, g_d
+
+    gs_p, gd_p = k2b_plain()
+    e2b = max(check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
+                         "static grad, summed per tile"),
+              check_rows("K2b", gd_k, gd_p, "dynamic grad"))
+    if not (bool(torch.isfinite(gs_k).all()) and bool(torch.isfinite(gd_k).all())):
+        raise AssertionError("K2b: gradient not finite")
+    if bool(gs_k[T1 - 1].any()) or bool(gd_k[~real].any()):
+        raise AssertionError("K2b: pad slots got a nonzero gradient")
+    # reads as K2f plus 5 channels each of ct and out at every written row;
+    # writes the per-slot static and dynamic gradients once
+    Ks, Kd = spay.shape[-1], dpay.shape[-1]
+    b_ms, b_by = bound(int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
+                       + ids.numel() * 8 + T1 * 4 + rows_written * 2 * 5 * P_ * 4
+                       + ids.numel() * 10 * (Ks + Kd) * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k2b = dict(name="composite_pair_sel_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_sel_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:633",
+               max_abs_err=e2b,
+               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd_slots(
+                   *a2b), 10),
+               plain_ms=cuda_ms(k2b_plain, 1, warmup=0),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    sum_ms = cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b), 10)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k2b['ms']:.4f} ms "
+        f"(with the per-tile index_add_: {sum_ms:.4f} ms), plain "
+        f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernels.append(k2b)
+    # free the checks' tensors before the forward step's peak-memory reading
+    del ct1, a1b, g_k, g_p, ct2, a2b, gs_k, gd_k, gs_p, gd_p
+
+    # 5. the main path forward, timed ----------------------------------------
+    def reset_counts():
+        for m in (composite, composite_sel):
+            m.launches = 0
+            m.launches_bwd = 0
+
+    def counts_now():
+        return {"composite_static": composite.launches,
+                "composite_pair_sel": composite_sel.launches,
+                "composite_static_bwd": composite.launches_bwd,
+                "composite_pair_sel_bwd": composite_sel.launches_bwd}
+
+    reset_counts()
     states = states0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
@@ -267,14 +393,11 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_host
-    launches = {"composite_static": composite.launches,
-                "composite_pair_sel": composite_sel.launches}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    launches = counts_now()
     step_ms = start.elapsed_time(end) / ITERS
     drops = torch.stack(drops).cpu()
     exact = bool((drops[:, 0] == 0).all())
-    log(f"main path: {ITERS} × (prepare + step_batch), B={B}, N={N}, "
+    log(f"main path, forward: {ITERS} × (prepare + step_batch), B={B}, N={N}, "
         f"sh{SH_DEGREE}, {RES}²: {step_ms:.2f} ms/step (events), "
         f"{wall / ITERS * 1e3:.2f} ms/step (host clock), "
         f"{B * 1e3 / step_ms:.1f} frames/s; exact={exact}, "
@@ -283,10 +406,13 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not exact:
         raise AssertionError(f"sel-dropped tiles: {drops[:, 0].tolist()}")
-    for name, n in launches.items():
-        if n < ITERS:
-            raise AssertionError(f"kernel {name} launched {n} times in "
-                                 f"{ITERS} steps of the main path")
+    for name in ("composite_static", "composite_pair_sel"):
+        if launches[name] < ITERS:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times in {ITERS} steps of the main path")
+    for name in ("composite_static_bwd", "composite_pair_sel_bwd"):
+        if launches[name]:
+            raise AssertionError(f"the forward step launched {name}")
     if imgs.shape != (B, 3, RES, RES) or not bool(torch.isfinite(imgs).all()):
         raise AssertionError(f"bad images {tuple(imgs.shape)}")
     # each phase alone; the render is step_batch with the control step
@@ -316,24 +442,115 @@ def main() -> int:
                              f"{drop_p.tolist()} (plain)")
 
     # device profile of one step (where the time goes) -------------------------
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cache = prepare(scene)
-        _ = step(cache, scene, states0, actions)
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
-    table = avg.table(sort_by="self_cuda_time_total", row_limit=11)
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in avg if str(e.device_type).endswith("CUDA"))
-    log(f"profile of one step: device time {dev_us / 1e3:.2f} ms of "
-        f"{step_ms:.2f} ms/step, idle share {1 - dev_us / 1e3 / step_ms:.3f}")
-    for line in table.splitlines()[:14]:
-        log("  " + line)
+    def profiled(label, fn, ms_per_step):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        table = avg.table(sort_by="self_cuda_time_total", row_limit=11)
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                     for e in avg if str(e.device_type).endswith("CUDA"))
+        log(f"profile of one {label}: device time {dev_us / 1e3:.2f} ms of "
+            f"{ms_per_step:.2f} ms/step, idle share "
+            f"{1 - dev_us / 1e3 / ms_per_step:.3f}")
+        for line in table.splitlines()[:14]:
+            log("  " + line)
 
-    log(f"image max|Δ| vs plain: {e_img:.3e}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    profiled("step", lambda: step(prepare(scene), scene, states0, actions),
+             step_ms)
+
+    # 6. the main path's train step, timed ------------------------------------
+    fields = [n for n, f in zip(scene._fields, scene) if f is not None]
+    reset_counts()
+    states = states0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_host = time.perf_counter()
+    start.record()
+    out_train = []
+    for _ in range(ITERS):
+        states, loss, n_drop, grads = entry.loss_and_grads(
+            prepare, step, scene, states, actions)
+        out_train.append((loss, n_drop, grads))
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    train_ms = start.elapsed_time(end) / ITERS
+    drops = torch.stack([o[1] for o in out_train]).cpu()
+    exact = bool((drops[:, 0] == 0).all())
+    finite = all(bool(torch.isfinite(getattr(g, n)).all())
+                 for _, _, g in out_train for n in fields)
+    log(f"main path, train: {ITERS} × loss_and_grads (prepare + step_batch + "
+        f"mean(imgs²) + its gradient to {', '.join(fields)}): "
+        f"{train_ms:.2f} ms/step (events), {wall / ITERS * 1e3:.2f} ms/step "
+        f"(host clock), {B * 1e3 / train_ms:.1f} frames/s; exact={exact}, "
+        f"grads finite={finite}, loss {float(out_train[-1][0]):.6f}, "
+        f"launches {launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not exact:
+        raise AssertionError(f"sel-dropped tiles: {drops[:, 0].tolist()}")
+    if not finite:
+        raise AssertionError("a gradient of the train step is not finite")
+    for name, n in launches.items():
+        if n < ITERS:
+            raise AssertionError(f"kernel {name} launched {n} times in "
+                                 f"{ITERS} train steps of the main path")
+    # its forward and backward alone (the backward on a kept graph)
+    leaves = type(scene)(*(None if f is None else f.detach().requires_grad_()
+                           for f in scene))
+    leaf_list = [f for f in leaves if f is not None]
+
+    def forward():
+        _, imgs_, _ = step(prepare(leaves), leaves, states0, actions)
+        return torch.mean(imgs_ ** 2)
+
+    fwd_ms = cuda_ms(forward, 3)
+    loss0 = forward()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss0, leaf_list,
+                                                 retain_graph=True), 3)
+    del loss0
+    log(f"breakdown (events, each phase alone): forward with the graph kept "
+        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; sum "
+        f"{fwd_ms + bwd_ms:.2f} ms vs {train_ms:.2f} ms/step")
+    profiled("train step", lambda: entry.loss_and_grads(
+        prepare, step, scene, states0, actions), train_ms)
+
+    # 7. the train step's gradients against the port's plain path, 8 envs ------
+    _, loss_k, drop_k, g_k = entry.loss_and_grads(prepare, step, scene, s8,
+                                                  actions[:8])
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain), \
+            replaced(composite_sel, "composite_pair_sel",
+                     composite_sel.composite_pair_sel_plain):
+        _, loss_p, drop_p, g_p = entry.loss_and_grads(prepare, step, scene,
+                                                      s8, actions[:8])
+    if drop_k.tolist() != drop_p.tolist():
+        raise AssertionError(f"n_drop {drop_k.tolist()} (kernels) vs "
+                             f"{drop_p.tolist()} (plain)")
+    log(f"train step vs the plain path (first 8 envs): loss {float(loss_k)} "
+        f"vs {float(loss_p)}")
+    e_grad = 0.0
+    for n in fields:
+        got, want = getattr(g_k, n), getattr(g_p, n)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        log(f"  grad {n}: max|Δ| = {err:.3e}, max|g| = {scale:.3e} "
+            f"(tolerance {TOL_GRAD:.1e} × max|g|)")
+        if not err <= TOL_GRAD * scale:
+            raise AssertionError(f"train-step gradient of {n} disagrees with "
+                                 f"the plain path: {err} > {TOL_GRAD} × "
+                                 f"{scale}")
+        e_grad = max(e_grad, err / scale)
+
+    log(f"image max|Δ| vs plain: {e_img:.3e}; train-step gradients max|Δ| / "
+        f"max|g|: {e_grad:.3e}; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
-"""Entry points of the port: the pushT splat scene and the batched env step.
+"""Entry points of the port: the pushT splat scene, the batched env step
+and its train step.
 
 Port of ``_build_scene`` and ``_make_step_cached_batch`` of the reference's
 entry module (``__graft_entry__.py``): a batch of pushT envs under one fixed
 camera, the static background binned and composited once per step (kernel
 K1) and each env's touched tiles composited against it (kernel K2).
+``loss_and_grads`` is the train step of the reference's bench
+(``bench.py``): the mean-square image loss and its gradient to every
+gaussian parameter, through the backward kernels K1b and K2b.
 
 Everything runs on ``device`` ("cuda" by default); ``device="cpu"`` runs
 the plain PyTorch path (what the tests compare against the reference).
@@ -109,7 +113,8 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
                            raster: RasterConfig, dyn_capacity: int = 128,
                            sel_tiles: int = 128, dyn_max_tiles: int = 9,
                            device="cuda"):
-    """The batched pushT splat env step (forward).
+    """The batched pushT splat env step, differentiable in the scene
+    (:func:`loss_and_grads` takes its gradient).
 
     Returns ``(prepare, step_batch, params)``:
 
@@ -188,3 +193,25 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
         return new_states, imgs, n_drop
 
     return prepare, step_batch, params
+
+
+def loss_and_grads(prepare, step_batch, scene: GaussianScene, states,
+                   actions):
+    """One train step of the batched env, as the reference's bench takes it
+    (``jax.value_and_grad`` of ``mean(imgs ** 2)`` over the scene):
+    ``prepare`` and ``step_batch`` from :func:`make_step_cached_batch`.
+
+    The scene's tensors become leaves that require grad; the forward is
+    ``prepare`` + ``step_batch``, and the backward runs through K2b and K1b
+    on the card (their plain versions on the CPU).  Returns
+    ``(new_states, loss, n_drop, grads)``, with ``grads`` a GaussianScene
+    of the loss's gradients (None where the scene has no ``sh_rest``)."""
+    leaves = GaussianScene(*(None if f is None else
+                             f.detach().requires_grad_() for f in scene))
+    new_states, imgs, n_drop = step_batch(prepare(leaves), leaves, states,
+                                          actions)
+    loss = torch.mean(imgs ** 2)
+    fields = [f for f in leaves if f is not None]
+    got = iter(torch.autograd.grad(loss, fields))
+    grads = GaussianScene(*(None if f is None else next(got) for f in leaves))
+    return new_states, loss.detach(), n_drop, grads

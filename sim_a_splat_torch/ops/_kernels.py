@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("composite", "composite_sel")
+KERNEL_SOURCES = ("composite", "composite_bwd", "composite_sel",
+                  "composite_sel_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +95,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The launch function ``symbol`` of ``csrc/<name>.cu``'s library, with
+    its ctypes ``argtypes`` set (pointers as ``c_void_p``, so none is cut to
+    32 bits) and an int result: the CUDA error code of the launch."""
+    f = getattr(load(name), symbol)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return f
 
 
 def check(rc: int, what: str) -> None:

@@ -20,7 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
-from test_torch_helpers import np_of, tile_lists
+from test_torch_helpers import k1_inputs, k2_inputs, np_of
 
 from sim_a_splat_tpu.ops import pallas_composite as jk1
 from sim_a_splat_tpu.ops.pallas_composite_sel import composite_pair_sel as jk2
@@ -31,17 +31,9 @@ TS, TX, TY = 16, 3, 2
 T = TX * TY
 
 
-def _k1_inputs(seed=0, K=384):
-    rng = np.random.default_rng(seed)
-    counts = np.asarray([K, 200, 0, 130, K, 300], np.int32)
-    skip = np.asarray([1, 1, 1, 1, 1, 0], np.int32)
-    pay = tile_lists(rng, range(T), counts, K, TS, TX, opaque=(4,))
-    return pay, counts, skip
-
-
 @pytest.mark.parametrize("sigma_cutoff,term_eps", [(3.0, 1e-4), (None, None)])
 def test_k1_plain_matches_pallas(sigma_cutoff, term_eps):
-    pay, counts, skip = _k1_inputs()
+    pay, counts, skip = k1_inputs()
     nc = pay.shape[2] // composite.CHUNK
     pmin = None if sigma_cutoff is None else -0.5 * sigma_cutoff**2
     ref_out, ref_car = jk1._call_fwd(jnp.asarray(pay), jnp.asarray(counts),
@@ -67,22 +59,9 @@ def test_k1_plain_matches_pallas(sigma_cutoff, term_eps):
     assert int(hits[3]) == int((a3 > 0).sum()) > 0
 
 
-def _k2_inputs(seed=1, Ks=256, Kd=128):
-    rng = np.random.default_rng(seed)
-    counts_s = np.asarray([Ks, 100, 0, 200, Ks, 150, 0], np.int32)  # + trash
-    spay = np.zeros((T + 1, 10, Ks), np.float32)
-    spay[:T] = tile_lists(rng, range(T), counts_s[:T], Ks, TS, TX,
-                          opaque=(4,))
-    ids = np.asarray([[0, 4, 3, T], [1, 5, 0, T]], np.int32)
-    counts_d = np.asarray([[40, 128, 7, 0], [60, 128, 0, 0]], np.int32)
-    B, TT = ids.shape
-    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, TS, TX)
-    return spay, dpay.reshape(B, TT, 10, Kd), ids, counts_s, counts_d
-
-
 @pytest.mark.parametrize("sigma_cutoff,term_eps", [(3.0, 1e-4), (None, None)])
 def test_k2_plain_matches_pallas(sigma_cutoff, term_eps):
-    spay, dpay, ids, cs, cd = _k2_inputs()
+    spay, dpay, ids, cs, cd = k2_inputs()
     ref = jk2(jnp.asarray(spay), jnp.asarray(dpay), jnp.asarray(ids),
               jnp.asarray(cs), jnp.asarray(cd), TS, TX, sigma_cutoff, True,
               term_eps, "split", False)
@@ -111,7 +90,7 @@ def test_k2_plain_matches_pallas(sigma_cutoff, term_eps):
 
 
 def test_wrappers_run_plain_on_cpu():
-    pay, counts, skip = _k1_inputs(seed=2)
+    pay, counts, skip = k1_inputs(seed=2)
     args = (torch.as_tensor(pay), torch.as_tensor(counts),
             torch.as_tensor(skip), TS, TX, 3.0, 1e-4)
     before = composite.launches
@@ -120,7 +99,7 @@ def test_wrappers_run_plain_on_cpu():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert composite.launches == before        # no kernel on the CPU
 
-    k2 = [torch.as_tensor(a) for a in _k2_inputs(seed=3)]
+    k2 = [torch.as_tensor(a) for a in k2_inputs(seed=3)]
     before = composite_sel.launches
     out = composite_sel.composite_pair_sel(*k2, TS, TX, 3.0, 1e-4)
     ref = composite_sel.composite_pair_sel_plain(*k2, TS, TX, 3.0, 1e-4)
@@ -131,14 +110,14 @@ def test_wrappers_run_plain_on_cpu():
 
 
 def test_wrappers_check_inputs():
-    spay, dpay, ids, cs, cd = (torch.as_tensor(a) for a in _k2_inputs())
+    spay, dpay, ids, cs, cd = (torch.as_tensor(a) for a in k2_inputs())
     with pytest.raises(NotImplementedError):
         composite_sel.composite_pair_sel(spay[None].expand(2, -1, -1, -1),
                                          dpay, ids, cs, cd, TS, TX)
     with pytest.raises(ValueError):
         composite_sel.composite_pair_sel(spay, dpay, ids.long(), cs, cd, TS,
                                          TX)
-    pay, counts, skip = (torch.as_tensor(a) for a in _k1_inputs())
+    pay, counts, skip = (torch.as_tensor(a) for a in k1_inputs())
     with pytest.raises(ValueError):
         composite.composite_static(pay.double(), counts, skip, TS, TX)
     with pytest.raises(ValueError):

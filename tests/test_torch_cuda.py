@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain versions, and the
-port's step on the card against its CPU path.
+"""Kernels K1f, K1b, K2f and K2b on the card against their plain versions,
+and the port's step and train step on the card against its CPU path.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import).  This file imports no
@@ -11,15 +11,25 @@ Tolerances: the kernel and the plain version compute every alpha with the
 same float32 operations (no contraction into FMAs, the same ``expf``), so
 they differ only in how transmittance products and colour sums are
 accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
-log space in the plain versions: atol 2e-5 for K1, atol 5e-5 / rtol 1e-4
-for K2 (the CPU tests' bounds against the reference).
+log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
+for K2f (the CPU tests' bounds against the reference).  Gradients: each
+payload row within 2e-4 × that row's largest plain gradient.  The plain
+backward is autograd through the plain forward, held to the same bound
+against a float64 run on these near-opaque tiles with random cotangents
+(``test_torch_grad.py``); the kernels' suffix sums are taken against the
+forward's own accumulators, so they do not cancel.  The train step's
+gradients on the card are held to the CPU path's at 2e-4 × each field's
+largest gradient.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import tile_lists, torch_raster
+from test_torch_helpers import (
+    K_T, K_TS, K_TX, assert_rows_close, k1_inputs, k2_inputs,
+    selected_cotangent, torch_raster,
+)
 
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops import composite, composite_sel
@@ -27,7 +37,9 @@ from sim_a_splat_torch.physics import pusht
 
 pytestmark = pytest.mark.cuda
 
-TS, TX = 16, 3
+TS, TX = K_TS, K_TX
+GRAD_REL = 2e-4
+SETTINGS = [(3.0, 1e-4), (None, None)]
 
 
 @pytest.fixture
@@ -38,12 +50,7 @@ def dev():
 
 
 def test_k1_kernel_matches_plain(dev):
-    rng = np.random.default_rng(0)
-    K, T = 384, 6
-    counts = np.asarray([K, 200, 0, 130, K, 300], np.int32)
-    skip = np.asarray([1, 1, 1, 1, 1, 0], np.int32)
-    pay = tile_lists(rng, range(T), counts, K, TS, TX, opaque=(4,))
-    args = [torch.as_tensor(a, device=dev) for a in (pay, counts, skip)]
+    args = [torch.as_tensor(a, device=dev) for a in k1_inputs()]
     before = composite.launches
     out, car = composite.composite_static(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
@@ -52,21 +59,42 @@ def test_k1_kernel_matches_plain(dev):
                                                         1e-4)
     torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=0)
     torch.testing.assert_close(car, ref_car, atol=2e-5, rtol=0)
-    with pytest.raises(RuntimeError, match="backward"):
-        composite.composite_static(args[0].requires_grad_(), *args[1:], TS, TX)
+    # an input that requires grad goes through K1f, then K1b on backward
+    leaf = args[0].clone().requires_grad_()
+    before_bwd = composite.launches_bwd
+    out_g, _ = composite.composite_static(leaf, *args[1:], TS, TX, 3.0, 1e-4)
+    assert composite.launches == before + 2
+    ct = torch.randn(out_g.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    (out_g * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert composite.launches_bwd == before_bwd + 1
+    want = composite.composite_static_bwd_plain(*args, ct, TS, TX, 3.0, 1e-4)
+    assert_rows_close(leaf.grad, want, GRAD_REL,
+                      "K1 grad through the Function")
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k1b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
+    args = [torch.as_tensor(a, device=dev) for a in k1_inputs()]
+    out, car = composite.composite_static(*args, TS, TX, sigma_cutoff,
+                                          term_eps)
+    ct = torch.as_tensor(np.random.default_rng(10).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    before = composite.launches_bwd
+    got = composite.composite_static_bwd(*args, ct, out, car, TS, TX,
+                                         sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    assert composite.launches_bwd == before + 1
+    want = composite.composite_static_bwd_plain(*args, ct, TS, TX,
+                                                sigma_cutoff, term_eps)
+    assert_rows_close(got, want, GRAD_REL, "K1b")
+    assert not got[5].any() and not got[2].any()    # skipped, empty tiles
+    assert not got[3, :, 130:].any()                # past the count
 
 
 def test_k2_kernel_matches_plain(dev):
-    rng = np.random.default_rng(1)
-    Ks, Kd, T = 256, 128, 6
-    cs = np.asarray([Ks, 100, 0, 200, Ks, 150, 0], np.int32)
-    spay = np.zeros((T + 1, 10, Ks), np.float32)
-    spay[:T] = tile_lists(rng, range(T), cs[:T], Ks, TS, TX, opaque=(4,))
-    ids = np.asarray([[0, 4, 3, T], [1, 5, 0, T]], np.int32)
-    cd = np.asarray([[40, 128, 7, 0], [60, 128, 0, 0]], np.int32)
-    dpay = tile_lists(rng, ids.reshape(-1), cd.reshape(-1), Kd, TS,
-                      TX).reshape(2, 4, 10, Kd)
-    args = [torch.as_tensor(a, device=dev) for a in (spay, dpay, ids, cs, cd)]
+    args = [torch.as_tensor(a, device=dev) for a in k2_inputs()]
     before = composite_sel.launches
     out = composite_sel.composite_pair_sel(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
@@ -78,20 +106,77 @@ def test_k2_kernel_matches_plain(dev):
                                    rtol=1e-4)
 
 
-def test_step_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k2b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
+    args = [torch.as_tensor(a, device=dev) for a in k2_inputs()]
+    ids = args[2]
+    out = composite_sel.composite_pair_sel(*args, TS, TX, sigma_cutoff,
+                                           term_eps)
+    ct = torch.as_tensor(selected_cotangent(
+        np.random.default_rng(11), ids.cpu().numpy(), tuple(out.shape)),
+        device=dev)
+    before = composite_sel.launches_bwd
+    gs, gd = composite_sel.composite_pair_sel_bwd_slots(
+        *args, ct, out, TS, TX, sigma_cutoff, term_eps)
+    g_spay, g_dpay = composite_sel.composite_pair_sel_bwd(
+        *args, ct, out, TS, TX, sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    assert composite_sel.launches_bwd == before + 2
+    want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
+        *args, ct, TS, TX, sigma_cutoff, term_eps)
+    assert_rows_close(g_spay[:K_T], want_s[:K_T], GRAD_REL,
+                      "K2b static, per tile")
+    assert_rows_close(g_dpay, want_d, GRAD_REL, "K2b dynamic")
+    # per slot: pads are zero; the per-tile sum is the slots' sum
+    assert not gs[:, 3].any() and not gd[:, 3].any()
+    assert not g_spay[K_T].any()
+    torch.testing.assert_close(
+        g_spay, torch.zeros_like(g_spay).index_add_(
+            0, ids.reshape(-1).long(), gs.reshape(-1, *gs.shape[2:])))
+
+
+def _scene_and_states(device):
     leaves = entry.build_scene_numpy(256, 64, 32, seed=0, sh_degree=3)
     vec = np.asarray([[120, 200, 149, 256, 0.3], [60, 400, 180, 300, -1.0]],
                      np.float32)
     actions = np.asarray([[149, 256], [170, 290]], np.float32)
+    g = entry.graph_from_numpy(leaves, device=device)
+    prep, step, P = entry.make_step_cached_batch(
+        g, 64, 64, torch_raster(), dyn_capacity=128, sel_tiles=8,
+        device=device)
+    states = pusht.set_state(P, torch.as_tensor(vec, device=device))
+    return g, prep, step, states, torch.as_tensor(actions, device=device)
+
+
+def test_step_on_card_matches_cpu(dev):
     imgs = {}
     for d in ("cpu", dev):
-        g = entry.graph_from_numpy(leaves, device=d)
-        prep, step, P = entry.make_step_cached_batch(
-            g, 64, 64, torch_raster(), dyn_capacity=128, sel_tiles=8,
-            device=d)
-        states = pusht.set_state(P, torch.as_tensor(vec, device=d))
-        _, imgs[str(d)], drop = step(prep(g.scene), g.scene, states,
-                                     torch.as_tensor(actions, device=d))
+        g, prep, step, states, actions = _scene_and_states(d)
+        _, imgs[str(d)], drop = step(prep(g.scene), g.scene, states, actions)
         assert int(drop[0]) == 0
     torch.testing.assert_close(imgs["cuda"].cpu(), imgs["cpu"], atol=1e-4,
                                rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    res = {}
+    for d in ("cpu", dev):
+        g, prep, step, states, actions = _scene_and_states(d)
+        launched = (composite.launches_bwd, composite_sel.launches_bwd)
+        _, loss, drop, grads = entry.loss_and_grads(prep, step, g.scene,
+                                                    states, actions)
+        assert int(drop[0]) == 0
+        res[str(d)] = (loss, grads)
+        if d == dev:
+            assert (composite.launches_bwd, composite_sel.launches_bwd) == \
+                (launched[0] + 1, launched[1] + 1)
+    torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
+                               rtol=1e-5, atol=0)
+    for name, got, want in zip(res["cpu"][1]._fields, res["cuda"][1],
+                               res["cpu"][1]):
+        got = got.cpu()
+        assert torch.isfinite(got).all(), name
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= GRAD_REL * scale, \
+            f"{name}: max|Δ| {err:.3e} > {GRAD_REL} × {scale:.3e}"

@@ -95,3 +95,62 @@ def tile_lists(rng, tile_ids, counts, K, ts, tx, opaque=(), depth_step=0.25):
                   1 / (sx**2 * det), -rho / (sx * sy * det), 1 / (sy**2 * det),
                   *rng.uniform(0, 1, (3, K)), depth, op]
     return pay
+
+
+# tile grid of the kernel tests: 3 × 2 tiles of 16 × 16 pixels
+K_TS, K_TX, K_T = 16, 3, 6
+
+
+def k1_inputs(seed=0, K=384):
+    """K1 inputs (payload (6, 10, K), counts, skip) that cover a full tile,
+    tiles cut by their counts mid-chunk, an empty tile, a nearly opaque
+    tile that stops early and a skipped tile."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray([K, 200, 0, 130, K, 300], np.int32)
+    skip = np.asarray([1, 1, 1, 1, 1, 0], np.int32)
+    pay = tile_lists(rng, range(K_T), counts, K, K_TS, K_TX, opaque=(4,))
+    return pay, counts, skip
+
+
+def k2_inputs(seed=1, Ks=256, Kd=128):
+    """K2 inputs (spay_pad, dpay, ids, counts_s_pad, counts_d) for two envs
+    of four slots: static tiles as in :func:`k1_inputs` plus the zero trash
+    row, a nearly opaque tile that stops early, a real slot without dynamic
+    entries, a pad slot per env, and static and dynamic depths on one grid
+    so that they tie."""
+    rng = np.random.default_rng(seed)
+    counts_s = np.asarray([Ks, 100, 0, 200, Ks, 150, 0], np.int32)  # + trash
+    spay = np.zeros((K_T + 1, 10, Ks), np.float32)
+    spay[:K_T] = tile_lists(rng, range(K_T), counts_s[:K_T], Ks, K_TS, K_TX,
+                            opaque=(4,))
+    ids = np.asarray([[0, 4, 3, K_T], [1, 5, 0, K_T]], np.int32)
+    counts_d = np.asarray([[40, 128, 7, 0], [60, 128, 0, 0]], np.int32)
+    B, TT = ids.shape
+    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, K_TS,
+                      K_TX)
+    return spay, dpay.reshape(B, TT, 10, Kd), ids, counts_s, counts_d
+
+
+def selected_cotangent(rng, ids, shape):
+    """Cotangent of K2's out (B, T+1, 8, P) from ``rng``: normal on the rows
+    the slots select (channels 0-4, the ones the output defines), zero on
+    every other row and on the trash row, as the main path's select gives."""
+    ct = np.zeros(shape, np.float32)
+    T = shape[1] - 1
+    for b, row in enumerate(ids):
+        for t in row[row < T]:
+            ct[b, t, :5] = rng.normal(size=(5, shape[-1]))
+    return ct
+
+
+def assert_rows_close(got, want, rel, what):
+    """Each payload row (axis -2) of ``got`` within ``rel`` × that row's
+    largest |want| (numpy arrays or tensors on any device)."""
+    got, want = np_of(got), np_of(want)
+    for r in range(want.shape[-2]):
+        g, w = got[..., r, :], want[..., r, :]
+        scale = float(np.abs(w).max())
+        assert scale > 0, f"{what} row {r}: reference gradient is all zero"
+        err = float(np.abs(g - w).max())
+        assert err <= rel * scale, \
+            f"{what} row {r}: max|Δ| {err:.3e} > {rel} × {scale:.3e}"
