@@ -6,17 +6,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
-each against its plain PyTorch version at the shapes of the main path
-(K1f, K1b, K2f, K2b), then drives the main path (B=128 envs, N=100k
-gaussians, SH degree 3, 256×256, fixed camera) twice through the port's
-entry points: the batched pushT splat env step, forward
-(``entry.make_step_cached_batch``), and the train step
-(``entry.loss_and_grads``: the mean-square image loss and its gradient to
-every gaussian parameter).  It checks that every kernel of each path was
-launched (and no backward kernel by the forward step), that the render is
-exact (no dropped tiles), that all gradients are finite, and that the
-images and the gradients agree with the port's plain path.  Any
-disagreement raises.
+each against its plain PyTorch version at the shapes of its path, and
+drives two paths through the port's entry points, each forward and in
+training, at N=100k gaussians, SH degree 3, 256×256:
+
+- the fixed camera (K1f, K1b, K2f, K2b), B=128 envs: the batched pushT
+  splat env step (``entry.make_step_cached_batch``) and its train step
+  (``entry.loss_and_grads``: the mean-square image loss and its gradient
+  to every gaussian parameter);
+- the moving camera attached to each env's agent (K3f, K3b): the R=32
+  frame candidate-cache rollout (``entry.make_step_moving_cached``) at
+  B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``),
+  and one frame against the full per-frame rebin
+  (``entry.make_step_moving``).
+
+It checks that every kernel of each path was launched (and no backward
+kernel by a forward run), that the fixed-camera render is exact (no
+dropped tiles), that all gradients are finite, and that the images and the
+gradients agree with the port's plain path.  Any disagreement raises.
 
 Output: phase reports, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with per-kernel launches, max |Δ|, kernel / plain
@@ -37,6 +44,12 @@ import time
 B, N, RES, SH_DEGREE = 128, 100_000, 256, 3
 SEL_TILES, DYN_CAP, DYN_M = 36, 128, 9
 ITERS = 5
+# the moving camera (bench.py's moving_camera / moving_fwd variants)
+B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 2
+MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
+             cam_height=-420.0, z_split=0.0)
+TOL_REBIN = (2e-5, 1e-4)  # atol, rtol: the reference's own bound for the
+                          # cached render against the full rebin
 # FLOP per (pixel, list entry) pair, exp as one: the alpha (dx, dy, the
 # conic quadratic, exp, opacity, clamp) is evaluated for every entry of an
 # applied chunk; the blend (w = αT, four FMAs, T·(1-α)) only where α > 0
@@ -134,7 +147,9 @@ def main() -> int:
               "CUDA device", file=sys.stderr)
         return 2
     from sim_a_splat_torch import entry
-    from sim_a_splat_torch.ops import _kernels, composite, composite_sel
+    from sim_a_splat_torch.ops import (
+        _kernels, composite, composite_sel, composite_single, rasterize_moving,
+    )
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
     from sim_a_splat_torch.physics import pusht
 
@@ -368,7 +383,7 @@ def main() -> int:
 
     # 5. the main path forward, timed ----------------------------------------
     def reset_counts():
-        for m in (composite, composite_sel):
+        for m in (composite, composite_sel, composite_single):
             m.launches = 0
             m.launches_bwd = 0
 
@@ -376,7 +391,12 @@ def main() -> int:
         return {"composite_static": composite.launches,
                 "composite_pair_sel": composite_sel.launches,
                 "composite_static_bwd": composite.launches_bwd,
-                "composite_pair_sel_bwd": composite_sel.launches_bwd}
+                "composite_pair_sel_bwd": composite_sel.launches_bwd,
+                "composite_sel_single": composite_single.launches,
+                "composite_sel_single_bwd": composite_single.launches_bwd}
+
+    fixed_names = ("composite_static", "composite_pair_sel",
+                   "composite_static_bwd", "composite_pair_sel_bwd")
 
     reset_counts()
     states = states0
@@ -410,7 +430,8 @@ def main() -> int:
         if launches[name] < ITERS:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times in {ITERS} steps of the main path")
-    for name in ("composite_static_bwd", "composite_pair_sel_bwd"):
+    for name in ("composite_static_bwd", "composite_pair_sel_bwd",
+                 "composite_sel_single", "composite_sel_single_bwd"):
         if launches[name]:
             raise AssertionError(f"the forward step launched {name}")
     if imgs.shape != (B, 3, RES, RES) or not bool(torch.isfinite(imgs).all()):
@@ -482,6 +503,7 @@ def main() -> int:
     launches = counts_now()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    launches = {n: launches[n] for n in fixed_names}
     train_ms = start.elapsed_time(end) / ITERS
     drops = torch.stack([o[1] for o in out_train]).cpu()
     exact = bool((drops[:, 0] == 0).all())
@@ -550,13 +572,307 @@ def main() -> int:
         e_grad = max(e_grad, err / scale)
 
     log(f"image max|Δ| vs plain: {e_img:.3e}; train-step gradients max|Δ| / "
-        f"max|g|: {e_grad:.3e}; total {time.perf_counter() - t_start:.1f} s")
+        f"max|g|: {e_grad:.3e}; {time.perf_counter() - t_start:.1f} s so far")
+    del out_train, g_k, g_p
+
+    # 8-11. the moving camera ------------------------------------------------
+    kernels += moving_camera(entry, composite, composite_single,
+                             rasterize_moving, pusht, graph, scene, P, gen,
+                             reset_counts, counts_now, profiled, dev)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def moving_camera(entry, composite, composite_single, rasterize_moving,
+                  pusht, graph, scene, P, gen, reset_counts, counts_now,
+                  profiled, dev):
+    """The moving-camera path: K3f/K3b against their plain versions at full
+    size, the B=32 forward rollout (timed, profiled, one frame against the
+    full rebin), the B=16 train rollout (timed, broken down) and its
+    gradients against the plain path.  Returns the K3f and K3b entries of
+    the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+    raster = RasterConfig(tile_size=16, tile_capacity=1024,
+                          max_tiles_per_gaussian=16, sigma_cutoff=3.0,
+                          term_eps=1e-4,
+                          buckets=((4, 0.80), (9, 0.12), (16, 0.08)))
+
+    def rollout_of(R):
+        return entry.make_step_moving_cached(graph, RES, RES, raster, R=R,
+                                             device=dev, **MV_KW)[0]
+
+    rollout, roll1, roll2, roll4 = (rollout_of(r) for r in (R_MV, 1, 2, 4))
+    st_fwd = pusht.reset(P, gen, B_MV_FWD)
+    st_train = pusht.PushTState(*(f[:B_MV_TRAIN] for f in st_fwd))
+    act = torch.tensor([[150.0, 250.0]], device=dev).expand(B_MV_FWD, 2)
+    act_train = act[:B_MV_TRAIN]
+    log(f"moving camera: N={N}, sh{SH_DEGREE}, {RES}², kc {MV_KW['kc']}, "
+        f"margin {MV_KW['margin']}, buckets {raster.buckets}, R={R_MV}")
+
+    # 8. K3f and K3b at full size, on one frame of a B=16 rollout ------------
+    seen = {}
+    real_k3 = composite_single.composite_sel_single
+
+    def capture(*args):
+        seen["k3"] = args
+        return real_k3(*args)
+
+    with torch.no_grad(), replaced(composite_single, "composite_sel_single",
+                                   capture):
+        roll2(scene, st_train, act_train)                    # also warm-up
+    torch.cuda.synchronize()
+    a3 = seen.pop("k3")
+    spay, ids, counts_pad = a3[:3]
+    Bk, T1, _, Km = spay.shape
+    T, P_ = T1 - 1, a3[3] ** 2
+    log(f"K3 composite_sel_single vs plain (spay {tuple(spay.shape)}):")
+    out_k = composite_single.composite_sel_single(*a3)
+    out_p, applied, hits = composite_single.composite_sel_single_plain(
+        *a3, return_work=True)
+    rows = [0, 1, 2, 4]
+    e3 = check("K3", out_k[:, :T, rows], out_p[:, :T, rows], TOL,
+               "rgb+trans")
+    dscale = max(1.0, float(spay[:, :, 8].abs().max()))
+    check("K3", out_k[:, :T, 3] / dscale, out_p[:, :T, 3] / dscale, TOL,
+          "depth_acc / max depth")
+    cnt = counts_pad[:, :T].long()
+    c0 = torch.arange(Km // composite.CHUNK, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(cnt[..., None] - c0, 0, composite.CHUNK)
+    used = torch.arange(len(c0), device=dev) < applied[..., None]
+    entries = int((per_chunk * used).sum())
+    blended = int(hits.sum())
+    # reads the applied payload columns, ids and counts; writes 8 rows of
+    # every named tile
+    nbytes = entries * 40 + ids.numel() * 8 + Bk * T * 8 * P_ * 4
+    b_ms, b_by = bound(nbytes,
+                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+    k3 = dict(name="composite_sel_single", route="cuda",
+              source="sim_a_splat_torch/csrc/composite_single.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:465",
+              max_abs_err=e3,
+              ms=cuda_ms(lambda: composite_single.composite_sel_single(*a3),
+                         20),
+              plain_ms=cuda_ms(
+                  lambda: composite_single.composite_sel_single_plain(*a3), 2),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  applied entries {entries} of {int(cnt.clamp(max=Km).sum())} "
+        f"active; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
+        f"blended (α > 0); kernel {k3['ms']:.4f} ms, plain "
+        f"{k3['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    log("K3b composite_sel_single_bwd vs composite_sel_single_bwd_plain "
+        "(the plain version 4 envs at a time):")
+    with torch.enable_grad():        # the training forward: row 5 is filled
+        out_s = composite_single.composite_sel_single(
+            spay.detach().requires_grad_(), *a3[1:]).detach()
+    ct3 = torch.zeros_like(out_s)
+    ct3[:, :T, :5] = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(Bk, T, 5, P_)).astype(np.float32), device=dev)
+    a3b = (spay, ids, counts_pad, ct3, out_s, *a3[3:])
+    g_k = composite_single.composite_sel_single_bwd(*a3b)
+
+    def k3b_plain():
+        g = torch.empty_like(spay)
+        for b0 in range(0, Bk, 4):
+            sl = slice(b0, b0 + 4)
+            g[sl] = composite_single.composite_sel_single_bwd_plain(
+                spay[sl], ids[sl], counts_pad[sl], ct3[sl], *a3[3:])
+        return g
+
+    g_p = k3b_plain()
+    e3b = check_rows("K3b", g_k[:, :T], g_p[:, :T], "payload grad")
+    if not bool(torch.isfinite(g_k).all()) or bool(g_k[:, T].any()):
+        raise AssertionError("K3b: gradient not finite, or the trash row "
+                             "got one")
+    # reads as K3f plus 5 channels each of ct and out at every named tile;
+    # writes the whole (B, T+1, 10, Km) gradient once
+    nbytes = (entries * 40 + ids.numel() * 8 + Bk * T * 2 * 5 * P_ * 4
+              + spay.numel() * 4)
+    b_ms, b_by = bound(nbytes,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k3b = dict(name="composite_sel_single_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_single_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:500",
+               max_abs_err=e3b,
+               ms=cuda_ms(lambda: composite_single.composite_sel_single_bwd(
+                   *a3b), 10),
+               plain_ms=cuda_ms(k3b_plain, 1, warmup=0),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k3b['ms']:.4f} ms "
+        f"(with the gradient's zero fill), plain {k3b['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    del a3, spay, ids, counts_pad, out_k, out_p, out_s, ct3, a3b, g_k, g_p
+
+    # 9. the forward rollout, B=32, timed ------------------------------------
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_host = time.perf_counter()
+    start.record()
+    flags = []
+    with torch.no_grad():
+        for _ in range(MV_ITERS):
+            _, loss, f = rollout(scene, st_fwd, act)
+            flags.append(f)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_host) / MV_ITERS
+    launches = counts_now()
+    ev_ms = start.elapsed_time(end) / MV_ITERS
+    flags = torch.stack(flags).cpu()
+    log(f"moving camera, forward: {MV_ITERS} × rollout (B={B_MV_FWD}, "
+        f"R={R_MV}): {ev_ms:.2f} ms/rollout (events), {wall * 1e3:.2f} "
+        f"ms/rollout (host clock), {B_MV_FWD * R_MV / wall:.1f} frames/s; "
+        f"loss {float(loss):.6f}, flags [severe, bounded] "
+        f"{flags.tolist()}, launches {launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["composite_sel_single"] != R_MV * MV_ITERS:
+        raise AssertionError(f"K3f launched {launches['composite_sel_single']}"
+                             f" times in {MV_ITERS} rollouts of {R_MV} frames")
+    if any(launches[n] for n in launches if n != "composite_sel_single"):
+        raise AssertionError(f"the forward rollout launched {launches}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("the forward rollout's loss is not finite")
+
+    def short_rollout():
+        with torch.no_grad():
+            roll2(scene, st_fwd, act)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_rollout()
+    ms2 = (time.perf_counter() - t0) * 1e3
+    log(f"  R=2 rollout (host clock, for the profile's idle share): "
+        f"{ms2:.2f} ms")
+    profiled("R=2 forward rollout", short_rollout, ms2)
+
+    # 10. one frame against the full per-frame rebin (kernel K1) ---------------
+    real_render = rasterize_moving.render_moving_batch
+
+    def keep(*args, **kw):
+        seen["mv"] = real_render(*args, **kw)
+        return seen["mv"]
+
+    with torch.no_grad():
+        with replaced(rasterize_moving, "render_moving_batch", keep):
+            _, _, flags1 = roll1(scene, st_fwd, act)
+        step_rb, _ = entry.make_step_moving(graph, RES, RES, raster,
+                                            cam_height=MV_KW["cam_height"],
+                                            device=dev)
+        _, img_rb, n_trunc = step_rb(scene, st_fwd, act)
+    img_c, aux = seen.pop("mv")
+    diff = (img_c.permute(0, 2, 3, 1) - img_rb).abs()
+    per_env = diff.flatten(1).amax(1)
+    flags1, n_trunc = flags1.tolist(), int(n_trunc.sum())
+    log(f"one frame vs the full rebin (make_step_moving, B={B_MV_FWD}): "
+        f"max|Δ| {float(per_env.max()):.3e}, median over envs "
+        f"{float(per_env.median()):.3e}; cached flags [severe, bounded] "
+        f"{flags1} (frame: {int(aux.n_overflowed_tiles)} overflowed tiles, "
+        f"{int(aux.n_slot_truncated)} slot-truncated), rebin truncations "
+        f"{n_trunc}")
+    if not bool(torch.isfinite(img_c).all()) or \
+            img_c.shape != (B_MV_FWD, 3, RES, RES):
+        raise AssertionError(f"bad moving images {tuple(img_c.shape)}")
+    if flags1 == [0, 0] and n_trunc == 0:
+        atol, rtol = TOL_REBIN
+        if not bool((diff <= atol + rtol * img_rb.abs()).all()):
+            raise AssertionError("the cached frame disagrees with the rebin "
+                                 "with nothing truncated")
+        log(f"  exact case: within atol {atol} / rtol {rtol}")
+    else:
+        log("  not gated: a flag or a truncation count is nonzero")
+    del img_c, img_rb, diff, aux
+
+    # 11. the train rollout, B=16, timed and broken down ----------------------
+    entry.rollout_loss_and_grads(roll2, scene, st_train, act_train)  # warm-up
+    phases = {"build": 0.0, "control_step": 0.0, "backward": 0.0}
+
+    def timed(key, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            phases[key] += time.perf_counter() - t
+            return r
+        return wrapped
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    t_host = time.perf_counter()
+    with replaced(rasterize_moving, "build_moving_cache",
+                  timed("build", rasterize_moving.build_moving_cache)), \
+            replaced(pusht, "control_step",
+                     timed("control_step", pusht.control_step)), \
+            replaced(torch.autograd, "grad",
+                     timed("backward", torch.autograd.grad)):
+        _, loss, flags_t, grads = entry.rollout_loss_and_grads(
+            rollout, scene, st_train, act_train)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    k3["launches"] = launches["composite_sel_single"]
+    k3b["launches"] = launches["composite_sel_single_bwd"]
+    fields = [n for n, f in zip(grads._fields, grads) if f is not None]
+    finite = all(bool(torch.isfinite(getattr(grads, n)).all())
+                 for n in fields)
+    frames_s = wall - phases["build"] - phases["backward"]
+    log(f"moving camera, train: rollout_loss_and_grads (B={B_MV_TRAIN}, "
+        f"R={R_MV}): {start.elapsed_time(end):.2f} ms (events), "
+        f"{wall * 1e3:.2f} ms (host clock), "
+        f"{B_MV_TRAIN * R_MV / wall:.1f} frames/s; loss {float(loss):.6f}, "
+        f"flags {flags_t.tolist()}, grads finite={finite}, launches "
+        f"{launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  breakdown (host clock, each phase synchronised): cache build "
+        f"{phases['build'] * 1e3:.2f} ms, {R_MV} frames "
+        f"{frames_s * 1e3:.2f} ms (control_step "
+        f"{phases['control_step'] * 1e3:.2f} ms of it), backward "
+        f"{phases['backward'] * 1e3:.2f} ms")
+    if not finite:
+        raise AssertionError("a gradient of the train rollout is not finite")
+    for name in ("composite_sel_single", "composite_sel_single_bwd"):
+        if launches[name] != R_MV:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"a train rollout of {R_MV} frames")
+    del grads
+
+    # gradients against the port's plain path, B=2, R=4 -----------------------
+    st2 = pusht.PushTState(*(f[:2] for f in st_train))
+    _, loss_k, flags_k, g_k = entry.rollout_loss_and_grads(
+        roll4, scene, st2, act[:2])
+    with replaced(composite_single, "composite_sel_single",
+                  composite_single.composite_sel_single_plain):
+        _, loss_p, flags_p, g_p = entry.rollout_loss_and_grads(
+            roll4, scene, st2, act[:2])
+    if flags_k.tolist() != flags_p.tolist():
+        raise AssertionError(f"flags {flags_k.tolist()} (kernels) vs "
+                             f"{flags_p.tolist()} (plain)")
+    log(f"train rollout vs the plain path (B=2, R=4): loss {float(loss_k)} "
+        f"vs {float(loss_p)}, flags {flags_k.tolist()}")
+    for n in fields:
+        got, want = getattr(g_k, n), getattr(g_p, n)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        log(f"  grad {n}: max|Δ| = {err:.3e}, max|g| = {scale:.3e} "
+            f"(tolerance {TOL_GRAD:.1e} × max|g|)")
+        if not err <= TOL_GRAD * scale:
+            raise AssertionError(f"train-rollout gradient of {n} disagrees "
+                                 f"with the plain path: {err} > {TOL_GRAD} "
+                                 f"× {scale}")
+    return [k3, k3b]
 
 
 if __name__ == "__main__":

@@ -53,19 +53,8 @@ composite_static_fwd(const float* __restrict__ payload,
 
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float T = 1.0f;
-  bool alive = true;
-  for (int c = 0; c < nc; ++c) {
-    carry[c] = T;
-    const int c0 = c * CHUNK;
-    if (!alive || c0 >= count) continue;   // uniform across the block
-    __syncthreads();                       // previous chunk fully read
-    stage_chunk(s, tile, K, c0);
-    __syncthreads();
-    const int n = min(CHUNK, count - c0);
-    for (int e = 0; e < n; ++e)
-      composite_entry(s, CHUNK, e, px, py, power_min, has_pmin != 0, T, acc);
-    if (has_term) alive = __syncthreads_or(T >= term_eps) != 0;
-  }
+  composite_walk(s, tile, K, count, px, py, power_min, has_pmin != 0,
+                 term_eps, has_term != 0, acc, T, carry);
   float* o = out + ((size_t)t * P + p) * 8;
   o[0] = acc[0];
   o[1] = acc[1];

@@ -1,5 +1,6 @@
 // Shared device helpers of the compositing kernels (K1: composite.cu,
-// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu).
+// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu; K3:
+// composite_single.cu, composite_single_bwd.cu).
 //
 // Alpha of one list entry at one pixel, term by term as the reference's
 // _chunk_geometry (sim_a_splat_tpu/ops/pallas_composite.py:81-101) and the
@@ -86,6 +87,40 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src,
     const int row = i / CHUNK, col = i - row * CHUNK;
     dst[i] = src[row * K + c0 + col];
   }
+}
+
+// Front-to-back walk of one depth-sorted list (ROWS, K) of `count` active
+// entries for this thread's pixel, all threads of the block together: each
+// chunk of CHUNK entries that starts before `count` is staged in the shared
+// buffer s (ROWS * CHUNK floats) and composited into acc / T; with
+// has_term, the walk stops after the first applied chunk that leaves no
+// pixel of the block at T >= term_eps (the TPU kernels' chunk-granular
+// stop).  carry, unless null, receives the transmittance at the start of
+// every chunk.  Returns the number of chunks applied (the same in every
+// thread).
+__device__ __forceinline__ int composite_walk(float* s, const float* list,
+                                              int K, int count, float px,
+                                              float py, float power_min,
+                                              bool has_pmin, float term_eps,
+                                              bool has_term, float acc[4],
+                                              float& T, float* carry) {
+  const int nc = K / CHUNK;
+  bool alive = true;
+  int applied = 0;
+  for (int c = 0; c < nc; ++c) {
+    if (carry != nullptr) carry[c] = T;
+    const int c0 = c * CHUNK;
+    if (!alive || c0 >= count) continue;   // uniform across the block
+    __syncthreads();                       // previous chunk fully read
+    stage_chunk(s, list, K, c0);
+    __syncthreads();
+    const int n = min(CHUNK, count - c0);
+    for (int e = 0; e < n; ++e)
+      composite_entry(s, CHUNK, e, px, py, power_min, has_pmin, T, acc);
+    ++applied;
+    if (has_term) alive = __syncthreads_or(T >= term_eps) != 0;
+  }
+  return applied;
 }
 
 // ---- backward ---------------------------------------------------------------

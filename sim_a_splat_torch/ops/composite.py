@@ -77,9 +77,11 @@ def composite_static_plain(payload: torch.Tensor, counts: torch.Tensor,
                            skip: torch.Tensor, ts: int, tx: int,
                            sigma_cutoff: Optional[float] = None,
                            term_eps: Optional[float] = None,
-                           return_work: bool = False):
+                           return_work: bool = False,
+                           tile_ids: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K1, vectorised over tiles and pixels with a
-    loop over chunks (the chunk-granular early stop of the kernel).
+    loop over chunks (the chunk-granular early stop of the kernel).  List i
+    covers tile ``tile_ids[i]`` (default: tile i).
 
     Returns (out (T, P, 8), carries (T, P, nc)) and, with ``return_work``,
     the work these inputs need per tile: chunks applied (T,) and
@@ -89,7 +91,9 @@ def composite_static_plain(payload: torch.Tensor, counts: torch.Tensor,
     nc = K // CHUNK
     pmin = power_min_of(sigma_cutoff)
     dev = payload.device
-    px, py = pixel_centers(torch.arange(T, device=dev), ts, tx)
+    if tile_ids is None:
+        tile_ids = torch.arange(T, device=dev)
+    px, py = pixel_centers(tile_ids, ts, tx)
     count = torch.where(skip > 0, counts, torch.zeros_like(counts)).long()
     acc = payload.new_zeros((T, P, 4))
     tc = payload.new_ones((T, P))

@@ -2,9 +2,15 @@
 
 Port of ``sim_a_splat_tpu/ops/projection.py``: ``Camera.from_fov``,
 ``Projected``, ``project_raw`` (with ``_rotation_rows`` and
-``_finish_projection``) and ``view_directions``.  Conventions follow gsplat
-"classic" mode: OpenCV camera-to-world pose, pinhole intrinsics, 2-D
-covariance J W Σ Wᵀ Jᵀ + 0.3·I, radius = ceil(3·sqrt(λmax)).
+``_finish_projection``, and their ``dilate`` option) and
+``view_directions``.  Conventions follow gsplat "classic" mode: OpenCV
+camera-to-world pose, pinhole intrinsics, 2-D covariance
+J W Σ Wᵀ Jᵀ + 0.3·I, radius = ceil(3·sqrt(λmax)).
+
+A camera holds one pose, or a batch of poses: pose leaves (B, 4) / (B, 3)
+with shared intrinsics, where the reference vmaps over a batch of
+``Camera`` pytrees.  A batched camera projects (N, 3) or (B, N, 3) means
+to (B, N) results, env b under pose b.
 
 Everything stays float32: screen coordinates reach 512 px and the conic
 enters ``exp`` (``PRECISION.md``).  No matrix product goes through
@@ -28,8 +34,10 @@ BLUR_2D = 0.3
 
 @dataclass(frozen=True)
 class Camera:
-    """Pinhole camera. ``pose`` maps camera coords → world coords (OpenCV).
-    ``fx, fy, cx, cy`` are 0-d float32 tensors on the camera's device."""
+    """Pinhole camera. ``pose`` maps camera coords → world coords (OpenCV);
+    its leaves are (4,) / (3,), or (B, 4) / (B, 3) for B cameras with the
+    same intrinsics.  ``fx, fy, cx, cy`` are 0-d float32 tensors on the
+    camera's device."""
 
     pose: SE3
     fx: torch.Tensor
@@ -63,9 +71,11 @@ class Projected(NamedTuple):
 
 
 def _apply_rotation(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``v @ R.T`` for a (3, 3) ``R`` as explicit float32 row sums."""
-    return (v[..., 0:1] * R[:, 0] + v[..., 1:2] * R[:, 1]
-            + v[..., 2:3] * R[:, 2])
+    """``v @ R.T`` as explicit float32 row sums: R (3, 3) with v (..., N, 3),
+    or R (B, 3, 3) with v (N, 3) or (B, N, 3)."""
+    R = R.unsqueeze(-3)                  # one rotation for all N points
+    return (v[..., 0:1] * R[..., 0] + v[..., 1:2] * R[..., 1]
+            + v[..., 2:3] * R[..., 2])
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,9 +83,11 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _finish_projection(p_cam, m0, m1, m2, camera: Camera, near: float,
-                       eps2d: float) -> Projected:
+                       eps2d: float, dilate: float = 0.0) -> Projected:
     """Perspective Jacobian, 2-D conic, radius and culling from camera-frame
-    means and the rows of M = R_cam·S (Σ_cam = M Mᵀ)."""
+    means and the rows of M = R_cam·S (Σ_cam = M Mᵀ).  ``dilate`` (pixels)
+    pads the 3σ radius and the image-bounds cull: the superset projection
+    the moving camera's candidate cache bins with."""
     x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
     zc = torch.clamp(z, min=near)
     u = camera.fx * x / zc + camera.cx
@@ -102,7 +114,7 @@ def _finish_projection(p_cam, m0, m1, m2, camera: Camera, near: float,
 
     mid = 0.5 * (a + c)
     lam = mid + torch.sqrt(torch.clamp(mid * mid - det_safe, min=0.01))
-    radius = torch.ceil(3.0 * torch.sqrt(lam))
+    radius = torch.ceil(3.0 * torch.sqrt(lam)) + dilate
 
     valid = (z > near) & (det > 0.0)
     inside = ((u + radius > 0.0) & (u - radius < camera.width)
@@ -127,20 +139,21 @@ def _rotation_rows(q: torch.Tensor):
 
 def project_raw(means: torch.Tensor, quats: torch.Tensor,
                 log_scales: torch.Tensor, camera: Camera, near: float = 0.01,
-                eps2d: float = BLUR_2D) -> Projected:
+                eps2d: float = BLUR_2D, dilate: float = 0.0) -> Projected:
     """EWA projection straight from raw gaussian parameters: with
-    M = R_w2c·R(q)·S, Σ₂ = (J M)(J M)ᵀ + eps2d·I, no (N, 3, 3) temps."""
+    M = R_w2c·R(q)·S, Σ₂ = (J M)(J M)ᵀ + eps2d·I, no (N, 3, 3) temps.
+    ``dilate`` as in :func:`_finish_projection`."""
     w2c = camera.pose.inverse()
     R = w2c.rotation_matrix()
-    p_cam = _apply_rotation(R, means) + w2c.t
-    q_cam = quat.multiply(w2c.q, quats)
+    p_cam = _apply_rotation(R, means) + w2c.t.unsqueeze(-2)
+    q_cam = quat.multiply(w2c.q.unsqueeze(-2), quats)
     r0, r1, r2 = _rotation_rows(q_cam)
     s = torch.exp(log_scales)
     return _finish_projection(p_cam, r0 * s, r1 * s, r2 * s, camera, near,
-                              eps2d)
+                              eps2d, dilate)
 
 
 def view_directions(means: torch.Tensor, camera: Camera) -> torch.Tensor:
     """Unit directions camera-origin → gaussian (for SH evaluation)."""
-    d = means - camera.pose.t
+    d = means - camera.pose.t.unsqueeze(-2)
     return d / torch.clamp(quat.norm(d), min=1e-12)

@@ -2,9 +2,10 @@
 
 Port of ``sim_a_splat_tpu/ops/rasterize_tiles.py``: ``RasterConfig``,
 ``RasterAux``, ``_emit_tiles``, ``_bin_gaussians`` (footprint buckets, fused
-exact key tile·N + depth rank), ``gather_tile_lists``, ``untile_image`` and
+exact key tile·N + depth rank), ``gather_tile_lists``, ``untile_image``,
 ``composite_dispatch`` with the Pallas backend's semantics (per-tile counts,
-chunk-granular early stop), which here is kernel K1 (``ops/composite.py``).
+chunk-granular early stop), which here is kernel K1 (``ops/composite.py``),
+and ``render_binned``.
 
 Binning takes an explicit leading batch axis: the per-env binning of the
 batched step is one sort over (B, E) keys instead of a loop over envs, and
@@ -43,13 +44,14 @@ class RasterConfig(NamedTuple):
 class RasterAux(NamedTuple):
     """Truncation accounting (see the reference's ``RasterAux``): bounded
     classes ``n_overflowed_tiles`` / ``n_slot_truncated``, severe class
-    ``n_sel_dropped_tiles``.  The reference's ``tile_counts``, ``alpha``
-    and ``depth`` fields are left out: nothing on the port's path reads
-    them."""
+    ``n_sel_dropped_tiles``, and the per-tile list lengths ``tile_counts``
+    where the render has them.  The reference's ``alpha`` and ``depth``
+    fields are left out: nothing on the port's path reads them."""
 
     n_overflowed_tiles: torch.Tensor
     n_slot_truncated: torch.Tensor
     n_sel_dropped_tiles: torch.Tensor
+    tile_counts: Optional[torch.Tensor] = None
 
 
 def _emit_tiles(tx0, ty0, bw, nt, rank, gid, M, tx, T, N):
@@ -198,3 +200,26 @@ def composite_dispatch(payload: torch.Tensor, counts: torch.Tensor,
         payload, counts, counts, config.tile_size, tx, config.sigma_cutoff,
         config.term_eps)
     return out[..., 0:3], out[..., 3], out[..., 4]
+
+
+def render_binned(proj: Projected, colors: torch.Tensor,
+                  opacities: torch.Tensor, camera, config: RasterConfig,
+                  background: Optional[torch.Tensor] = None):
+    """Tile-render already-projected gaussians (one camera) through kernel
+    K1 → ((H, W, 3) image, RasterAux)."""
+    ts = config.tile_size
+    H, W = camera.height, camera.width
+    tx, ty = -(-W // ts), -(-H // ts)
+    lists, counts, n_slot_trunc = gather_tile_lists(proj, colors, opacities,
+                                                    config, tx, ty)
+    rgb, _, trans = composite_dispatch(pack_payload(*lists),
+                                       counts.to(torch.int32), config, tx)
+    if background is None:
+        background = rgb.new_zeros(3)
+    rgb = rgb + trans[..., None] * background
+    img = untile_image(rgb.permute(2, 0, 1), tx, ty, ts, H, W)
+    aux = RasterAux(n_overflowed_tiles=torch.sum(counts > config.tile_capacity),
+                    n_slot_truncated=n_slot_trunc,
+                    n_sel_dropped_tiles=torch.zeros_like(n_slot_trunc),
+                    tile_counts=counts)
+    return img.permute(1, 2, 0), aux

@@ -18,6 +18,10 @@ C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       -0.5900435899266435)
 
 
+def num_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def sh_to_rgb(sh_dc: torch.Tensor) -> torch.Tensor:
     """DC-band-only color."""
     return sh_dc * C0 + 0.5
@@ -63,6 +67,12 @@ def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
 
     ``sh`` (..., K, 3) with K ≥ (degree+1)²; ``dirs`` (..., 3) unit."""
     return _rest_bands(C0 * sh[..., 0, :], sh, dirs, degree, 0)
+
+
+def eval_sh_color(sh: torch.Tensor, dirs: torch.Tensor,
+                  degree: int) -> torch.Tensor:
+    """Full splat color: ``eval_sh`` + 0.5, clamped at 0 (gsplat classic)."""
+    return torch.clamp(eval_sh(sh, dirs, degree) + 0.5, min=0.0)
 
 
 def eval_sh_color_split(sh_dc: torch.Tensor, sh_rest, dirs: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Kernels K1f, K1b, K2f and K2b on the card against their plain versions,
-and the port's step and train step on the card against its CPU path.
+"""Kernels K1f, K1b, K2f, K2b, K3f and K3b on the card against their plain
+versions, and the port's step, train step and moving-camera rollout on the
+card against its CPU path.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import).  This file imports no
@@ -12,7 +13,8 @@ same float32 operations (no contraction into FMAs, the same ``expf``), so
 they differ only in how transmittance products and colour sums are
 accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
 log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
-for K2f (the CPU tests' bounds against the reference).  Gradients: each
+for K2f (the CPU tests' bounds against the reference), atol 2e-5 for K3f
+(K1's walk on per-env lists).  Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -27,12 +29,12 @@ import pytest
 import torch
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, assert_rows_close, k1_inputs, k2_inputs,
+    K_T, K_TS, K_TX, assert_rows_close, k1_inputs, k2_inputs, k3_inputs,
     selected_cotangent, torch_raster,
 )
 
 from sim_a_splat_torch import entry
-from sim_a_splat_torch.ops import composite, composite_sel
+from sim_a_splat_torch.ops import composite, composite_sel, composite_single
 from sim_a_splat_torch.physics import pusht
 
 pytestmark = pytest.mark.cuda
@@ -174,6 +176,91 @@ def test_train_step_on_card_matches_cpu(dev):
                                rtol=1e-5, atol=0)
     for name, got, want in zip(res["cpu"][1]._fields, res["cuda"][1],
                                res["cpu"][1]):
+        got = got.cpu()
+        assert torch.isfinite(got).all(), name
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= GRAD_REL * scale, \
+            f"{name}: max|Δ| {err:.3e} > {GRAD_REL} × {scale:.3e}"
+
+
+def test_k3_kernel_matches_plain(dev):
+    args = [torch.as_tensor(a, device=dev) for a in k3_inputs()]
+    before = composite_single.launches
+    out = composite_single.composite_sel_single(*args, TS, TX, 3.0, 1e-4)
+    torch.cuda.synchronize()
+    assert composite_single.launches == before + 1
+    ref, applied, _ = composite_single.composite_sel_single_plain(
+        *args, TS, TX, 3.0, 1e-4, return_work=True)
+    torch.testing.assert_close(out[:, :K_T, :5], ref[:, :K_T, :5], atol=2e-5,
+                               rtol=0)
+    assert not out[:, :K_T, 5:].any()        # no gradient asked: row 5 is 0
+    # an input that requires grad goes through K3f (which then records the
+    # applied chunks in row 5), then K3b on backward
+    leaf = args[0].clone().requires_grad_()
+    before_bwd = composite_single.launches_bwd
+    out_g = composite_single.composite_sel_single(leaf, *args[1:], TS, TX,
+                                                  3.0, 1e-4)
+    torch.testing.assert_close(out_g[:, :K_T, 5],
+                               applied.float()[..., None].expand(-1, -1, 256))
+    ct = torch.randn(out_g.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    (out_g[:, :K_T] * ct[:, :K_T]).sum().backward()
+    torch.cuda.synchronize()
+    assert composite_single.launches == before + 2
+    assert composite_single.launches_bwd == before_bwd + 1
+    want = composite_single.composite_sel_single_bwd_plain(
+        *args, ct, TS, TX, 3.0, 1e-4)
+    assert_rows_close(leaf.grad[:, :K_T], want[:, :K_T], GRAD_REL,
+                      "K3 grad through the Function")
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k3b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
+    args = [torch.as_tensor(a, device=dev) for a in k3_inputs()]
+    leaf = args[0].clone().requires_grad_()
+    out = composite_single.composite_sel_single(leaf, *args[1:], TS, TX,
+                                                sigma_cutoff, term_eps)
+    ct = torch.as_tensor(np.random.default_rng(13).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    ct[:, K_T] = 0.0
+    before = composite_single.launches_bwd
+    got = composite_single.composite_sel_single_bwd(
+        *args, ct, out.detach(), TS, TX, sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    assert composite_single.launches_bwd == before + 1
+    want = composite_single.composite_sel_single_bwd_plain(
+        *args, ct, TS, TX, sigma_cutoff, term_eps)
+    assert_rows_close(got[:, :K_T], want[:, :K_T], GRAD_REL, "K3b")
+    # the trash row, an empty tile and entries past a count get nothing
+    assert not got[:, K_T].any() and not got[0, 2].any()
+    assert not got[0, 1, :, 100:].any() and got[0, 1, :, :100].any()
+
+
+def test_moving_rollout_on_card_matches_cpu(dev):
+    res = {}
+    for d in ("cpu", dev):
+        leaves = entry.build_scene_numpy(256, 64, 32, seed=0, sh_degree=3)
+        g = entry.graph_from_numpy(leaves, device=d)
+        rollout, P = entry.make_step_moving_cached(
+            g, 64, 64, torch_raster(), R=2, margin=8.0, kc=128, device=d)
+        vec = np.asarray([[120, 200, 149, 256, 0.3],
+                          [60, 400, 180, 300, -1.0]], np.float32)
+        states = pusht.set_state(P, torch.as_tensor(vec, device=d))
+        actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0]], device=d)
+        launched = (composite_single.launches, composite_single.launches_bwd)
+        _, loss, flags, grads = entry.rollout_loss_and_grads(
+            rollout, g.scene, states, actions)
+        res[str(d)] = (loss, flags, grads)
+        if d == dev:
+            assert (composite_single.launches,
+                    composite_single.launches_bwd) == \
+                (launched[0] + 2, launched[1] + 2)
+    assert res["cuda"][1].tolist() == res["cpu"][1].tolist()
+    torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
+                               rtol=1e-5, atol=0)
+    for name, got, want in zip(res["cpu"][2]._fields, res["cuda"][2],
+                               res["cpu"][2]):
         got = got.cpu()
         assert torch.isfinite(got).all(), name
         scale = float(want.abs().max())

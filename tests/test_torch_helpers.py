@@ -131,6 +131,24 @@ def k2_inputs(seed=1, Ks=256, Kd=128):
     return spay, dpay.reshape(B, TT, 10, Kd), ids, counts_s, counts_d
 
 
+def k3_inputs(seed=2, Km=256):
+    """K3 inputs for two envs over the 3 × 2 tile grid: per-env payloads
+    (2, T+1, 10, Km) with the zero trash row, dense ids (each env names
+    every tile once, as the moving render does), counts covering a full
+    list, lists cut mid-chunk, an empty tile and a nearly opaque tile that
+    stops early."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray([[Km, 100, 0, 200, Km, 150, 0],
+                         [60, Km, 130, 0, 250, Km, 0]], np.int32)
+    B = counts.shape[0]
+    spay = np.zeros((B, K_T + 1, 10, Km), np.float32)
+    for b in range(B):
+        spay[b, :K_T] = tile_lists(rng, range(K_T), counts[b, :K_T], Km, K_TS,
+                                   K_TX, opaque=(4,) if b == 0 else (1,))
+    ids = np.tile(np.arange(K_T, dtype=np.int32), (B, 1))
+    return spay, ids, counts
+
+
 def selected_cotangent(rng, ids, shape):
     """Cotangent of K2's out (B, T+1, 8, P) from ``rng``: normal on the rows
     the slots select (channels 0-4, the ones the output defines), zero on
