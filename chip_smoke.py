@@ -7,13 +7,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of its path, and
-drives two paths through the port's entry points, each forward and in
+drives three paths through the port's entry points, each forward and in
 training, at N=100k gaussians, SH degree 3, 256×256:
 
 - the fixed camera (K1f, K1b, K2f, K2b), B=128 envs: the batched pushT
   splat env step (``entry.make_step_cached_batch``) and its train step
   (``entry.loss_and_grads``: the mean-square image loss and its gradient
   to every gaussian parameter);
+- the same envs through the reference's per-env fixed-camera step
+  (``entry.make_step_cached``, K1f, K1b, K4f, K4b), B=128, forward and
+  in training, its images against the selected-tile path's and its
+  ``static_skip=False`` variant;
 - the moving camera attached to each env's agent (K3f, K3b): the R=32
   frame candidate-cache rollout (``entry.make_step_moving_cached``) at
   B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``),
@@ -45,7 +49,7 @@ B, N, RES, SH_DEGREE = 128, 100_000, 256, 3
 SEL_TILES, DYN_CAP, DYN_M = 36, 128, 9
 ITERS = 5
 # the moving camera (bench.py's moving_camera / moving_fwd variants)
-B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 2
+B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
              cam_height=-420.0, z_split=0.0)
 TOL_REBIN = (2e-5, 1e-4)  # atol, rtol: the reference's own bound for the
@@ -130,6 +134,25 @@ def check_rows(name, got, want, what):
     return err
 
 
+def check_fields(what, g_k, g_p, fields):
+    """Each gradient field of the scene ``g_k`` finite and within TOL_GRAD ×
+    that field's largest gradient in ``g_p`` (the plain path's); returns
+    the largest max|Δ| / max|g| over the fields."""
+    import torch
+    worst = 0.0
+    for n in fields:
+        got, want = getattr(g_k, n), getattr(g_p, n)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        log(f"  grad {n}: max|Δ| = {err:.3e}, max|g| = {scale:.3e} "
+            f"(tolerance {TOL_GRAD:.1e} × max|g|)")
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_GRAD * scale):
+            raise AssertionError(f"{what} gradient of {n} disagrees with the "
+                                 f"plain path: {err} > {TOL_GRAD} × {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
 def check(name, got, want, atol, what):
     err = float((got - want).abs().max())
     log(f"  {name} {what}: max|Δ| = {err:.3e} (tolerance {atol:.1e})")
@@ -148,7 +171,8 @@ def main() -> int:
         return 2
     from sim_a_splat_torch import entry
     from sim_a_splat_torch.ops import (
-        _kernels, composite, composite_sel, composite_single, rasterize_moving,
+        _kernels, composite, composite_pair, composite_sel, composite_single,
+        rasterize_moving,
     )
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
     from sim_a_splat_torch.physics import pusht
@@ -383,7 +407,7 @@ def main() -> int:
 
     # 5. the main path forward, timed ----------------------------------------
     def reset_counts():
-        for m in (composite, composite_sel, composite_single):
+        for m in (composite, composite_sel, composite_single, composite_pair):
             m.launches = 0
             m.launches_bwd = 0
 
@@ -393,7 +417,9 @@ def main() -> int:
                 "composite_static_bwd": composite.launches_bwd,
                 "composite_pair_sel_bwd": composite_sel.launches_bwd,
                 "composite_sel_single": composite_single.launches,
-                "composite_sel_single_bwd": composite_single.launches_bwd}
+                "composite_sel_single_bwd": composite_single.launches_bwd,
+                "composite_pair": composite_pair.launches,
+                "composite_pair_bwd": composite_pair.launches_bwd}
 
     fixed_names = ("composite_static", "composite_pair_sel",
                    "composite_static_bwd", "composite_pair_sel_bwd")
@@ -431,7 +457,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times in {ITERS} steps of the main path")
     for name in ("composite_static_bwd", "composite_pair_sel_bwd",
-                 "composite_sel_single", "composite_sel_single_bwd"):
+                 "composite_sel_single", "composite_sel_single_bwd",
+                 "composite_pair", "composite_pair_bwd"):
         if launches[name]:
             raise AssertionError(f"the forward step launched {name}")
     if imgs.shape != (B, 3, RES, RES) or not bool(torch.isfinite(imgs).all()):
@@ -558,24 +585,20 @@ def main() -> int:
                              f"{drop_p.tolist()} (plain)")
     log(f"train step vs the plain path (first 8 envs): loss {float(loss_k)} "
         f"vs {float(loss_p)}")
-    e_grad = 0.0
-    for n in fields:
-        got, want = getattr(g_k, n), getattr(g_p, n)
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        log(f"  grad {n}: max|Δ| = {err:.3e}, max|g| = {scale:.3e} "
-            f"(tolerance {TOL_GRAD:.1e} × max|g|)")
-        if not err <= TOL_GRAD * scale:
-            raise AssertionError(f"train-step gradient of {n} disagrees with "
-                                 f"the plain path: {err} > {TOL_GRAD} × "
-                                 f"{scale}")
-        e_grad = max(e_grad, err / scale)
+    e_grad = check_fields("train-step", g_k, g_p, fields)
 
     log(f"image max|Δ| vs plain: {e_img:.3e}; train-step gradients max|Δ| / "
         f"max|g|: {e_grad:.3e}; {time.perf_counter() - t_start:.1f} s so far")
     del out_train, g_k, g_p
 
-    # 8-11. the moving camera ------------------------------------------------
+    # 8-11. the per-env fixed-camera step (kernel K4) --------------------------
+    kernels += per_env_camera(entry, composite, composite_pair, pusht, graph,
+                              scene, P, states0, actions, raster, imgs0,
+                              drop0, reset_counts, counts_now, profiled, dev)
+    del imgs0
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 12-15. the moving camera -----------------------------------------------
     kernels += moving_camera(entry, composite, composite_single,
                              rasterize_moving, pusht, graph, scene, P, gen,
                              reset_counts, counts_now, profiled, dev)
@@ -586,6 +609,254 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
+                   P, states0, actions, raster, imgs_sel, drop_sel,
+                   reset_counts, counts_now, profiled, dev):
+    """The per-env fixed-camera path (``entry.make_step_cached``, the
+    reference's vmapped ``_make_step_cached``): K4f/K4b against their plain
+    versions at full size, ITERS forward steps and ITERS train steps (timed,
+    launches checked), the images against the plain path (8 envs), against
+    the selected-tile path's ``imgs_sel`` (same states, both exact) and
+    with ``static_skip=False`` (16 envs), and the gradients against the
+    plain path (8 envs).  Returns the K4f and K4b entries of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    prepare, step, _ = entry.make_step_cached(
+        graph, RES, RES, raster, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
+        device=dev)
+
+    # 8. K4f and K4b at full size, on one step's captured inputs -------------
+    seen = {}
+    real_k4 = composite_pair.composite_pair
+
+    def capture(*args):
+        seen["k4"] = args
+        return real_k4(*args)
+
+    with replaced(composite_pair, "composite_pair", capture):
+        _, imgs0, trunc0 = step(prepare(scene), scene, states0, actions)
+    torch.cuda.synchronize()
+    a4 = seen.pop("k4")
+    spay, dpay, cs, cd, skip = a4[:5]
+    Bk, T = skip.shape
+    Ks, Kd = spay.shape[-1], dpay.shape[-1]
+    P_ = a4[5] ** 2
+    log(f"per-env step (make_step_cached, B={Bk}): first step's bounded "
+        f"truncations {int(trunc0.sum())}")
+    log(f"K4 composite_pair vs composite_pair_plain (spay "
+        f"{tuple(spay.shape)}, dpay {tuple(dpay.shape)}):")
+    out_k = composite_pair.composite_pair(*a4)
+    out_p, applied, hits = composite_pair.composite_pair_plain(
+        *a4, return_work=True)
+    rows = [0, 1, 2, 4]
+    e4 = check("K4", out_k[..., rows], out_p[..., rows], TOL, "rgb+trans")
+    dscale = max(1.0, float(spay[:, 8].abs().max()),
+                 float(dpay[:, :, 8].abs().max()))
+    check("K4", out_k[..., 3] / dscale, out_p[..., 3] / dscale, TOL,
+          "depth_acc / max depth")
+    on = skip > 0
+    c0 = torch.arange(Ks // composite.CHUNK, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(torch.clamp(cs.long(), max=Ks)[:, None] - c0, 0,
+                            composite.CHUNK)                   # (T, nc)
+    used = torch.arange(len(c0), device=dev) < applied[..., None]
+    s_entries = (per_chunk * used).sum(-1)                     # (B, T)
+    d_entries = torch.clamp(cd.long(), max=Kd) * on
+    entries = int(s_entries.sum() + d_entries.sum())
+    blended = int(hits.sum())
+    n_on = int(on.sum())
+    # reads each tile's applied static columns once (shared by the envs),
+    # the touched pairs' dynamic entries, counts and skip; writes every
+    # (env, tile) row of out
+    in_bytes = (int(s_entries.amax(0).sum()) * 40 + int(d_entries.sum()) * 40
+                + T * 4 + Bk * T * 8)
+    b_ms, b_by = bound(in_bytes + Bk * T * P_ * 8 * 4,
+                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+    k4 = dict(name="composite_pair", route="cuda",
+              source="sim_a_splat_torch/csrc/composite_pair.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite_pair.py:352",
+              max_abs_err=e4,
+              ms=cuda_ms(lambda: composite_pair.composite_pair(*a4), 10),
+              plain_ms=cuda_ms(
+                  lambda: composite_pair.composite_pair_plain(*a4), 1),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  touched (env, tile) pairs {n_on} of {Bk * T}, entries {entries}; "
+        f"(pixel, entry) pairs: {P_ * entries} alpha, {blended} blended "
+        f"(α > 0); kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+    log("K4b composite_pair_bwd vs composite_pair_bwd_plain (the plain "
+        "version 8 envs at a time):")
+    ct4 = torch.zeros_like(out_k)
+    ct4[on] = torch.nn.functional.pad(torch.as_tensor(
+        np.random.default_rng(3).normal(size=(n_on, P_, 5)).astype(
+            np.float32), device=dev), (0, 3))
+    a4b = (spay, dpay, cs, cd, skip, ct4, out_k, *a4[5:])
+    gs_k, gd_k = composite_pair.composite_pair_bwd(*a4b)
+
+    def k4b_plain():
+        g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
+        for b0 in range(0, Bk, 8):
+            sl = slice(b0, b0 + 8)
+            s_, d_ = composite_pair.composite_pair_bwd_plain(
+                spay, dpay[sl], cs, cd[sl], skip[sl], ct4[sl], *a4[5:])
+            g_s += s_
+            g_d[sl] = d_
+        return g_s, g_d
+
+    gs_p, gd_p = k4b_plain()
+    e4b = max(check_rows("K4b", gs_k, gs_p, "static grad, summed over envs"),
+              check_rows("K4b", gd_k, gd_p, "dynamic grad"))
+    if not (bool(torch.isfinite(gs_k).all())
+            and bool(torch.isfinite(gd_k).all())):
+        raise AssertionError("K4b: gradient not finite")
+    if bool(gd_k[~on].any()):
+        raise AssertionError("K4b: a skipped pair got a dynamic gradient")
+    # reads as K4f plus 5 channels each of ct and out at the touched pairs;
+    # writes the static gradient and the whole dynamic gradient once
+    b_ms, b_by = bound(in_bytes + n_on * 2 * 5 * P_ * 4
+                       + (spay.numel() + dpay.numel()) * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k4b = dict(name="composite_pair_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_pair_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite_pair.py:386",
+               max_abs_err=e4b,
+               ms=cuda_ms(lambda: composite_pair.composite_pair_bwd(*a4b),
+                          10),
+               plain_ms=cuda_ms(k4b_plain, 1, warmup=0),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k4b['ms']:.4f} ms "
+        f"(with the zero fill of the static gradient), plain "
+        f"{k4b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del a4, a4b, out_k, out_p, ct4, gs_k, gd_k, gs_p, gd_p, spay, dpay
+
+    # 9. the per-env step forward, timed --------------------------------------
+    def forward_counts(n):
+        want = dict.fromkeys(counts_now(), 0)
+        want.update(composite_static=n, composite_pair=n)
+        return want
+
+    reset_counts()
+    states = states0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_host = time.perf_counter()
+    start.record()
+    for _ in range(ITERS):
+        states, imgs, trunc = step(prepare(scene), scene, states, actions)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    step_ms = start.elapsed_time(end) / ITERS
+    log(f"per-env step, forward: {ITERS} × (prepare + step), B={B}, N={N}, "
+        f"sh{SH_DEGREE}, {RES}²: {step_ms:.2f} ms/step (events), "
+        f"{wall / ITERS * 1e3:.2f} ms/step (host clock), "
+        f"{B * 1e3 / step_ms:.1f} frames/s; bounded truncations "
+        f"{int(trunc.sum())}, launches {launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != forward_counts(ITERS):
+        raise AssertionError(f"{ITERS} forward steps of the per-env path "
+                             f"launched {launches}")
+    if imgs.shape != (B, RES, RES, 3) or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"bad per-env images {tuple(imgs.shape)}")
+    prep_ms = cuda_ms(lambda: prepare(scene), 3)
+    cache0, s_next = prepare(scene), pusht.control_step(P, states0, actions)
+    with replaced(pusht, "control_step", lambda *_: s_next):
+        rend_ms = cuda_ms(lambda: step(cache0, scene, states0, actions), 3)
+    log(f"breakdown (events, each phase alone): prepare {prep_ms:.2f} ms, "
+        f"step without control_step {rend_ms:.2f} ms")
+    del cache0
+    profiled("per-env step", lambda: step(prepare(scene), scene, states0,
+                                          actions), step_ms)
+
+    # 10. its images against the plain path, the selected-tile path and the
+    # step without the static skip -------------------------------------------
+    s8 = pusht.PushTState(*(f[:8] for f in states0))
+    _, imgs_k, tr_k = step(prepare(scene), scene, s8, actions[:8])
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain), \
+            replaced(composite_pair, "composite_pair",
+                     composite_pair.composite_pair_plain):
+        _, imgs_p, tr_p = step(prepare(scene), scene, s8, actions[:8])
+    e_img = check("per-env step", imgs_k, imgs_p, TOL,
+                  "image vs the plain path (first 8 envs)")
+    if tr_k.tolist() != tr_p.tolist():
+        raise AssertionError(f"truncations {tr_k.tolist()} (kernels) vs "
+                             f"{tr_p.tolist()} (plain)")
+    if int(drop_sel[0]) != 0:
+        raise AssertionError(f"the selected-tile step dropped tiles: "
+                             f"{drop_sel.tolist()}")
+    check("per-env step", imgs0, imgs_sel.permute(0, 2, 3, 1), TOL,
+          f"image vs the selected-tile path (all {B} envs, both exact)")
+    prep_ns, step_ns, _ = entry.make_step_cached(
+        graph, RES, RES, raster, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
+        static_skip=False, device=dev)
+    s16 = pusht.PushTState(*(f[:16] for f in states0))
+    reset_counts()
+    _, imgs_ns, _ = step_ns(prep_ns(scene), scene, s16, actions[:16])
+    launches = counts_now()
+    check("per-env step", imgs_ns, imgs0[:16], TOL,
+          "static_skip=False vs True (first 16 envs)")
+    if launches["composite_static"] or launches["composite_pair"] != 1:
+        raise AssertionError(f"the step without the static skip launched "
+                             f"{launches}")
+    del imgs_ns, imgs_k, imgs_p, imgs0
+
+    # 11. the per-env train step, timed, and its gradients against the plain
+    # path on 8 envs -----------------------------------------------------------
+    fields = [n for n, f in zip(scene._fields, scene) if f is not None]
+    reset_counts()
+    states = states0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_host = time.perf_counter()
+    start.record()
+    finite = True
+    for _ in range(ITERS):
+        states, loss, _, grads = entry.loss_and_grads(prepare, step, scene,
+                                                      states, actions)
+        finite &= all(bool(torch.isfinite(getattr(grads, n)).all())
+                      for n in fields)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    train_ms = start.elapsed_time(end) / ITERS
+    log(f"per-env step, train: {ITERS} × loss_and_grads: {train_ms:.2f} "
+        f"ms/step (events), {wall / ITERS * 1e3:.2f} ms/step (host clock), "
+        f"{B * 1e3 / train_ms:.1f} frames/s; grads finite={finite}, loss "
+        f"{float(loss):.6f}, launches {launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = forward_counts(ITERS)
+    want.update(composite_static_bwd=ITERS, composite_pair_bwd=ITERS)
+    if launches != want:
+        raise AssertionError(f"{ITERS} train steps of the per-env path "
+                             f"launched {launches}")
+    if not finite:
+        raise AssertionError("a gradient of the per-env train step is not "
+                             "finite")
+    k4["launches"] = launches["composite_pair"]
+    k4b["launches"] = launches["composite_pair_bwd"]
+    del grads
+
+    _, loss_k, _, g_k = entry.loss_and_grads(prepare, step, scene, s8,
+                                             actions[:8])
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain), \
+            replaced(composite_pair, "composite_pair",
+                     composite_pair.composite_pair_plain):
+        _, loss_p, _, g_p = entry.loss_and_grads(prepare, step, scene, s8,
+                                                 actions[:8])
+    log(f"per-env train step vs the plain path (first 8 envs): loss "
+        f"{float(loss_k)} vs {float(loss_p)}")
+    e_grad = check_fields("per-env train-step", g_k, g_p, fields)
+    log(f"per-env image max|Δ| vs plain: {e_img:.3e}; gradients max|Δ| / "
+        f"max|g|: {e_grad:.3e}")
+    return [k4, k4b]
 
 
 def moving_camera(entry, composite, composite_single, rasterize_moving,
@@ -616,7 +887,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
     log(f"moving camera: N={N}, sh{SH_DEGREE}, {RES}², kc {MV_KW['kc']}, "
         f"margin {MV_KW['margin']}, buckets {raster.buckets}, R={R_MV}")
 
-    # 8. K3f and K3b at full size, on one frame of a B=16 rollout ------------
+    # 12. K3f and K3b at full size, on one frame of a B=16 rollout ------------
     seen = {}
     real_k3 = composite_single.composite_sel_single
 
@@ -710,7 +981,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         f"bound {b_ms:.4f} ms ({b_by})")
     del a3, spay, ids, counts_pad, out_k, out_p, out_s, ct3, a3b, g_k, g_p
 
-    # 9. the forward rollout, B=32, timed ------------------------------------
+    # 13. the forward rollout, B=32, timed ------------------------------------
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -755,7 +1026,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         f"{ms2:.2f} ms")
     profiled("R=2 forward rollout", short_rollout, ms2)
 
-    # 10. one frame against the full per-frame rebin (kernel K1) ---------------
+    # 14. one frame against the full per-frame rebin (kernel K1) ---------------
     real_render = rasterize_moving.render_moving_batch
 
     def keep(*args, **kw):
@@ -792,7 +1063,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         log("  not gated: a flag or a truncation count is nonzero")
     del img_c, img_rb, diff, aux
 
-    # 11. the train rollout, B=16, timed and broken down ----------------------
+    # 15. the train rollout, B=16, timed and broken down ----------------------
     entry.rollout_loss_and_grads(roll2, scene, st_train, act_train)  # warm-up
     phases = {"build": 0.0, "control_step": 0.0, "backward": 0.0}
 
@@ -862,16 +1133,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
                              f"{flags_p.tolist()} (plain)")
     log(f"train rollout vs the plain path (B=2, R=4): loss {float(loss_k)} "
         f"vs {float(loss_p)}, flags {flags_k.tolist()}")
-    for n in fields:
-        got, want = getattr(g_k, n), getattr(g_p, n)
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        log(f"  grad {n}: max|Δ| = {err:.3e}, max|g| = {scale:.3e} "
-            f"(tolerance {TOL_GRAD:.1e} × max|g|)")
-        if not err <= TOL_GRAD * scale:
-            raise AssertionError(f"train-rollout gradient of {n} disagrees "
-                                 f"with the plain path: {err} > {TOL_GRAD} "
-                                 f"× {scale}")
+    check_fields("train-rollout", g_k, g_p, fields)
     return [k3, k3b]
 
 

@@ -2,10 +2,14 @@
 
 The JAX package stays the reference; every module here keeps the name of its
 JAX counterpart so a reader finds each one.  The port imports ``torch`` and
-numpy only.  The two compositing kernels of the batched pushT step are CUDA
-C++ for Hopper (``csrc/``), built with ``nvcc`` at first use and loaded
-through ctypes (``ops/_kernels.py``); every kernel has a plain PyTorch
-version beside it that the CPU path and the tests use.
+numpy only.  Its compositing kernels are CUDA C++ for Hopper (``csrc/``),
+each a forward and a backward: K1, the static background's composite
+(``ops/composite.py``); K2, the selected-tile composite of the batched
+pushT step (``ops/composite_sel.py``); K3, the moving camera's per-env
+composite (``ops/composite_single.py``); K4, the per-env step's merge-free
+composite (``ops/composite_pair.py``).  They are built with ``nvcc`` at
+first use and loaded through ctypes (``ops/_kernels.py``); every kernel has
+a plain PyTorch version beside it that the CPU path and the tests use.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; asking for CUDA without a card raises.

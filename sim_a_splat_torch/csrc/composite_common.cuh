@@ -1,6 +1,7 @@
 // Shared device helpers of the compositing kernels (K1: composite.cu,
 // composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu; K3:
-// composite_single.cu, composite_single_bwd.cu).
+// composite_single.cu, composite_single_bwd.cu; K4: composite_pair.cu,
+// composite_pair_bwd.cu).
 //
 // Alpha of one list entry at one pixel, term by term as the reference's
 // _chunk_geometry (sim_a_splat_tpu/ops/pallas_composite.py:81-101) and the
@@ -123,6 +124,48 @@ __device__ __forceinline__ int composite_walk(float* s, const float* list,
   return applied;
 }
 
+// Merged front-to-back walk of one static tile list (ROWS, Ks) of count_s
+// active entries and one dynamic list sd (ROWS, Kd) of count_d entries,
+// already in shared memory, for this thread's pixel, all threads of the
+// block together (kernels K2 and K4).  The TPU kernels never build the
+// merged list: they recover each side's transmittance in front of an entry
+// with depth-indicator contractions on the MXU.  Here the merged order is
+// walked directly.  The order of two depth-sorted lists does not depend on
+// the pixel, so every thread walks the same sequence: each static chunk is
+// staged in ss (ROWS * CHUNK floats) next to the dynamic list, and before
+// static entry i every dynamic entry with dd_j < ds_i is composited (static
+// first on equal depth, the merge-path rule of merge_sorted_lists).  The
+// early stop is checked after each applied static chunk, when the running
+// T is exactly the reference's ts * Td(< dbound); once it stops, the
+// remaining static chunks are skipped and the remaining dynamic entries are
+// still composited, attenuated only by the static chunks that were applied.
+__device__ __forceinline__ void pair_walk(float* ss, const float* sd, int Kd,
+                                          int count_d, const float* tile,
+                                          int Ks, int count_s, float px,
+                                          float py, float power_min,
+                                          bool has_pmin, float term_eps,
+                                          bool has_term, float acc[4],
+                                          float& T) {
+  int j = 0;                                   // next dynamic entry
+  for (int c0 = 0; c0 < count_s; c0 += CHUNK) {
+    __syncthreads();                           // previous chunk fully read
+    stage_chunk(ss, tile, Ks, c0);
+    __syncthreads();
+    const int n = min(CHUNK, count_s - c0);
+    for (int e = 0; e < n; ++e) {
+      const float ds = ss[ROW_DEPTH * CHUNK + e];
+      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
+        composite_entry(sd, Kd, j, px, py, power_min, has_pmin, T, acc);
+        ++j;
+      }
+      composite_entry(ss, CHUNK, e, px, py, power_min, has_pmin, T, acc);
+    }
+    if (has_term && !__syncthreads_or(T >= term_eps)) break;
+  }
+  for (; j < count_d; ++j)
+    composite_entry(sd, Kd, j, px, py, power_min, has_pmin, T, acc);
+}
+
 // ---- backward ---------------------------------------------------------------
 //
 // gsplat's gradient of one front-to-back composite, per pixel, entry by
@@ -232,6 +275,9 @@ __device__ __forceinline__ void warp_sum_rows(const float g[ROWS], bool any,
 // dst[r * dst_stride + col], col < n_cols: the sum over the block's warps
 // of part[(warp * ROWS + r) * stride + col], added in warp order (the
 // result does not depend on scheduling), for col < n_valid; 0 past it.
+// With ADD the nonzero sums are added to dst atomically instead (several
+// blocks then sum into one row; dst left untouched where the sum is 0).
+template <bool ADD = false>
 __device__ __forceinline__ void block_sum_rows(const float* part, int warps,
                                                int stride, int n_valid,
                                                int n_cols, float* dst,
@@ -241,7 +287,10 @@ __device__ __forceinline__ void block_sum_rows(const float* part, int warps,
     float v = 0.0f;
     if (col < n_valid)
       for (int w = 0; w < warps; ++w) v += part[(w * ROWS + r) * stride + col];
-    dst[r * dst_stride + col] = v;
+    if (!ADD)
+      dst[r * dst_stride + col] = v;
+    else if (v != 0.0f)
+      atomicAdd(dst + r * dst_stride + col, v);
   }
 }
 
@@ -253,6 +302,58 @@ __device__ __forceinline__ void zero_cols(float* dst, int stride, int lo,
     const int r = i / n;
     dst[r * stride + lo + (i - r * n)] = 0.0f;
   }
+}
+
+// Gradient of pair_walk (kernels K2b and K4b), with no saved state beyond
+// the forward's output: the forward's merged walk is replayed, T advanced by
+// the same float operations (entry_grad), so every stop decision is
+// bit-identical to the forward's.  sd (ROWS, Kd) is in shared memory; ss
+// holds one static chunk, part_s (warps, ROWS, CHUNK) and part_d (warps,
+// ROWS, Kd) the warps' per-entry partial sums.  gd (ROWS, Kd) receives the
+// dynamic gradient, every column written once (zero past count_d).  The
+// static gradient goes to gs (ROWS, Ks): written once per column, zero for
+// the chunks the forward never applied, or with ADD added atomically to
+// what gs holds (a row that several blocks share; nothing is added for
+// chunks never applied).
+template <bool ADD>
+__device__ __forceinline__ void pair_walk_grad(
+    float* ss, const float* sd, int Kd, int count_d, const float* tile,
+    int Ks, int count_s, float power_min, bool has_pmin, float term_eps,
+    bool has_term, BwdPixel& st, float* part_s, float* part_d, float* gs,
+    float* gd) {
+  const int warps = blockDim.x >> 5;
+  float* my_part_s = part_s + (threadIdx.x >> 5) * ROWS * CHUNK;
+  float* my_part_d = part_d + (threadIdx.x >> 5) * ROWS * Kd;
+  float g[ROWS];
+  int j = 0;                                     // next dynamic entry
+  int c0 = 0;                                    // next static chunk
+  while (c0 < count_s) {
+    __syncthreads();          // previous chunk's partials read
+    stage_chunk(ss, tile, Ks, c0);
+    __syncthreads();
+    const int n = min(CHUNK, count_s - c0);
+    for (int e = 0; e < n; ++e) {
+      const float ds = ss[ROW_DEPTH * CHUNK + e];
+      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
+        const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
+        warp_sum_rows(g, hit, my_part_d, Kd, j);
+        ++j;
+      }
+      const bool hit = entry_grad(ss, CHUNK, e, power_min, has_pmin, st, g);
+      warp_sum_rows(g, hit, my_part_s, CHUNK, e);
+    }
+    __syncthreads();
+    block_sum_rows<ADD>(part_s, warps, CHUNK, n, CHUNK, gs + c0, Ks);
+    c0 += CHUNK;
+    if (has_term && !__syncthreads_or(st.T >= term_eps)) break;
+  }
+  if (!ADD) zero_cols(gs, Ks, c0, Ks);
+  for (; j < count_d; ++j) {
+    const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
+    warp_sum_rows(g, hit, my_part_d, Kd, j);
+  }
+  __syncthreads();
+  block_sum_rows(part_d, warps, Kd, count_d, Kd, gd, Kd);
 }
 
 }  // namespace splat

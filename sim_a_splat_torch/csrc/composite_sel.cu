@@ -12,19 +12,11 @@
 // [r, g, b, depth_acc, trans, 0, 0, 0], written only at the rows the slots
 // name (pads write the trash row); other rows are left unwritten.
 //
-// Design: one block per (env, slot), one thread per pixel.  The TPU kernel
-// never builds the merged list: it recovers each side's transmittance in
-// front of an entry with depth-indicator contractions on the MXU.  Here the
-// merged order is walked directly.  The order of two depth-sorted lists
-// does not depend on the pixel, so every thread walks the same sequence:
-// the env's dynamic list stays in shared memory, each applied static chunk
-// is staged next to it, and before static entry i every dynamic entry with
-// dd_j < ds_i is composited (static first on equal depth, the merge-path
-// rule of merge_sorted_lists).  The early stop is checked after each applied
-// static chunk, when the running T is exactly the reference's
-// ts * Td(< dbound); once it stops, the remaining static chunks are skipped
-// and the remaining dynamic entries are still composited, attenuated only by
-// the static chunks that were applied.
+// Design: one block per (env, slot), one thread per pixel.  The env's
+// dynamic list stays in shared memory and the merged order is walked
+// directly (pair_walk in composite_common.cuh, shared with K4f): every
+// thread walks the same sequence, static first on equal depth, with the
+// early stop after each applied static chunk.
 //
 // What bounds it on an H100: the per-pixel sequential walk (latency and
 // instruction rate), not bytes: one block reads at most ~45 KB of payload and the
@@ -70,24 +62,8 @@ composite_pair_sel_fwd(const float* __restrict__ spay,
   const float* tile = spay + (size_t)tid * ROWS * Ks;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float T = 1.0f;
-  int j = 0;                                   // next dynamic entry
-  for (int c0 = 0; c0 < count_s; c0 += CHUNK) {
-    __syncthreads();                           // previous chunk fully read
-    stage_chunk(ss, tile, Ks, c0);
-    __syncthreads();
-    const int n = min(CHUNK, count_s - c0);
-    for (int e = 0; e < n; ++e) {
-      const float ds = ss[ROW_DEPTH * CHUNK + e];
-      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
-        composite_entry(sd, Kd, j, px, py, power_min, pm, T, acc);
-        ++j;
-      }
-      composite_entry(ss, CHUNK, e, px, py, power_min, pm, T, acc);
-    }
-    if (has_term && !__syncthreads_or(T >= term_eps)) break;
-  }
-  for (; j < count_d; ++j)
-    composite_entry(sd, Kd, j, px, py, power_min, pm, T, acc);
+  pair_walk(ss, sd, Kd, count_d, tile, Ks, count_s, px, py, power_min, pm,
+            term_eps, has_term != 0, acc, T);
 
   float* o = out + (size_t)(b * T1 + tid) * 8 * P + p;
   o[0 * P] = acc[0];

@@ -18,21 +18,18 @@
 // Design: one block per (env, slot), one thread per pixel.  The TPU
 // training forward saves a (B, TT, P, Kd) log-transmittance block (604 MB
 // at the main path's shape) and the applied-chunk count, and its backward
-// rebuilds the interleaving with depth-indicator contractions.  Here the
-// forward's merged walk is replayed instead: the same sequence as K2f
-// (static first on equal depth, the early stop on the running T after each
-// applied static chunk, the remaining dynamic entries always composited),
-// with T advanced by the same float operations, so every stop decision is
-// bit-identical to K2f's and nothing beyond out is saved.  Along the walk
-// each thread keeps per-channel prefix sums over the merged order, so the
-// suffix of an entry, the union suffix sum of both lists, is
-// ct . (out - prefix), rounded as K2f rounded out (entry_grad in
-// composite_common.cuh: the reference's s_tot - prefix, without its
-// float32 cancellation).  Per-entry sums over the pixels go through
-// per-warp partials in shared memory, added in warp order: deterministic,
-// no atomics.  The dynamic list, one static
-// chunk and both partial buffers take 10 (Kd + 128)(1 + warps) floats
-// (90 KB at Kd = 128, 8 warps): dynamic shared memory above 48 KB.
+// rebuilds the interleaving with depth-indicator contractions.  Here K2f's
+// merged walk is replayed instead (pair_walk_grad in composite_common.cuh,
+// shared with K4b), so every stop decision is bit-identical to K2f's and
+// nothing beyond out is saved.  Along the walk each thread keeps per-channel
+// prefix sums over the merged order, so the suffix of an entry, the union
+// suffix sum of both lists, is ct . (out - prefix), rounded as K2f rounded
+// out (entry_grad: the reference's s_tot - prefix, without its float32
+// cancellation).  Per-entry sums over the pixels go through per-warp
+// partials in shared memory, added in warp order: deterministic, no
+// atomics.  The dynamic list, one static chunk and both partial buffers
+// take 10 (Kd + 128)(1 + warps) floats (90 KB at Kd = 128, 8 warps):
+// dynamic shared memory above 48 KB.
 //
 // What bounds it on an H100: the per-pixel sequential walk and the
 // per-entry warp reductions, not bytes: a block reads at most ~45 KB of
@@ -68,8 +65,6 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
   float* ss = sd + ROWS * Kd;                    // (ROWS, CHUNK) static chunk
   float* part_s = ss + ROWS * CHUNK;             // (warps, ROWS, CHUNK)
   float* part_d = part_s + warps * ROWS * CHUNK;  // (warps, ROWS, Kd)
-  float* my_part_s = part_s + (p >> 5) * ROWS * CHUNK;
-  float* my_part_d = part_d + (p >> 5) * ROWS * Kd;
   const int b = blockIdx.y;
   const int slot = b * TT + blockIdx.x;
   const int tid = ids[slot];
@@ -79,47 +74,17 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
 
   const float* dsrc = dpay + (size_t)slot * ROWS * Kd;
   for (int i = p; i < ROWS * Kd; i += P) sd[i] = dsrc[i];
+  __syncthreads();
 
   const size_t row = (size_t)(b * T1 + tid) * 8 * P + p;
   BwdPixel st;
   init_bwd_pixel(st, (float)(p % ts) + 0.5f + (float)((tid % tx) * ts),
                  (float)(p / ts) + 0.5f + (float)((tid / tx) * ts), ct + row,
                  out + row, P);
-  float* gs_slot = gs + (size_t)slot * ROWS * Ks;
-  float* gd_slot = gd + (size_t)slot * ROWS * Kd;
-  const float* tile = spay + (size_t)tid * ROWS * Ks;
-
-  float g[ROWS];
-  int j = 0;                                     // next dynamic entry
-  int c0 = 0;                                    // next static chunk
-  while (c0 < count_s) {
-    __syncthreads();          // sd loaded; previous chunk's partials read
-    stage_chunk(ss, tile, Ks, c0);
-    __syncthreads();
-    const int n = min(CHUNK, count_s - c0);
-    for (int e = 0; e < n; ++e) {
-      const float ds = ss[ROW_DEPTH * CHUNK + e];
-      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
-        const bool hit = entry_grad(sd, Kd, j, power_min, pm, st, g);
-        warp_sum_rows(g, hit, my_part_d, Kd, j);
-        ++j;
-      }
-      const bool hit = entry_grad(ss, CHUNK, e, power_min, pm, st, g);
-      warp_sum_rows(g, hit, my_part_s, CHUNK, e);
-    }
-    __syncthreads();
-    block_sum_rows(part_s, warps, CHUNK, n, CHUNK, gs_slot + c0, Ks);
-    c0 += CHUNK;
-    if (has_term && !__syncthreads_or(st.T >= term_eps)) break;
-  }
-  zero_cols(gs_slot, Ks, c0, Ks);
-  __syncthreads();                               // sd loaded (no chunk ran)
-  for (; j < count_d; ++j) {
-    const bool hit = entry_grad(sd, Kd, j, power_min, pm, st, g);
-    warp_sum_rows(g, hit, my_part_d, Kd, j);
-  }
-  __syncthreads();
-  block_sum_rows(part_d, warps, Kd, count_d, Kd, gd_slot, Kd);
+  pair_walk_grad<false>(ss, sd, Kd, count_d, spay + (size_t)tid * ROWS * Ks,
+                        Ks, count_s, power_min, pm, term_eps, has_term != 0,
+                        st, part_s, part_d, gs + (size_t)slot * ROWS * Ks,
+                        gd + (size_t)slot * ROWS * Kd);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 """Entry points of the port: the pushT splat scene, the batched env step
-and its train step, and the moving-camera rollout.
+and its train step, the per-env fixed-camera step, and the moving-camera
+rollout.
 
-Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_moving``
-and ``_make_step_moving_cached`` of the reference's entry module
-(``__graft_entry__.py``):
+Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
+``_make_step_moving`` and ``_make_step_moving_cached`` of the reference's
+entry module (``__graft_entry__.py``):
 
 - a batch of pushT envs under one fixed camera, the static background
   binned and composited once per step (kernel K1) and each env's touched
@@ -11,6 +12,9 @@ and ``_make_step_moving_cached`` of the reference's entry module
   step of the reference's bench (``bench.py``): the mean-square image loss
   and its gradient to every gaussian parameter, through the backward
   kernels K1b and K2b;
+- the same envs through the reference's per-env step (its vmapped
+  ``_make_step_cached``, batched here): every tile of every env composited
+  against the static lists without a merge (kernel K4, K4b in training);
 - a camera attached to each env's agent: the R-frame rollout over per-env
   candidate caches (kernel K3, ``rollout_loss_and_grads`` its train step
   through K3b), and the full per-frame rebin (kernel K1) that is its
@@ -33,7 +37,8 @@ from sim_a_splat_torch.ops.projection import (
     Camera, Projected, project_raw, view_directions,
 )
 from sim_a_splat_torch.ops.rasterize_cached import (
-    build_static_composite, build_tile_cache_raw, rasterize_cache_sel_batch,
+    build_static_composite, build_tile_cache_raw, build_tile_cache_raw_sh,
+    rasterize_cache_sel_batch, rasterize_with_cache, rasterize_with_cache_sh,
 )
 from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig, render_binned
 from sim_a_splat_torch.ops.transforms import SE3
@@ -158,6 +163,14 @@ def _on(graph: SceneGraph, dev) -> SceneGraph:
                       graph.rest_inv.to(dev))
 
 
+def _fixed_camera(width: int, height: int, dev) -> Camera:
+    """The reference's fixed top-down camera over the pushT table."""
+    return Camera.from_fov(SE3(torch.tensor([1.0, 0, 0, 0], device=dev),
+                               torch.tensor([149.0, 256.0, -450.0],
+                                            device=dev)),
+                           1.05, width, height)
+
+
 def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
                            raster: RasterConfig, dyn_capacity: int = 128,
                            sel_tiles: int = 128, dyn_max_tiles: int = 9,
@@ -180,9 +193,7 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
     dev = resolve_device(device)
     graph = _on(graph, dev)
     params = PushTParams()
-    cam = Camera.from_fov(SE3(torch.tensor([1.0, 0, 0, 0], device=dev),
-                              torch.tensor([149.0, 256.0, -450.0], device=dev)),
-                          1.05, width, height)           # fixed, top-down
+    cam = _fixed_camera(width, height, dev)
     bodies = _Bodies(graph, dev)
     white = torch.ones(3, device=dev)
 
@@ -223,6 +234,75 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
     return prepare, step_batch, params
 
 
+def make_step_cached(graph: SceneGraph, width: int, height: int,
+                     raster: RasterConfig, dyn_capacity: int = 128,
+                     static_skip: bool = True, dyn_max_tiles: int = 9,
+                     device="cuda"):
+    """The reference's per-env pushT step under the fixed camera
+    (``_make_step_cached``, which the reference vmaps over envs), batched,
+    differentiable in the scene (:func:`loss_and_grads` takes its
+    gradient).
+
+    Returns ``(prepare, step, params)``:
+
+    - ``prepare(scene) → (cache, static_composite or None)``: SH of the
+      full stack on the static gaussians, the static tile cache, and with
+      ``static_skip`` kernel K1 once per step;
+    - ``step(cache, scene, states (B, …), actions (B, 2)) → (new_states,
+      imgs (B, H, W, 3), n_trunc (B,) int32)``: control step, posing of the
+      two dynamic bodies, SH of the full stack on the dynamics, per-env
+      projection + binning + gather of every tile's dynamic list, kernel K4
+      over every (env, tile) pair (only the touched tiles with
+      ``static_skip``, the rest take the static composite), untile and a
+      white background.  ``n_trunc`` counts each env's bounded truncations
+      (overflowed tiles + slot-truncated gaussians), which the reference
+      computes and drops.  ``raster.fused_pair=False`` merges the lists and
+      composites them with K1 instead."""
+    dev = resolve_device(device)
+    graph = _on(graph, dev)
+    params = PushTParams()
+    cam = _fixed_camera(width, height, dev)
+    bodies = _Bodies(graph, dev)
+    white = torch.ones(3, device=dev)
+    kw = dict(dyn_capacity=dyn_capacity, dyn_max_tiles=dyn_max_tiles,
+              background=white)
+
+    def prepare(scene):
+        st = scene.select(bodies.stat_idx)
+        if scene.sh_rest is None:
+            cache = build_tile_cache_raw(st.means, st.quats, st.log_scales,
+                                         st.colors_dc(), st.opacities(), cam,
+                                         raster)
+        else:
+            cache = build_tile_cache_raw_sh(st.means, st.quats,
+                                            st.log_scales, st.sh_coeffs(),
+                                            st.opacities(), cam, raster,
+                                            scene.sh_degree)
+        return cache, (build_static_composite(cache, cam, raster)
+                       if static_skip else None)
+
+    def step(cache, scene, states, actions):
+        cache, scomp = cache
+        new_states = pusht.control_step(params, states, actions)
+        dyn = scene.select(bodies.dyn_idx)
+        means, quats = bodies.pose(dyn, new_states)
+        B, Nd = actions.shape[0], dyn.means.shape[0]
+        d_ls = dyn.log_scales.expand(B, Nd, 3)
+        d_op = dyn.opacities().expand(B, Nd)
+        if scene.sh_rest is None:
+            imgs, aux = rasterize_with_cache(
+                cache, scomp, means, quats, d_ls,
+                dyn.colors_dc().expand(B, Nd, 3), d_op, cam, raster, **kw)
+        else:
+            imgs, aux = rasterize_with_cache_sh(
+                cache, scomp, means, quats, d_ls, dyn.sh_coeffs(), d_op, cam,
+                scene.sh_degree, raster, **kw)
+        n_trunc = aux.n_overflowed_tiles + aux.n_slot_truncated
+        return new_states, imgs, n_trunc.to(torch.int32)
+
+    return prepare, step, params
+
+
 def _value_and_grads(scene: GaussianScene, fn):
     """``fn(leaves) → (loss, *aux)`` on the scene's tensors made leaves that
     require grad → ``(loss, aux, grads)``, ``grads`` a GaussianScene of the
@@ -240,12 +320,15 @@ def loss_and_grads(prepare, step_batch, scene: GaussianScene, states,
                    actions):
     """One train step of the batched env, as the reference's bench takes it
     (``jax.value_and_grad`` of ``mean(imgs ** 2)`` over the scene):
-    ``prepare`` and ``step_batch`` from :func:`make_step_cached_batch`.
+    ``prepare`` and ``step_batch`` from :func:`make_step_cached_batch` or
+    :func:`make_step_cached`.
 
     The forward is ``prepare`` + ``step_batch``, and the backward runs
-    through K2b and K1b on the card (their plain versions on the CPU).
-    Returns ``(new_states, loss, n_drop, grads)``, with ``grads`` a
-    GaussianScene of the loss's gradients to every scene field."""
+    through the step's backward kernels on the card (K2b or K4b, and K1b;
+    their plain versions on the CPU).  Returns ``(new_states, loss, n_drop,
+    grads)``: ``n_drop`` is the step's third output (its truncation
+    counters) and ``grads`` a GaussianScene of the loss's gradients to
+    every scene field."""
     def fn(leaves):
         new_states, imgs, n_drop = step_batch(prepare(leaves), leaves,
                                               states, actions)

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("composite", "composite_bwd", "composite_sel",
                   "composite_sel_bwd", "composite_single",
-                  "composite_single_bwd")
+                  "composite_single_bwd", "composite_pair",
+                  "composite_pair_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -49,10 +49,13 @@ SMEM_OPTIN_BYTES = 232_448
 SLOT_BLOCK = 512  # slots per vectorised step of the plain version
 
 
-def _plain_slots(spay_pad, dp, tid, counts_s_pad, cd, ts, tx, pmin,
-                 term_eps):
-    """Plain K2 on S slots: dp (S, 10, Kd), tid/cd (S,) → ((S, 8, P) rows,
-    applied static chunks (S,), composited (pixel, entry) pairs (S,))."""
+def plain_slots(spay_pad, dp, tid, counts_s_pad, cd, ts, tx, pmin,
+                term_eps):
+    """Plain interleaved composite of S (static list, dynamic list) slots,
+    K2's and K4's arithmetic per slot: static list ``spay_pad[tid]`` of
+    ``counts_s_pad[tid]`` entries, dynamic list dp (S, 10, Kd) of cd (S,)
+    entries → ((S, 8, P) rows, applied static chunks (S,), composited
+    (pixel, entry) pairs (S,))."""
     S, _, Kd = dp.shape
     Ks = spay_pad.shape[-1]
     P = ts * ts
@@ -141,7 +144,7 @@ def composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
     hits = torch.zeros_like(applied)
     for s0 in range(0, B * TT, SLOT_BLOCK):
         sl = slice(s0, min(s0 + SLOT_BLOCK, B * TT))
-        res[sl], applied[sl], hits[sl] = _plain_slots(
+        res[sl], applied[sl], hits[sl] = plain_slots(
             spay_pad, dflat[sl], flat_ids[sl], counts_s_pad, flat_cd[sl], ts,
             tx, pmin, term_eps)
     out = dpay.new_empty((B, T1, 8, P))

@@ -49,7 +49,7 @@ from sim_a_splat_torch.ops.projection import (
     view_directions,
 )
 from sim_a_splat_torch.ops.rasterize_cached import (
-    _gather_tile_lists_sel, _grid,
+    _dyn_config, _gather_tile_lists_sel, _grid,
 )
 from sim_a_splat_torch.ops.rasterize_tiles import (
     RasterAux, RasterConfig, _bin_gaussians, untile_image,
@@ -463,10 +463,6 @@ def render_moving_batch(caches: MovingCache, cameras: Camera, dyn_means,
             "render_moving_batch requires sigma_cutoff ≤ 3: candidate "
             "compaction drops entries whose 3σ box misses the tile, which "
             "is exact only when the kernel cuts at ≤ 3σ")
-    dyn_cfg = config._replace(tile_capacity=dyn_capacity)
-    if dyn_max_tiles is not None:
-        dyn_cfg = dyn_cfg._replace(max_tiles_per_gaussian=dyn_max_tiles)
-
     def reproject(cache, cams):
         return reproject_candidates(cache, cams, sh_degree, config,
                                     sort=False)
@@ -497,7 +493,7 @@ def render_moving_batch(caches: MovingCache, cameras: Camera, dyn_means,
                          radius=torch.where(live, proj.radius,
                                             torch.zeros_like(proj.radius)))
     _, sorted_gidx, starts, dcounts, dtrunc = _bin_gaussians(
-        proj, dyn_cfg, tx, ty)
+        proj, _dyn_config(config, dyn_capacity, dyn_max_tiles), tx, ty)
     ids = torch.arange(T, dtype=torch.int32,
                        device=dm.device).expand(B, T).contiguous()
     pay_d, _ = _gather_tile_lists_sel(proj, dc, dop, sorted_gidx, starts,

@@ -39,6 +39,9 @@ class RasterConfig(NamedTuple):
     # footprint buckets ((M_b, frac_b), ...): the frac_b·N gaussians with the
     # largest tile footprints get M_b slots (smallest bucket: remainder)
     buckets: Optional[tuple] = None
+    # the per-env cached render: the merge-free pair kernel K4 (else merge
+    # the lists with ``merge_sorted_lists`` and composite them with K1)
+    fused_pair: bool = True
 
 
 class RasterAux(NamedTuple):
@@ -190,15 +193,17 @@ def pack_payload(gxy, gconic, gcol, gop, gdepth, pad_rows: int = 0):
 
 
 def composite_dispatch(payload: torch.Tensor, counts: torch.Tensor,
-                       config: RasterConfig, tx: int):
+                       config: RasterConfig, tx: int,
+                       skip: Optional[torch.Tensor] = None):
     """Composite full-grid tile lists, packed (T, 10, K) by
     :func:`pack_payload`, with kernel K1 (``composite.composite_static``);
     ``counts`` (T,) int32 active entries per tile, chunks past it are
-    skipped (and so are tiles without entries).
+    skipped (and so are tiles without entries).  Tiles with ``skip`` (T,)
+    int32 == 0 emit rgb 0 / trans 1 and do no work (default: ``counts``).
     Returns (rgb (T, P, 3), depth_acc (T, P), trans (T, P))."""
     out, _ = composite.composite_static(
-        payload, counts, counts, config.tile_size, tx, config.sigma_cutoff,
-        config.term_eps)
+        payload, counts, counts if skip is None else skip, config.tile_size,
+        tx, config.sigma_cutoff, config.term_eps)
     return out[..., 0:3], out[..., 3], out[..., 4]
 
 

@@ -1,6 +1,6 @@
-"""Kernels K1f, K1b, K2f, K2b, K3f and K3b on the card against their plain
-versions, and the port's step, train step and moving-camera rollout on the
-card against its CPU path.
+"""Kernels K1f, K1b, K2f, K2b, K3f, K3b, K4f and K4b on the card against
+their plain versions, and the port's step, train step, per-env step and
+moving-camera rollout on the card against its CPU path.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import).  This file imports no
@@ -13,8 +13,8 @@ same float32 operations (no contraction into FMAs, the same ``expf``), so
 they differ only in how transmittance products and colour sums are
 accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
 log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
-for K2f (the CPU tests' bounds against the reference), atol 2e-5 for K3f
-(K1's walk on per-env lists).  Gradients: each
+for K2f and K4f (the CPU tests' bounds against the reference), atol 2e-5
+for K3f (K1's walk on per-env lists).  Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -29,12 +29,14 @@ import pytest
 import torch
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, assert_rows_close, k1_inputs, k2_inputs, k3_inputs,
-    selected_cotangent, torch_raster,
+    K_T, K_TS, K_TX, assert_fields_close, assert_rows_close, k1_inputs,
+    k2_inputs, k3_inputs, k4_inputs, selected_cotangent, torch_raster,
 )
 
 from sim_a_splat_torch import entry
-from sim_a_splat_torch.ops import composite, composite_sel, composite_single
+from sim_a_splat_torch.ops import (
+    composite, composite_pair, composite_sel, composite_single,
+)
 from sim_a_splat_torch.physics import pusht
 
 pytestmark = pytest.mark.cuda
@@ -174,14 +176,8 @@ def test_train_step_on_card_matches_cpu(dev):
                 (launched[0] + 1, launched[1] + 1)
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
                                rtol=1e-5, atol=0)
-    for name, got, want in zip(res["cpu"][1]._fields, res["cuda"][1],
-                               res["cpu"][1]):
-        got = got.cpu()
-        assert torch.isfinite(got).all(), name
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        assert err <= GRAD_REL * scale, \
-            f"{name}: max|Δ| {err:.3e} > {GRAD_REL} × {scale:.3e}"
+    assert_fields_close(res["cuda"][1], res["cpu"][1],
+                        GRAD_REL)
 
 
 def test_k3_kernel_matches_plain(dev):
@@ -259,11 +255,69 @@ def test_moving_rollout_on_card_matches_cpu(dev):
     assert res["cuda"][1].tolist() == res["cpu"][1].tolist()
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
                                rtol=1e-5, atol=0)
-    for name, got, want in zip(res["cpu"][2]._fields, res["cuda"][2],
-                               res["cpu"][2]):
-        got = got.cpu()
-        assert torch.isfinite(got).all(), name
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        assert err <= GRAD_REL * scale, \
-            f"{name}: max|Δ| {err:.3e} > {GRAD_REL} × {scale:.3e}"
+    assert_fields_close(res["cuda"][2], res["cpu"][2],
+                        GRAD_REL)
+
+
+def test_k4_kernel_matches_plain(dev):
+    args = [torch.as_tensor(a, device=dev) for a in k4_inputs()]
+    before = composite_pair.launches
+    out = composite_pair.composite_pair(*args, TS, TX, 3.0, 1e-4)
+    torch.cuda.synchronize()
+    assert composite_pair.launches == before + 1
+    ref = composite_pair.composite_pair_plain(*args, TS, TX, 3.0, 1e-4)
+    torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-4)
+    skip = args[4]
+    assert (out[skip == 0] == out.new_tensor(
+        [0, 0, 0, 0, 1, 0, 0, 0])).all()
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k4b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
+    args = [torch.as_tensor(a, device=dev) for a in k4_inputs()]
+    leaves = (args[0].clone().requires_grad_(),
+              args[1].clone().requires_grad_())
+    out = composite_pair.composite_pair(*leaves, *args[2:], TS, TX,
+                                        sigma_cutoff, term_eps)
+    ct = torch.as_tensor(np.random.default_rng(14).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    ct[args[4] == 0] = 0.0
+    before = composite_pair.launches_bwd
+    (out * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert composite_pair.launches_bwd == before + 1
+    want_s, want_d = composite_pair.composite_pair_bwd_plain(
+        *args, ct, TS, TX, sigma_cutoff, term_eps)
+    assert_rows_close(leaves[0].grad, want_s, GRAD_REL,
+                      "K4b static, summed over envs")
+    assert_rows_close(leaves[1].grad, want_d, GRAD_REL, "K4b dynamic")
+    assert not leaves[1].grad[args[4] == 0].any()
+    assert not leaves[0].grad[2].any()            # the empty static tile
+
+
+def test_per_env_step_on_card_matches_cpu(dev):
+    res = {}
+    for d in ("cpu", dev):
+        leaves = entry.build_scene_numpy(256, 64, 32, seed=0, sh_degree=3)
+        g = entry.graph_from_numpy(leaves, device=d)
+        prep, step, P = entry.make_step_cached(g, 64, 64, torch_raster(),
+                                               device=d)
+        vec = np.asarray([[120, 200, 149, 256, 0.3],
+                          [60, 400, 180, 300, -1.0]], np.float32)
+        states = pusht.set_state(P, torch.as_tensor(vec, device=d))
+        actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0]], device=d)
+        launched = (composite_pair.launches, composite_pair.launches_bwd)
+        _, imgs, n_trunc = step(prep(g.scene), g.scene, states, actions)
+        _, loss, _, grads = entry.loss_and_grads(prep, step, g.scene, states,
+                                                 actions)
+        res[str(d)] = (imgs, n_trunc, loss, grads)
+        if d == dev:
+            assert (composite_pair.launches, composite_pair.launches_bwd) == \
+                (launched[0] + 2, launched[1] + 1)
+    torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0], atol=1e-4,
+                               rtol=0)
+    assert res["cuda"][1].tolist() == res["cpu"][1].tolist()
+    torch.testing.assert_close(res["cuda"][2].cpu(), res["cpu"][2],
+                               rtol=1e-5, atol=0)
+    assert_fields_close(res["cuda"][3], res["cpu"][3],
+                        GRAD_REL)

@@ -40,9 +40,9 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, assert_rows_close, graph_leaves, jax_pusht_states,
-    jax_raster, k1_inputs, k2_inputs, np_of, random_state_vectors,
-    selected_cotangent, torch_raster,
+    K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
+    graph_leaves, jax_pusht_states, jax_raster, k1_inputs, k2_inputs, np_of,
+    random_state_vectors, selected_cotangent, torch_raster,
 )
 
 import __graft_entry__ as graft
@@ -54,12 +54,6 @@ from sim_a_splat_torch.ops import composite, composite_sel
 from sim_a_splat_torch.physics import pusht
 
 SETTINGS = [(3.0, 1e-4), (None, None)]
-FIELDS = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
-          "sh_rest")
-
-
-def _double(tensors):
-    return [a.double() if a.is_floating_point() else a for a in tensors]
 
 
 @pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
@@ -76,7 +70,7 @@ def test_k1_bwd_plain_matches_pallas(sigma_cutoff, term_eps):
         *args, K_TS, K_TX, sigma_cutoff, term_eps))
     assert_rows_close(got, ref, 1e-4, "K1 payload grad")
     exact = np_of(composite.composite_static_bwd_plain(
-        *_double(args), K_TS, K_TX, sigma_cutoff, term_eps))
+        *as_float64(args), K_TS, K_TX, sigma_cutoff, term_eps))
     assert_rows_close(got, exact, 1e-4, "K1 payload grad vs float64")
     # skipped tile, empty tile, and entries past a tile's count: zero
     assert not got[5].any() and not got[2].any()
@@ -108,7 +102,7 @@ def test_k2_bwd_plain_matches_pallas(sigma_cutoff, term_eps):
     assert_rows_close(got_d, ref_d, 2e-3, "K2 dynamic grad")
     exact_s, exact_d = (np_of(g) for g in
                         composite_sel.composite_pair_sel_bwd_plain(
-                            *_double(args), K_TS, K_TX, sigma_cutoff,
+                            *as_float64(args), K_TS, K_TX, sigma_cutoff,
                             term_eps))
     assert_rows_close(got_s[:K_T], exact_s[:K_T], 2e-4,
                       "K2 static grad vs float64")
@@ -223,12 +217,5 @@ def test_train_step_grads_match_reference(seed):
     np.testing.assert_array_equal(np_of(n_drop), np_of(jdrop))
     assert int(n_drop[0]) == 0        # the comparison is of exact renders
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
-    for name in FIELDS:
-        got, want = np_of(getattr(grads, name)), np_of(getattr(jgrads, name))
-        assert got.shape == want.shape and np.isfinite(got).all(), name
-        scale = float(np.abs(want).max())
-        assert scale > 0, name
-        err = float(np.abs(got - want).max())
-        assert err <= 1e-4 * scale, \
-            f"{name}: max|Δ| {err:.3e} > 1e-4 × {scale:.3e}"
+    assert_fields_close(grads, jgrads, 1e-4)
     assert not any(f.requires_grad for f in g.scene)   # inputs untouched

@@ -149,6 +149,27 @@ def k3_inputs(seed=2, Km=256):
     return spay, ids, counts
 
 
+def k4_inputs(seed=3, Ks=256, Kd=128):
+    """K4 inputs (spay (T, 10, Ks), dpay (2, T, 10, Kd), counts_s (T,),
+    counts_d (2, T), skip (2, T)) over the 3 × 2 tile grid: a full static
+    list, lists cut mid-chunk, an empty one, a count past the capacity and
+    a nearly opaque tile that stops early; dynamic lists full, cut, empty,
+    past the capacity and nearly opaque; pairs with skip 0 (one of them
+    with dynamic entries, which it must ignore); static and dynamic depths
+    on one grid, so that they tie."""
+    rng = np.random.default_rng(seed)
+    counts_s = np.asarray([Ks, 100, 0, 200, Ks + 40, 150], np.int32)
+    spay = tile_lists(rng, range(K_T), counts_s, Ks, K_TS, K_TX, opaque=(4,))
+    counts_d = np.asarray([[40, Kd, 7, 0, 60, Kd + 30],
+                           [60, 0, Kd, 5, 0, 90]], np.int32)
+    skip = np.asarray([[1, 1, 1, 0, 1, 1],
+                       [1, 1, 1, 0, 0, 1]], np.int32)
+    dpay = np.stack([tile_lists(rng, range(K_T), counts_d[b], Kd, K_TS, K_TX,
+                                opaque=(5,) if b == 1 else ())
+                     for b in range(2)])
+    return spay, dpay, counts_s, counts_d, skip
+
+
 def selected_cotangent(rng, ids, shape):
     """Cotangent of K2's out (B, T+1, 8, P) from ``rng``: normal on the rows
     the slots select (channels 0-4, the ones the output defines), zero on
@@ -159,6 +180,34 @@ def selected_cotangent(rng, ids, shape):
         for t in row[row < T]:
             ct[b, t, :5] = rng.normal(size=(5, shape[-1]))
     return ct
+
+
+SCENE_FIELDS = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
+                "sh_rest")
+
+
+def as_float64(tensors):
+    """The floating-point tensors of a list in float64, the others as they
+    are (the plain versions run in float64 as an exact reference)."""
+    return [a.double() if a.is_floating_point() else a for a in tensors]
+
+
+def assert_fields_close(got, want, rel):
+    """Each gradient field of the scene ``got`` finite and within ``rel`` ×
+    that field's largest |want| (GaussianScenes of either package, on any
+    device); a field ``want`` lacks (None) must be None in ``got``."""
+    for name in SCENE_FIELDS:
+        w = getattr(want, name)
+        if w is None:
+            assert getattr(got, name) is None, name
+            continue
+        g, w = np_of(getattr(got, name)), np_of(w)
+        assert g.shape == w.shape and np.isfinite(g).all(), name
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        err = float(np.abs(g - w).max())
+        assert err <= rel * scale, \
+            f"{name}: max|Δ| {err:.3e} > {rel} × {scale:.3e}"
 
 
 def assert_rows_close(got, want, rel, what):

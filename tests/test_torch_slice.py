@@ -92,7 +92,8 @@ def test_step_matches_reference(seed):
 @pytest.mark.parametrize("entry_point", ["make_step_cached_batch",
                                          "build_scene", "state_from_numpy",
                                          "make_step_moving_cached",
-                                         "make_step_moving"])
+                                         "make_step_moving",
+                                         "make_step_cached"])
 def test_cuda_without_card_raises(entry_point):
     if torch.cuda.is_available():
         pytest.skip("a card is present: this checks the no-card refusal")
@@ -103,6 +104,8 @@ def test_cuda_without_card_raises(entry_point):
         "make_step_moving_cached": lambda: entry.make_step_moving_cached(
             g, W, H, torch_raster()),
         "make_step_moving": lambda: entry.make_step_moving(
+            g, W, H, torch_raster()),
+        "make_step_cached": lambda: entry.make_step_cached(
             g, W, H, torch_raster()),
         "build_scene": lambda: entry.build_scene(64, 32, 16),
         "state_from_numpy": lambda: pusht.state_from_numpy(
