@@ -48,6 +48,12 @@ import time
 B, N, RES, SH_DEGREE = 128, 100_000, 256, 3
 SEL_TILES, DYN_CAP, DYN_M = 36, 128, 9
 ITERS = 5
+# K2f and K2b of the first design (one thread per pixel, K2b's per-slot
+# output summed by index_add_), and K4 that keeps that walk: this script on
+# an NVIDIA H100 80GB HBM3 at 700 W
+FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
+                   "composite_pair_sel_bwd": 4.2181,
+                   "composite_pair": 1.3624, "composite_pair_bwd": 4.2581}
 # the moving camera (bench.py's moving_camera / moving_fwd variants)
 B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
@@ -109,6 +115,22 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(fn):
+    """(device time in ms, key averages) of one ``fn()`` under the profiler:
+    the self time of every CUDA event, host gaps excluded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in avg if str(e.device_type).endswith("CUDA"))
+    return dev_us / 1e3, avg
 
 
 def bound(nbytes, flops):
@@ -308,6 +330,7 @@ def main() -> int:
     # 4. K2 at full size --------------------------------------------------------
     a2 = seen["k2"]
     spay, dpay, ids, cs_pad, cd = a2[:5]
+    ts2, tx2, sigma2 = a2[5], a2[6], a2[7]
     log(f"K2 composite_pair_sel vs plain (spay {tuple(spay.shape)}, "
         f"dpay {tuple(dpay.shape)}):")
     out_k = composite_sel.composite_pair_sel(*a2)
@@ -348,9 +371,29 @@ def main() -> int:
               bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"  slots {ids.numel()} ({int(real.sum())} real), entries "
         f"{entries}; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
-        f"blended (α > 0); "
-        f"kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"blended (α > 0); kernel {k2['ms']:.4f} ms "
+        f"({composite_sel.blocks_per_sm(False, Kd, ts2)} blocks/SM, "
+        f"{composite_sel.smem_bytes(Kd, ts2, False)} B shared), plain "
+        f"{k2['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the (entry, warp) pairs of the applied entries that the cull skips,
+    # by the kernels' test's plain twin
+    sbox = composite_sel.cull_boxes(spay, sigma2)           # (T+1, 4, Ks)
+    dbox = composite_sel.cull_boxes(dpay, sigma2).flatten(0, 1)
+    lim_s = s_entries.reshape(-1, 1)
+    lim_d = d_entries.reshape(-1, 1)
+    flat_ids = ids.reshape(-1)
+    skipped = pairs = 0
+    for s0 in range(0, flat_ids.numel(), 512):
+        sl = slice(s0, s0 + 512)
+        rects = composite_sel.warp_rects(flat_ids[sl], ts2, tx2)
+        cs_ = composite_sel.culled(sbox[flat_ids[sl].long()], rects)
+        cd_ = composite_sel.culled(dbox[sl], rects)
+        on_s = torch.arange(Ks, device=dev) < lim_s[sl]     # (S, Ks)
+        on_d = torch.arange(Kd, device=dev) < lim_d[sl]
+        skipped += int((cs_ & on_s[:, None]).sum() + (cd_ & on_d[:, None]).sum())
+        pairs += (int(on_s.sum()) + int(on_d.sum())) * rects.shape[1]
+    log(f"  cull skipped {skipped} of {pairs} (entry, warp) pairs "
+        f"({skipped / pairs:.4f})")
     kernels.append(k2)
 
     # 4b. K2b at full size, for a numpy-seeded cotangent on the selected rows -
@@ -362,7 +405,6 @@ def main() -> int:
         size=(B_, TT, 5, P_)).astype(np.float32), device=dev)
     ct2[:, T1 - 1] = 0.0                       # the trash row: pads only
     a2b = (spay, dpay, ids, cs_pad, cd, ct2, out_k, *a2[5:])
-    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
 
     def k2b_plain():
         g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
@@ -375,31 +417,35 @@ def main() -> int:
         return g_s, g_d
 
     gs_p, gd_p = k2b_plain()
+    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
     e2b = max(check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
                          "static grad, summed per tile"),
               check_rows("K2b", gd_k, gd_p, "dynamic grad"))
     if not (bool(torch.isfinite(gs_k).all()) and bool(torch.isfinite(gd_k).all())):
         raise AssertionError("K2b: gradient not finite")
     if bool(gs_k[T1 - 1].any()) or bool(gd_k[~real].any()):
-        raise AssertionError("K2b: pad slots got a nonzero gradient")
+        raise AssertionError("K2b: pad slots or the trash row got a nonzero "
+                             "gradient")
     # reads as K2f plus 5 channels each of ct and out at every written row;
-    # writes the per-slot static and dynamic gradients once
-    Ks, Kd = spay.shape[-1], dpay.shape[-1]
+    # writes the per-tile static gradient (atomic adds into (T+1, 10, Ks))
+    # and the per-slot dynamic gradient once
     b_ms, b_by = bound(int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
                        + ids.numel() * 8 + T1 * 4 + rows_written * 2 * 5 * P_ * 4
-                       + ids.numel() * 10 * (Ks + Kd) * 4,
+                       + T1 * 10 * Ks * 4 + ids.numel() * 10 * Kd * 4,
                        ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
     k2b = dict(name="composite_pair_sel_bwd", route="cuda",
                source="sim_a_splat_torch/csrc/composite_sel_bwd.cu",
                replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:633",
                max_abs_err=e2b,
-               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd_slots(
-                   *a2b), 10),
+               # the whole gradient: the per-tile sum is in the kernel
+               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+                          10),
                plain_ms=cuda_ms(k2b_plain, 1, warmup=0),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    sum_ms = cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b), 10)
     log(f"  gradient pairs (α > 0): {blended}; kernel {k2b['ms']:.4f} ms "
-        f"(with the per-tile index_add_: {sum_ms:.4f} ms), plain "
+        f"with the per-tile sum and its zero fill "
+        f"({composite_sel.blocks_per_sm(True, Kd, ts2)} blocks/SM, "
+        f"{composite_sel.smem_bytes(Kd, ts2, True)} B shared), plain "
         f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     kernels.append(k2b)
     # free the checks' tensors before the forward step's peak-memory reading
@@ -470,9 +516,12 @@ def main() -> int:
     cache0, s_next = prepare(scene), pusht.control_step(P, states0, actions)
     with replaced(pusht, "control_step", lambda *_: s_next):
         rend_ms = cuda_ms(lambda: step(cache0, scene, states0, actions), 3)
+        rend_dev_ms = device_profile(
+            lambda: step(cache0, scene, states0, actions))[0]
     log(f"breakdown (events, each phase alone): prepare {prep_ms:.2f} ms, "
         f"control_step {phys_ms:.2f} ms, step_batch without control_step "
-        f"{rend_ms:.2f} ms; sum {prep_ms + phys_ms + rend_ms:.2f} ms vs "
+        f"{rend_ms:.2f} ms (first K2 design: 8.96 ms; its device time "
+        f"{rend_dev_ms:.2f} ms); sum {prep_ms + phys_ms + rend_ms:.2f} ms vs "
         f"{step_ms:.2f} ms/step")
 
     # image against the port's plain path on the first 8 envs
@@ -491,19 +540,11 @@ def main() -> int:
 
     # device profile of one step (where the time goes) -------------------------
     def profiled(label, fn, ms_per_step):
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        avg = prof.key_averages()
+        dev_ms, avg = device_profile(fn)
         table = avg.table(sort_by="self_cuda_time_total", row_limit=11)
-        dev_us = sum(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-                     for e in avg if str(e.device_type).endswith("CUDA"))
-        log(f"profile of one {label}: device time {dev_us / 1e3:.2f} ms of "
+        log(f"profile of one {label}: device time {dev_ms:.2f} ms of "
             f"{ms_per_step:.2f} ms/step, idle share "
-            f"{1 - dev_us / 1e3 / ms_per_step:.3f}")
+            f"{1 - dev_ms / ms_per_step:.3f}")
         for line in table.splitlines()[:14]:
             log("  " + line)
 
@@ -564,10 +605,13 @@ def main() -> int:
     loss0 = forward()
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss0, leaf_list,
                                                  retain_graph=True), 3)
+    bwd_dev_ms = device_profile(lambda: torch.autograd.grad(
+        loss0, leaf_list, retain_graph=True))[0]
     del loss0
     log(f"breakdown (events, each phase alone): forward with the graph kept "
-        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; sum "
-        f"{fwd_ms + bwd_ms:.2f} ms vs {train_ms:.2f} ms/step")
+        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (its device time "
+        f"{bwd_dev_ms:.2f} ms); sum {fwd_ms + bwd_ms:.2f} ms vs "
+        f"{train_ms:.2f} ms/step")
     profiled("train step", lambda: entry.loss_and_grads(
         prepare, step, scene, states0, actions), train_ms)
 
@@ -602,6 +646,13 @@ def main() -> int:
     kernels += moving_camera(entry, composite, composite_single,
                              rasterize_moving, pusht, graph, scene, P, gen,
                              reset_counts, counts_now, profiled, dev)
+    ms = {k["name"]: k["ms"] for k in kernels}
+    for new_, old_ in (("composite_pair_sel", "composite_pair"),
+                       ("composite_pair_sel_bwd", "composite_pair_bwd")):
+        log(f"{new_} {ms[new_]:.4f} ms against {old_} {ms[old_]:.4f} ms "
+            f"(the old walk on the same pairs, this call): "
+            f"{ms[old_] / ms[new_]:.2f}×; recorded for the first design: "
+            f"{FIRST_DESIGN_MS[new_]} and {FIRST_DESIGN_MS[old_]} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 // Shared device helpers of the compositing kernels (K1: composite.cu,
-// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu; K3:
-// composite_single.cu, composite_single_bwd.cu; K4: composite_pair.cu,
-// composite_pair_bwd.cu).
+// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu, whose walk
+// is in composite_sel_walk.cuh; K3: composite_single.cu,
+// composite_single_bwd.cu; K4: composite_pair.cu, composite_pair_bwd.cu).
 //
 // Alpha of one list entry at one pixel, term by term as the reference's
 // _chunk_geometry (sim_a_splat_tpu/ops/pallas_composite.py:81-101) and the
@@ -37,25 +37,36 @@ struct Geom {
   bool active;   // kept and not clamped: the clamp kills the gradient
 };
 
-__device__ __forceinline__ Geom entry_geom(const float* s, int stride, int e,
-                                           float px, float py,
-                                           float power_min, bool has_pmin) {
+// Geometry of an entry with centre (x, y), conic (ca, cb, cc) and opacity
+// op at the pixel centre (px, py).
+__device__ __forceinline__ Geom geom_at(float x, float y, float ca, float cb,
+                                        float cc, float op, float px,
+                                        float py, float power_min,
+                                        bool has_pmin) {
   Geom g;
-  g.dx = __fsub_rn(px, s[ROW_X * stride + e]);
-  g.dy = __fsub_rn(py, s[ROW_Y * stride + e]);
-  const float quad =
-      __fadd_rn(__fmul_rn(__fmul_rn(s[ROW_CA * stride + e], g.dx), g.dx),
-                __fmul_rn(__fmul_rn(s[ROW_CC * stride + e], g.dy), g.dy));
-  const float power = __fsub_rn(
-      __fmul_rn(-0.5f, quad),
-      __fmul_rn(__fmul_rn(s[ROW_CB * stride + e], g.dx), g.dy));
+  g.dx = __fsub_rn(px, x);
+  g.dy = __fsub_rn(py, y);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, g.dx), g.dx),
+                               __fmul_rn(__fmul_rn(cc, g.dy), g.dy));
+  const float power =
+      __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, g.dx), g.dy));
   g.expp = expf(fminf(power, 0.0f));
-  const float raw = __fmul_rn(s[ROW_OP * stride + e], g.expp);
+  const float raw = __fmul_rn(op, g.expp);
   const float alpha = fminf(raw, ALPHA_CLAMP);
   const bool keep = alpha >= ALPHA_MIN && (!has_pmin || power >= power_min);
   g.alpha = keep ? alpha : 0.0f;
   g.active = keep && raw < ALPHA_CLAMP;
   return g;
+}
+
+// geom_at of entry e of a (ROWS, stride) payload block.
+__device__ __forceinline__ Geom entry_geom(const float* s, int stride, int e,
+                                           float px, float py,
+                                           float power_min, bool has_pmin) {
+  return geom_at(s[ROW_X * stride + e], s[ROW_Y * stride + e],
+                 s[ROW_CA * stride + e], s[ROW_CB * stride + e],
+                 s[ROW_CC * stride + e], s[ROW_OP * stride + e], px, py,
+                 power_min, has_pmin);
 }
 
 __device__ __forceinline__ float entry_alpha(const float* s, int stride,
@@ -127,9 +138,10 @@ __device__ __forceinline__ int composite_walk(float* s, const float* list,
 // Merged front-to-back walk of one static tile list (ROWS, Ks) of count_s
 // active entries and one dynamic list sd (ROWS, Kd) of count_d entries,
 // already in shared memory, for this thread's pixel, all threads of the
-// block together (kernels K2 and K4).  The TPU kernels never build the
-// merged list: they recover each side's transmittance in front of an entry
-// with depth-indicator contractions on the MXU.  Here the merged order is
+// block together (kernel K4; K2 walks with composite_sel_walk.cuh).  The
+// TPU kernels never build the merged list: they recover each side's
+// transmittance in front of an entry with depth-indicator contractions on
+// the MXU.  Here the merged order is
 // walked directly.  The order of two depth-sorted lists does not depend on
 // the pixel, so every thread walks the same sequence: each static chunk is
 // staged in ss (ROWS * CHUNK floats) next to the dynamic list, and before
@@ -209,25 +221,19 @@ __device__ __forceinline__ void init_bwd_pixel(BwdPixel& st, float px,
   st.T = 1.0f;
 }
 
-// Gradient g[ROWS] of entry e at this pixel; advances T and the channel
-// prefixes exactly as composite_entry advances T and acc (so the forward's
-// early-stop decisions replay bit for bit).  Returns alpha > 0: where it is
-// 0 every component of g is 0.
-__device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
-                                           float power_min, bool has_pmin,
+// Gradient g[ROWS] at this pixel of an entry with geometry G (G.alpha > 0),
+// conic (ca, cb, cc) and colour col = [r, g, b, depth]; advances T and the
+// channel prefixes exactly as composite_entry advances T and acc (so the
+// forward's early-stop decisions replay bit for bit).
+__device__ __forceinline__ void pixel_grad(const Geom& G, float ca, float cb,
+                                           float cc, const float col[4],
                                            BwdPixel& st, float g[ROWS]) {
-  const Geom G = entry_geom(s, stride, e, st.px, st.py, power_min, has_pmin);
   const float a = G.alpha;
-  if (!(a > 0.0f)) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) g[r] = 0.0f;
-    return false;
-  }
   const float w = a * st.T;
   float b = 0.0f, suffix = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float c = s[(ROW_R + k) * stride + e];
+    const float c = col[k];
     b = fmaf(st.ct[k], c, b);
     st.P[k] = fmaf(w, c, st.P[k]);
     suffix = fmaf(st.ct[k], st.out[k] - st.P[k], suffix);
@@ -236,8 +242,6 @@ __device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
   const float one_m = fmaxf(1.0f - a, 1.0f - ALPHA_CLAMP);
   const float dalpha = b * st.T - (suffix + st.trans_term) / one_m;
   const float dpower = G.active ? dalpha * a : 0.0f;
-  const float ca = s[ROW_CA * stride + e], cb = s[ROW_CB * stride + e];
-  const float cc = s[ROW_CC * stride + e];
   g[ROW_X] = dpower * (ca * G.dx + cb * G.dy);
   g[ROW_Y] = dpower * (cc * G.dy + cb * G.dx);
   g[ROW_CA] = dpower * (-0.5f * G.dx * G.dx);
@@ -245,6 +249,25 @@ __device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
   g[ROW_CC] = dpower * (-0.5f * G.dy * G.dy);
   g[ROW_OP] = G.active ? dalpha * G.expp : 0.0f;
   st.T = st.T * (1.0f - a);
+}
+
+// Gradient g[ROWS] of entry e of a (ROWS, stride) block at this pixel
+// (pixel_grad).  Returns alpha > 0: where it is 0 every component of g is 0
+// and nothing advances.
+__device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
+                                           float power_min, bool has_pmin,
+                                           BwdPixel& st, float g[ROWS]) {
+  const Geom G = entry_geom(s, stride, e, st.px, st.py, power_min, has_pmin);
+  if (!(G.alpha > 0.0f)) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) g[r] = 0.0f;
+    return false;
+  }
+  float col[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) col[k] = s[(ROW_R + k) * stride + e];
+  pixel_grad(G, s[ROW_CA * stride + e], s[ROW_CB * stride + e],
+             s[ROW_CC * stride + e], col, st, g);
   return true;
 }
 
@@ -304,7 +327,7 @@ __device__ __forceinline__ void zero_cols(float* dst, int stride, int lo,
   }
 }
 
-// Gradient of pair_walk (kernels K2b and K4b), with no saved state beyond
+// Gradient of pair_walk (kernel K4b), with no saved state beyond
 // the forward's output: the forward's merged walk is replayed, T advanced by
 // the same float operations (entry_grad), so every stop decision is
 // bit-identical to the forward's.  sd (ROWS, Kd) is in shared memory; ss

@@ -17,14 +17,14 @@
 // The per-env step of the reference vmaps a kernel whose grid is the tile
 // axis; here the env axis is the grid's second dimension.  The env's
 // dynamic list of the tile stays in shared memory and the merged order is
-// walked directly (pair_walk in composite_common.cuh, K2f's walk): static
+// walked directly (pair_walk in composite_common.cuh): static
 // first on equal depth, the early stop on the running T after each applied
 // static chunk, the remaining dynamic entries always composited.  The
 // reference's log-space depth-indicator contractions give the same
 // composite to float32 rounding.
 //
 // What bounds it on an H100: the per-pixel sequential walk of the touched
-// pairs (latency and instruction rate), as K2f.  Most of the B * T blocks
+// pairs (latency and instruction rate).  Most of the B * T blocks
 // are skipped pairs that only write their 8 KB of output, so the whole
 // (B, T, P, 8) output (268 MB at the main path's shape) is the largest
 // traffic; each pixel writes its 8 channels as two 16-byte stores.

@@ -17,7 +17,7 @@
 // kernel needs no saved state: pass A replays the forward's stop decisions,
 // pass B takes the static gradients from union suffix sums, then the
 // dynamic ones.  Here K4f's merged walk is replayed once (pair_walk_grad in
-// composite_common.cuh, K2b's replay): every stop decision is bit-identical
+// composite_common.cuh): every stop decision is bit-identical
 // to K4f's, and each entry's union suffix sum is ct . (out - prefix) with
 // the prefixes rounded as K4f rounded out.
 //
@@ -29,10 +29,10 @@
 // and adds the nonzero sums to its tile's row with atomicAdd: no buffer,
 // no compaction of the touched pairs on the host, and a contention of at
 // most B blocks per row.  The order of those float additions across envs
-// changes from run to run, as it does for K2b's per-tile index_add_.
+// changes from run to run.
 //
 // What bounds it on an H100: the per-pixel sequential walk and the
-// per-entry warp reductions of the touched pairs, as K2b; the largest
+// per-entry warp reductions of the touched pairs; the largest
 // traffic is the dynamic gradient gd (168 MB at the main path's shape),
 // written once, most of it zeros of skipped pairs.
 

@@ -8,7 +8,7 @@ Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
 kernel once per env under the per-env step's ``vmap``; here the env axis is
 explicit and one launch covers every env.  The CUDA sources are
 ``csrc/composite_pair.cu`` (K4f) and ``csrc/composite_pair_bwd.cu`` (K4b);
-they walk the merged sequence with K2's walk (``composite_common.cuh``),
+they walk the merged sequence with ``pair_walk`` (``composite_common.cuh``),
 and their notes say what bounds each on an H100.
 
 ``composite_pair`` is the public entry: it goes through the autograd
@@ -170,6 +170,12 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     return out
 
 
+def bwd_smem_bytes(Kd: int, ts: int) -> int:
+    """Shared memory of one K4b block: the dynamic list (10, Kd), one static
+    chunk (10, 128) and every warp's per-entry partial sums for both."""
+    return 4 * 10 * (Kd + CHUNK) * (1 + ts * ts // 32)
+
+
 def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
                        ts: int, tx: int, sigma_cutoff: Optional[float] = None,
                        term_eps: Optional[float] = None):
@@ -195,7 +201,7 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
     if P % 32:
         raise ValueError(f"tile size {ts}: the backward kernel reduces over "
                          "whole warps and needs ts² % 32 == 0")
-    smem = composite_sel.bwd_smem_bytes(Kd, ts)
+    smem = bwd_smem_bytes(Kd, ts)
     if smem > composite_sel.SMEM_OPTIN_BYTES:
         raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
                          f"{smem} B of shared memory per block, more than "

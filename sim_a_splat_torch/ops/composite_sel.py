@@ -5,21 +5,23 @@ Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
 (``_call_bwd``) under the custom VJP ``composite_pair_sel`` (shared 3-D
 static payload) of ``sim_a_splat_tpu/ops/pallas_composite_sel.py``.  The
 CUDA sources are ``csrc/composite_sel.cu`` (K2f) and
-``csrc/composite_sel_bwd.cu`` (K2b); their notes say what bounds each on
-an H100 (the per-pixel sequential walk, not bytes) and what the designs do
-about it (both lists in shared memory, the merged order walked directly
-instead of the TPU's depth-indicator contractions, and in K2b the forward
-walk replayed, so no state is saved).
+``csrc/composite_sel_bwd.cu`` (K2b), with their shared walk in
+``csrc/composite_sel_walk.cuh``; their notes say what bounds each on an
+H100 (instruction issue, not bytes) and what the design does about it: a
+warp-level footprint cull, two pixels per thread in a compact 8 × 8
+rectangle per warp, entry-major staging with the merge positions
+found once per chunk, and in K2b the forward walk replayed (no saved
+state), a transposed warp reduction and the per-tile sum of the static
+gradient done in the kernel with atomic adds.
 
 ``composite_pair_sel`` is the public entry: it goes through the autograd
 Function ``CompositePairSel``, whose forward is K2f and whose backward is
-K2b followed by the per-tile sum of the static gradients (``index_add_``,
-as the reference sums outside its kernel in ``_scatter_rows``).  CPU
-tensors run the plain versions (``composite_pair_sel_plain``,
+K2b.  CPU tensors run the plain versions (``composite_pair_sel_plain``,
 ``composite_pair_sel_bwd_plain``); CUDA tensors launch the kernels (adding
 one to ``launches`` or ``launches_bwd``) or raise.  Only the shared-payload
 mode is ported; the per-env 4-D payload belongs to the moving camera and
-raises.
+raises.  ``cull_boxes``, ``warp_rects`` and ``culled`` are the plain twin
+of the kernels' cull test, for the tests and the chip run's counts.
 
 The plain forward follows the reference's algebra (log-space
 transmittances and depth-indicator contractions, chunk-granular early stop
@@ -39,6 +41,7 @@ from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.ops.composite import (
     CHUNK, _ROW_DEPTH, _ROW_RGBD, entry_alpha, pixel_centers, power_min_of,
 )
+from sim_a_splat_torch.ops.rasterize_reference import ALPHA_MIN
 
 launches = 0      # K2f launches since the last reset (set to 0 to reset)
 launches_bwd = 0  # K2b launches since the last reset
@@ -155,7 +158,7 @@ def composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
     return out
 
 
-def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts):
+def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d):
     if spay_pad.dim() == 4:
         raise NotImplementedError(
             "per-env (B, T+1, 10, Ks) static payloads (the moving-camera "
@@ -164,6 +167,8 @@ def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts):
             or spay_pad.shape[1] != 10:
         raise ValueError("spay_pad must be float32 (T+1, 10, Ks), got "
                          f"{spay_pad.dtype} {tuple(spay_pad.shape)}")
+    if spay_pad.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {spay_pad.device}")
     T1, _, Ks = spay_pad.shape
     if ids.dtype != torch.int32 or ids.dim() != 2:
         raise ValueError(f"ids must be int32 (B, TT), got {ids.dtype} "
@@ -177,9 +182,6 @@ def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts):
     if Ks % CHUNK or Kd % CHUNK:
         raise ValueError(f"capacities Ks={Ks}, Kd={Kd} must be multiples "
                          f"of {CHUNK}")
-    if Kd > 1024:
-        raise ValueError(f"dyn capacity Kd={Kd} > 1024 does not fit the "
-                         "kernel's shared memory")
     if counts_s_pad.dtype != torch.int32 or tuple(counts_s_pad.shape) != (T1,):
         raise ValueError(f"counts_s_pad must be int32 ({T1},)")
     if counts_d.dtype != torch.int32 or tuple(counts_d.shape) != (B, TT):
@@ -187,13 +189,129 @@ def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts):
     for a in (dpay, ids, counts_s_pad, counts_d):
         if a.device != spay_pad.device:
             raise ValueError("all inputs must be on one device")
-    if not (ts * ts <= 1024):
-        raise ValueError(f"tile size {ts}: one thread per pixel needs "
-                         "ts² ≤ 1024")
 
 
-    if spay_pad.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {spay_pad.device}")
+# ---- the kernels' block layout (csrc/composite_sel_walk.cuh) ----------------
+
+def kernel_threads(ts: int) -> int:
+    """Threads per block of K2f and K2b for tile size ``ts``: each warp owns
+    an 8 × 8 rectangle of the tile, two pixels per thread, so ts must be a
+    multiple of 8 and at most 32 (512 threads, the launch bounds)."""
+    if ts % 8 or not 8 <= ts <= 32:
+        raise ValueError(f"tile size {ts}: the K2 kernels' warps own 8 × 8 "
+                         "pixel rectangles and need ts in {8, 16, 24, 32}")
+    return ts * ts // 2
+
+
+def smem_bytes(Kd: int, ts: int, bwd: bool) -> int:
+    """Shared memory of one K2f (``bwd`` False) or K2b block, as
+    ``sel::smem_bytes``: Kd + 128 staged entries of 56 B (the dynamic list
+    and one static chunk), the chunk's merge positions, each warp's hit
+    words and, for K2b, each warp's per-entry partial sums (10 rows)."""
+    warps = kernel_threads(ts) // 32
+    L = Kd + CHUNK
+    return (56 * L + 4 * CHUNK + 4 * warps * (Kd // 32 + CHUNK // 32)
+            + (4 * warps * 10 * L if bwd else 0))
+
+
+def _check_kernel(Kd: int, ts: int, bwd: bool) -> None:
+    """Raise unless the kernels take (Kd, ts)."""
+    kernel_threads(ts)
+    if Kd > 1024:
+        raise ValueError(f"dyn capacity Kd={Kd} > 1024 does not fit the "
+                         "kernels' hit words")
+    need = smem_bytes(Kd, ts, bwd)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
+                         f"{need} B of shared memory per "
+                         f"{'K2b' if bwd else 'K2f'} block, more than "
+                         f"{SMEM_OPTIN_BYTES}")
+
+
+def blocks_per_sm(bwd: bool, Kd: int, ts: int) -> int:
+    """Blocks of K2f (``bwd`` False) or K2b that fit on one SM of the
+    current card at (Kd, ts) (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    in the launch library)."""
+    _check_kernel(Kd, ts, bwd)
+    name = "composite_sel_bwd" if bwd else "composite_sel"
+    fn = _kernels.function(
+        name, f"composite_pair_sel{'_bwd' if bwd else ''}_blocks_per_sm",
+        [_I, _I, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    _kernels.check(fn(Kd, ts, ctypes.byref(n)), f"{name} occupancy")
+    return n.value
+
+
+# ---- plain twin of the kernels' warp-level cull (used by tests) -------------
+
+_ALPHA_MIN32 = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+
+
+def _round_to_float(v: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 → float32 rounded towards -inf (``down``) or +inf."""
+    f = v.float()
+    off = f.double() > v if down else f.double() < v
+    return torch.where(off, torch.nextafter(
+        f, torch.full_like(f, float("-inf") if down else float("inf"))), f)
+
+
+def cull_boxes(rows: torch.Tensor, sigma_cutoff: Optional[float] = None):
+    """The kernels' cull box of each entry (``sel::cull_box``): payload
+    (..., 10, K) float32 → (..., 4, K) float32 [xlo, xhi, ylo, yhi], outside
+    which no pixel centre gets alpha > 0 (``entry_alpha``); (-inf, inf, ...)
+    where the entry is never culled, an empty box where it always is.  The
+    kernel's order: non-finite values, a conic that is not positive definite
+    or too ill-conditioned for the margin → never culled; else op <
+    ALPHA_MIN → always culled; else the box."""
+    x, y, a, b, c, op = (rows[..., r, :] for r in (0, 1, 2, 3, 4, 9))
+    A, B, C = a.double(), b.double(), c.double()
+    det = A * C - B * B
+    lmax = 0.5 * (A + C) + torch.sqrt(0.25 * (A - C) ** 2 + B * B)
+    eps = 32.0 * 2.0 ** -24 * (lmax * lmax / det + 1.0)
+    q = 2.0 * (torch.log(op.double() / _ALPHA_MIN32) + 1e-4)
+    pmin = power_min_of(sigma_cutoff)
+    if pmin is not None:
+        pmin32 = float(torch.tensor(pmin, dtype=torch.float32))
+        q = torch.clamp(q, max=-2.0 * pmin32)
+    q = torch.clamp(q, min=0.0) / (1.0 - eps)
+    hx = torch.sqrt(q * C / det) * (1.0 + 1e-6) + 2.0 ** -10
+    hy = torch.sqrt(q * A / det) * (1.0 + 1e-6) + 2.0 ** -10
+    box = torch.stack([_round_to_float(x.double() - hx, True),
+                       _round_to_float(x.double() + hx, False),
+                       _round_to_float(y.double() - hy, True),
+                       _round_to_float(y.double() + hy, False)], dim=-2)
+    inf = float("inf")
+    finite = torch.stack([torch.isfinite(v) for v in (x, y, a, b, c, op)]
+                         ).all(dim=0)
+    keep_all = ~finite | ~(A > 0) | ~(det > 0) | ~(eps < 0.5)
+    never = finite & (op < _ALPHA_MIN32)
+    box = torch.where(never[..., None, :],
+                      box.new_tensor([inf, -inf, inf, -inf])[:, None], box)
+    return torch.where(keep_all[..., None, :],
+                       box.new_tensor([-inf, inf, -inf, inf])[:, None], box)
+
+
+def warp_rects(tile_ids: torch.Tensor, ts: int, tx: int) -> torch.Tensor:
+    """(S,) tile ids → (S, W, 4) float32 [rx0, rx1, ry0, ry1], the pixel
+    centres spanned by each of the W warps of a K2 block (``sel::Pixels``):
+    8 × 8 rectangles in row-major order."""
+    w = torch.arange(kernel_threads(ts) // 32, device=tile_ids.device)
+    wx = (w % (ts // 8)) * 8
+    wy = (w // (ts // 8)) * 8
+    t = tile_ids.long()[:, None]
+    ox, oy = ((t % tx) * ts).float(), ((t // tx) * ts).float()
+    return torch.stack([(wx.float() + 0.5) + ox, ((wx + 7).float() + 0.5) + ox,
+                        (wy.float() + 0.5) + oy,
+                        ((wy + 7).float() + 0.5) + oy], dim=-1)
+
+
+def culled(boxes: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """(S, 4, K) boxes and (S, W, 4) rectangles → (S, W, K) bool: the warp's
+    rectangle of pixel centres misses the entry's box (``sel::culled``)."""
+    bx = boxes[:, None]                          # (S, 1, 4, K)
+    r = rects[..., None]                         # (S, W, 4, 1)
+    return (bx[:, :, 1] < r[:, :, 0]) | (bx[:, :, 0] > r[:, :, 1]) \
+        | (bx[:, :, 3] < r[:, :, 2]) | (bx[:, :, 2] > r[:, :, 3])
 
 
 def composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
@@ -220,12 +338,20 @@ def composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
                  for g, x in zip(grads, (spay_pad, dpay)))
 
 
-# ctypes signatures of the launch functions: pointers, then
-# B, TT, T+1, Ks, Kd, ts, tx, power_min, has_pmin, term_eps, has_term, stream
+# ctypes signatures of the launch functions: pointers, then B, TT, T+1, Ks,
+# Kd, ts, tx, power_min, has_pmin, term_eps, has_term, stream
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 7 + [_F, _I, _F, _I, _VP]
 _FWD_ARGS = [_VP] * 6 + _TAIL
 _BWD_ARGS = [_VP] * 9 + _TAIL
+
+
+def _scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps):
+    pmin = power_min_of(sigma_cutoff)
+    return (ids.shape[0], ids.shape[1], spay_pad.shape[0], spay_pad.shape[-1],
+            dpay.shape[-1], ts, tx, 0.0 if pmin is None else pmin,
+            int(pmin is not None), 0.0 if term_eps is None else term_eps,
+            int(term_eps is not None))
 
 
 def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
@@ -236,13 +362,10 @@ def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
         return composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad,
                                         counts_d, ts, tx, sigma_cutoff,
                                         term_eps)
+    _check_kernel(dpay.shape[-1], ts, bwd=False)
     spay_pad, dpay, ids, counts_s_pad, counts_d = (
         a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d))
-    T1, _, Ks = spay_pad.shape
-    B, TT = ids.shape
-    Kd = dpay.shape[-1]
-    out = dpay.new_empty((B, T1, 8, ts * ts))
-    pmin = power_min_of(sigma_cutoff)
+    out = dpay.new_empty((ids.shape[0], spay_pad.shape[0], 8, ts * ts))
     launch = _kernels.function("composite_sel", "composite_pair_sel_launch",
                                _FWD_ARGS)
     with torch.cuda.device(spay_pad.device):
@@ -250,59 +373,42 @@ def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
         rc = launch(
             spay_pad.data_ptr(), dpay.data_ptr(), ids.data_ptr(),
             counts_s_pad.data_ptr(), counts_d.data_ptr(), out.data_ptr(),
-            B, TT, T1, Ks, Kd, ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
-            0.0 if term_eps is None else term_eps, int(term_eps is not None),
+            *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps),
             stream)
     _kernels.check(rc, "composite_pair_sel")
     launches += 1
     return out
 
 
-def bwd_smem_bytes(Kd: int, ts: int) -> int:
-    """Shared memory of one K2b block: the dynamic list (10, Kd), one static
-    chunk (10, 128) and every warp's per-entry partial sums for both."""
-    warps = ts * ts // 32
-    return 4 * 10 * (Kd + CHUNK) * (1 + warps)
-
-
-def composite_pair_sel_bwd_slots(spay_pad, dpay, ids, counts_s_pad,
+def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
                                  counts_d, ct, out, ts: int, tx: int,
                                  sigma_cutoff: Optional[float] = None,
                                  term_eps: Optional[float] = None):
-    """K2b on CUDA tensors: per-slot gradients (gs (B, TT, 10, Ks) of the
-    static list each slot composited, gd (B, TT, 10, Kd) of its dynamic
-    list) for the cotangent ``ct`` (B, T+1, 8, P), given the forward's
-    ``out``.  The kernel replays the forward's merged walk, so it needs no
-    other saved state.  Pad slots get zeros."""
+    """K2b on CUDA tensors → (gs (T+1, 10, Ks), the static gradient summed
+    per tile in the kernel (atomic adds; the trash row T stays zero),
+    gd (B, TT, 10, Kd), each slot's dynamic gradient, zero past its count)
+    for the cotangent ``ct`` (B, T+1, 8, P), given the forward's ``out``.
+    The kernel replays the forward's merged walk, so it needs no other
+    saved state."""
     global launches_bwd
-    _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts)
-    T1, _, Ks = spay_pad.shape
+    _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
     B, TT = ids.shape
-    Kd = dpay.shape[-1]
-    P = ts * ts
+    shape = (B, spay_pad.shape[0], 8, ts * ts)
     for name, a in (("ct", ct), ("out", out)):
-        if a.dtype != torch.float32 or tuple(a.shape) != (B, T1, 8, P) \
+        if a.dtype != torch.float32 or tuple(a.shape) != shape \
                 or a.device != spay_pad.device:
-            raise ValueError(f"{name} must be float32 ({B}, {T1}, 8, {P}) on "
+            raise ValueError(f"{name} must be float32 {shape} on "
                              f"{spay_pad.device}, got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
     if spay_pad.device.type != "cuda":
         raise ValueError("the K2b kernel takes CUDA tensors; on the CPU use "
                          "composite_pair_sel_bwd_plain")
-    if P % 32:
-        raise ValueError(f"tile size {ts}: the backward kernel reduces over "
-                         "whole warps and needs ts² % 32 == 0")
-    if bwd_smem_bytes(Kd, ts) > SMEM_OPTIN_BYTES:
-        raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
-                         f"{bwd_smem_bytes(Kd, ts)} B of shared memory per "
-                         f"block, more than {SMEM_OPTIN_BYTES}")
+    _check_kernel(dpay.shape[-1], ts, bwd=True)
     spay_pad, dpay, ids, counts_s_pad, counts_d, ct, out = (
         a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d,
                                  ct, out))
-    gs = dpay.new_empty((B, TT, 10, Ks))
+    gs = torch.zeros_like(spay_pad)        # K2b adds every slot's sums to it
     gd = torch.empty_like(dpay)
-    pmin = power_min_of(sigma_cutoff)
     launch = _kernels.function("composite_sel_bwd",
                                "composite_pair_sel_bwd_launch", _BWD_ARGS)
     with torch.cuda.device(spay_pad.device):
@@ -311,9 +417,7 @@ def composite_pair_sel_bwd_slots(spay_pad, dpay, ids, counts_s_pad,
             spay_pad.data_ptr(), dpay.data_ptr(), ids.data_ptr(),
             counts_s_pad.data_ptr(), counts_d.data_ptr(), ct.data_ptr(),
             out.data_ptr(), gs.data_ptr(), gd.data_ptr(),
-            B, TT, T1, Ks, Kd, ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
-            0.0 if term_eps is None else term_eps, int(term_eps is not None),
+            *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps),
             stream)
     _kernels.check(rc, "composite_pair_sel_bwd")
     launches_bwd += 1
@@ -324,22 +428,17 @@ def composite_pair_sel_bwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ct,
                            out, ts: int, tx: int,
                            sigma_cutoff: Optional[float] = None,
                            term_eps: Optional[float] = None):
-    """K2 backward → (grad of ``spay_pad`` (T+1, 10, Ks), summed per tile
-    with the pads' zeros in the trash row, grad of ``dpay``).  CPU tensors
-    run the plain version; CUDA tensors launch K2b and sum its per-slot
-    static gradients into their tiles with ``index_add_``."""
+    """K2 backward → (grad of ``spay_pad`` (T+1, 10, Ks), summed per tile,
+    the trash row zero, grad of ``dpay``).  CPU tensors run the plain
+    version; CUDA tensors launch K2b, which sums per tile itself."""
     if spay_pad.device.type == "cpu":
-        _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts)
+        _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
         return composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad,
                                             counts_d, ct, ts, tx,
                                             sigma_cutoff, term_eps)
-    gs, gd = composite_pair_sel_bwd_slots(spay_pad, dpay, ids, counts_s_pad,
-                                          counts_d, ct, out, ts, tx,
-                                          sigma_cutoff, term_eps)
-    T1, R, Ks = spay_pad.shape
-    g_spay = spay_pad.new_zeros((T1, R * Ks)).index_add_(
-        0, ids.reshape(-1).long(), gs.reshape(-1, R * Ks))
-    return g_spay.reshape(T1, R, Ks), gd
+    return composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
+                                        counts_d, ct, out, ts, tx,
+                                        sigma_cutoff, term_eps)
 
 
 class CompositePairSel(torch.autograd.Function):
@@ -374,6 +473,6 @@ def composite_pair_sel(spay_pad: torch.Tensor, dpay: torch.Tensor,
     differentiable in ``spay_pad`` and ``dpay``.  Rows no slot selects are
     left unwritten: the caller must where-select against the static
     composite before reading (their cotangent is then zero)."""
-    _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d, ts)
+    _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
     return CompositePairSel.apply(spay_pad, dpay, ids, counts_s_pad, counts_d,
                                   ts, tx, sigma_cutoff, term_eps)

@@ -14,7 +14,9 @@ they differ only in how transmittance products and colour sums are
 accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
 log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
 for K2f and K4f (the CPU tests' bounds against the reference), atol 2e-5
-for K3f (K1's walk on per-env lists).  Gradients: each
+for K3f (K1's walk on per-env lists).  K2's tests also cover narrow
+footprints (the warp-level cull active), many envs adding into one tile's static gradient, and every tile size the
+K2 wrappers accept.  Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -30,7 +32,8 @@ import torch
 
 from test_torch_helpers import (
     K_T, K_TS, K_TX, assert_fields_close, assert_rows_close, k1_inputs,
-    k2_inputs, k3_inputs, k4_inputs, selected_cotangent, torch_raster,
+    k2_inputs, k2_shared_tile_inputs, k3_inputs, k4_inputs,
+    selected_cotangent, torch_raster,
 )
 
 from sim_a_splat_torch import entry
@@ -120,7 +123,7 @@ def test_k2b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
         np.random.default_rng(11), ids.cpu().numpy(), tuple(out.shape)),
         device=dev)
     before = composite_sel.launches_bwd
-    gs, gd = composite_sel.composite_pair_sel_bwd_slots(
+    gs, gd = composite_sel.composite_pair_sel_bwd_tiles(
         *args, ct, out, TS, TX, sigma_cutoff, term_eps)
     g_spay, g_dpay = composite_sel.composite_pair_sel_bwd(
         *args, ct, out, TS, TX, sigma_cutoff, term_eps)
@@ -128,15 +131,70 @@ def test_k2b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     assert composite_sel.launches_bwd == before + 2
     want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
         *args, ct, TS, TX, sigma_cutoff, term_eps)
-    assert_rows_close(g_spay[:K_T], want_s[:K_T], GRAD_REL,
-                      "K2b static, per tile")
-    assert_rows_close(g_dpay, want_d, GRAD_REL, "K2b dynamic")
-    # per slot: pads are zero; the per-tile sum is the slots' sum
-    assert not gs[:, 3].any() and not gd[:, 3].any()
-    assert not g_spay[K_T].any()
-    torch.testing.assert_close(
-        g_spay, torch.zeros_like(g_spay).index_add_(
-            0, ids.reshape(-1).long(), gs.reshape(-1, *gs.shape[2:])))
+    for got_s, got_d in ((gs, gd), (g_spay, g_dpay)):
+        assert_rows_close(got_s[:K_T], want_s[:K_T], GRAD_REL,
+                          "K2b static, per tile")
+        assert_rows_close(got_d, want_d, GRAD_REL, "K2b dynamic")
+        # pads, the trash row and the unselected tile 2 get nothing
+        assert not got_d[:, 3].any() and not got_s[K_T].any()
+        assert not got_s[2].any()
+
+
+def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed):
+    """K2f and K2b on the card against their plain versions."""
+    args = [torch.as_tensor(a, device=dev) for a in inputs]
+    ids = args[2]
+    before = (composite_sel.launches, composite_sel.launches_bwd)
+    out = composite_sel.composite_pair_sel(*args, ts, tx, sigma_cutoff,
+                                           term_eps)
+    ref = composite_sel.composite_pair_sel_plain(*args, ts, tx, sigma_cutoff,
+                                                 term_eps)
+    for b in range(ids.shape[0]):
+        rows = ids[b].long()
+        torch.testing.assert_close(out[b, rows], ref[b, rows], atol=5e-5,
+                                   rtol=1e-4)
+    ct = torch.as_tensor(selected_cotangent(
+        np.random.default_rng(seed), ids.cpu().numpy(), tuple(out.shape)),
+        device=dev)
+    gs, gd = composite_sel.composite_pair_sel_bwd(*args, ct, out, ts, tx,
+                                                  sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    assert (composite_sel.launches, composite_sel.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
+        *args, ct, ts, tx, sigma_cutoff, term_eps)
+    T = args[0].shape[0] - 1
+    used = torch.unique(ids[ids < T].long())
+    assert_rows_close(gs[used], want_s[used], GRAD_REL, "K2b static")
+    assert_rows_close(gd, want_d, GRAD_REL, "K2b dynamic")
+    assert not gs[T].any()
+    return args
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k2_narrow_gaussians_cull(dev, sigma_cutoff, term_eps):
+    """Narrow footprints: most (entry, warp) pairs are culled, and the
+    kernels still match the plain versions."""
+    inputs = k2_inputs(seed=8, scale=(0.3, 1.5))
+    args = _k2_both_ways(dev, inputs, TS, TX, sigma_cutoff, term_eps, 15)
+    tile0 = args[0][:1]                        # a full static list
+    culled = composite_sel.culled(
+        composite_sel.cull_boxes(tile0, sigma_cutoff),
+        composite_sel.warp_rects(args[2].new_zeros(1), TS, TX))
+    assert float(culled.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k2b_shared_tile_contention(dev, sigma_cutoff, term_eps):
+    """24 envs select the same two tiles: their static gradients meet in
+    two rows through the kernel's atomic adds."""
+    _k2_both_ways(dev, k2_shared_tile_inputs(), TS, TX, sigma_cutoff,
+                  term_eps, 16)
+
+
+@pytest.mark.parametrize("ts", [8, 16, 24, 32])
+def test_k2_every_tile_size(dev, ts):
+    _k2_both_ways(dev, k2_inputs(seed=9, ts=ts), ts, TX, 3.0, 1e-4, 17)
 
 
 def _scene_and_states(device):

@@ -173,14 +173,15 @@ def test_bwd_wrappers_check_inputs():
     out2 = composite_sel.composite_pair_sel(spay, dpay, ids, cs, cd, K_TS,
                                             K_TX)
     with pytest.raises(ValueError, match="CUDA"):
-        composite_sel.composite_pair_sel_bwd_slots(
+        composite_sel.composite_pair_sel_bwd_tiles(
             spay, dpay, ids, cs, cd, torch.zeros_like(out2), out2, K_TS, K_TX)
-    # the kernel's shared memory: dynamic list, one static chunk and the
-    # warps' partials of both (90 KB at the main path's Kd = 128, 8 warps)
-    assert composite_sel.bwd_smem_bytes(128, 16) == 92_160
+    # K2b's shared memory: Kd + 128 staged entries, the merge positions, the
+    # warps' hit words and their partials of both lists (55 KB at the main
+    # path's Kd = 128 with 4 warps of 2 pixels a thread)
+    assert composite_sel.smem_bytes(128, 16, True) == 55_936
     limit = composite_sel.SMEM_OPTIN_BYTES
-    assert composite_sel.bwd_smem_bytes(512, 16) <= limit \
-        < composite_sel.bwd_smem_bytes(640, 16)
+    assert composite_sel.smem_bytes(896, 16, True) <= limit \
+        < composite_sel.smem_bytes(1024, 16, True)
 
 
 W = H = 64

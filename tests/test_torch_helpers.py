@@ -70,9 +70,11 @@ def random_state_vectors(rng, B):
                     axis=1).astype(np.float32)
 
 
-def tile_lists(rng, tile_ids, counts, K, ts, tx, opaque=(), depth_step=0.25):
+def tile_lists(rng, tile_ids, counts, K, ts, tx, opaque=(), depth_step=0.25,
+               scale=(1.0, 6.0)):
     """(len(tile_ids), 10, K) float32 payload of depth-sorted tile lists in
-    the kernels' row layout [x, y, conic a b c, r, g, b, depth, opacity].
+    the kernels' row layout [x, y, conic a b c, r, g, b, depth, opacity],
+    with footprint scales (standard deviations, px) drawn from ``scale``.
 
     Entries at or past ``counts[i]`` carry opacity 0 (and random geometry,
     as real padding does).  Depths lie on a ``depth_step`` grid in [1, 5],
@@ -82,7 +84,7 @@ def tile_lists(rng, tile_ids, counts, K, ts, tx, opaque=(), depth_step=0.25):
     pay = np.zeros((n, 10, K), np.float32)
     for i, (t, cnt) in enumerate(zip(tile_ids, counts)):
         ox, oy = (t % tx) * ts, (t // tx) * ts
-        sx, sy = rng.uniform(1.0, 6.0, K), rng.uniform(1.0, 6.0, K)
+        sx, sy = rng.uniform(*scale, K), rng.uniform(*scale, K)
         rho = rng.uniform(-0.6, 0.6, K)
         op = rng.uniform(0.05, 0.95, K)
         if i in opaque:
@@ -112,23 +114,41 @@ def k1_inputs(seed=0, K=384):
     return pay, counts, skip
 
 
-def k2_inputs(seed=1, Ks=256, Kd=128):
+def k2_inputs(seed=1, Ks=256, Kd=128, scale=(1.0, 6.0), ts=K_TS):
     """K2 inputs (spay_pad, dpay, ids, counts_s_pad, counts_d) for two envs
     of four slots: static tiles as in :func:`k1_inputs` plus the zero trash
     row, a nearly opaque tile that stops early, a real slot without dynamic
     entries, a pad slot per env, and static and dynamic depths on one grid
-    so that they tie."""
+    so that they tie.  ``scale`` bounds the footprints' standard deviations
+    (narrow ones leave most (entry, warp) pairs to the kernels' cull), over
+    a 3 × 2 grid of ``ts`` × ``ts`` tiles."""
     rng = np.random.default_rng(seed)
     counts_s = np.asarray([Ks, 100, 0, 200, Ks, 150, 0], np.int32)  # + trash
     spay = np.zeros((K_T + 1, 10, Ks), np.float32)
-    spay[:K_T] = tile_lists(rng, range(K_T), counts_s[:K_T], Ks, K_TS, K_TX,
-                            opaque=(4,))
+    spay[:K_T] = tile_lists(rng, range(K_T), counts_s[:K_T], Ks, ts, K_TX,
+                            opaque=(4,), scale=scale)
     ids = np.asarray([[0, 4, 3, K_T], [1, 5, 0, K_T]], np.int32)
     counts_d = np.asarray([[40, 128, 7, 0], [60, 128, 0, 0]], np.int32)
     B, TT = ids.shape
-    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, K_TS,
-                      K_TX)
+    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, ts,
+                      K_TX, scale=scale)
     return spay, dpay.reshape(B, TT, 10, Kd), ids, counts_s, counts_d
+
+
+def k2_shared_tile_inputs(seed=6, B=24, Ks=256, Kd=128):
+    """K2 inputs where every one of ``B`` envs selects tiles 0 and 4 (the
+    static gradient's atomic adds then contend for two rows), plus one other
+    tile (no env selects a tile twice) and a pad slot; dynamic lists of
+    random counts."""
+    spay, _, _, counts_s, _ = k2_inputs(seed, Ks, Kd)
+    rng = np.random.default_rng(seed)
+    ids = np.asarray([[0, 4, (1, 2, 3, 5)[b % 4], K_T] for b in range(B)],
+                     np.int32)
+    counts_d = rng.integers(0, Kd + 1, ids.shape).astype(np.int32)
+    counts_d[:, -1] = 0
+    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, K_TS,
+                      K_TX, scale=(0.5, 3.0))
+    return spay, dpay.reshape(*ids.shape, 10, Kd), ids, counts_s, counts_d
 
 
 def k3_inputs(seed=2, Km=256):
