@@ -18,6 +18,9 @@ training, at N=100k gaussians, SH degree 3, 256×256:
   (``entry.make_step_cached``, K1f, K1b, K4f, K4b), B=128, forward and
   in training, its images against the selected-tile path's and its
   ``static_skip=False`` variant;
+- K2 and K4 at ``dyn_capacity`` 2048 on 8 of those envs, past the room of
+  their backward kernels' dynamic partial sums in shared memory, against
+  their plain versions in float64;
 - the moving camera attached to each env's agent (K3f, K3b): the R=32
   frame candidate-cache rollout (``entry.make_step_moving_cached``) at
   B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``),
@@ -32,6 +35,9 @@ gradients agree with the port's plain path.  Any disagreement raises.
 Output: phase reports, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with per-kernel launches, max |Δ|, kernel / plain
 times and the roofline bound, and last ``{"ok": true, "device": {...}}``.
+Kernel times are CUDA-event times over back-to-back calls, for every
+kernel.  K1f and K1b run about as short as their Python dispatch, so the
+device time of their kernels under the profiler is printed beside theirs.
 Exits non-zero without a result where there is no CUDA device.  The top
 rows of a device profile of one forward step and one train step are
 printed with the phase reports.
@@ -47,13 +53,17 @@ import time
 
 B, N, RES, SH_DEGREE = 128, 100_000, 256, 3
 SEL_TILES, DYN_CAP, DYN_M = 36, 128, 9
+BIG_KD = 2048   # a dynamic capacity past the backward kernels' partials
 ITERS = 5
 # K2f and K2b of the first design (one thread per pixel, K2b's per-slot
-# output summed by index_add_), and K4 that keeps that walk: this script on
-# an NVIDIA H100 80GB HBM3 at 700 W
+# output summed by index_add_), K4 that keeps that walk, and K1f and K1b of
+# the first design (one block per tile walking its chunks in order): this
+# script on an NVIDIA H100 80GB HBM3 at 700 W
 FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
                    "composite_pair_sel_bwd": 4.2181,
-                   "composite_pair": 1.3624, "composite_pair_bwd": 4.2581}
+                   "composite_pair": 1.3624, "composite_pair_bwd": 4.2581,
+                   "composite_static": 0.1340,
+                   "composite_static_bwd": 0.5092}
 # the moving camera (bench.py's moving_camera / moving_fwd variants)
 B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
@@ -74,6 +84,14 @@ PEAK_FP32_FLOPS = 67e12
 TOL = 1e-4   # kernel vs plain: float32 products accumulated in another
              # order (per-pixel sequential vs cumprod / log space) over up
              # to 1,152 entries; depth rows are held to TOL × max depth
+TOL_GRAD_LONG = 2e-3  # gradients at dyn_capacity BIG_KD against the plain
+             # versions in float64: the kernels take each suffix sum as
+             # ct . (out - prefix), and each step of those float32
+             # accumulators rounds at the accumulator's size, so over merged
+             # lists of ~3,000 entries (the main scene's at BIG_KD) the
+             # error of a near-opaque entry's gradient grows past TOL_GRAD;
+             # the bound tests/test_torch_grad.py holds float32 suffix sums
+             # to against float64
 TOL_GRAD = 2e-4  # gradients, kernel vs plain: each payload row (and each
              # scene field) within TOL_GRAD × its largest plain gradient.
              # The plain backward is autograd through the plain forward; in
@@ -117,6 +135,20 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps, tries=3):
+    """Device time of one ``fn()``, its kernels' own time over ``reps``
+    calls under the profiler (host gaps excluded: a call shorter than its
+    Python dispatch is not timed by the dispatch).  A profile that recorded
+    no device time is taken again, up to ``tries`` times."""
+    fn()
+    for _ in range(tries):
+        ms = device_profile(lambda: [fn() for _ in range(reps)])[0] / reps
+        if ms > 0:
+            return ms
+    raise RuntimeError(f"the profiler recorded no device time in {tries} "
+                       "tries")
+
+
 def device_profile(fn):
     """(device time in ms, key averages) of one ``fn()`` under the profiler:
     the self time of every CUDA event, host gaps excluded."""
@@ -138,8 +170,8 @@ def bound(nbytes, flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def check_rows(name, got, want, what):
-    """Each payload row (axis -2) of ``got`` within TOL_GRAD × that row's
+def check_rows(name, got, want, what, rel=TOL_GRAD):
+    """Each payload row (axis -2) of ``got`` within ``rel`` × that row's
     largest |want|; returns the max |Δ| over all rows."""
     worst = 0.0
     for r in range(want.shape[-2]):
@@ -147,12 +179,12 @@ def check_rows(name, got, want, what):
         scale = float(w.abs().max())
         err = float((g - w).abs().max())
         worst = max(worst, err / scale if scale > 0 else err)
-        if not err <= TOL_GRAD * scale:
+        if not err <= rel * scale:
             raise AssertionError(f"{name} {what} row {r}: max|Δ| {err} > "
-                                 f"{TOL_GRAD} × {scale}")
+                                 f"{rel} × {scale}")
     err = float((got - want).abs().max())
     log(f"  {name} {what}: max|Δ| = {err:.3e}, largest per-row max|Δ| / "
-        f"max|g| = {worst:.3e} (tolerance {TOL_GRAD:.1e})")
+        f"max|g| = {worst:.3e} (tolerance {rel:.1e})")
     return err
 
 
@@ -264,7 +296,7 @@ def main() -> int:
     log("K1 composite_static vs composite_static_plain "
         f"(payload {tuple(seen['k1'][0].shape)}):")
     a1 = seen["k1"]
-    out_k, car_k = composite.composite_static(*a1)
+    out_k, car_k, acc_k = composite.composite_static_fwd(*a1)
     out_p, car_p, applied, hits = composite.composite_static_plain(
         *a1, return_work=True)
     pay, counts, skip = a1[:3]
@@ -293,10 +325,29 @@ def main() -> int:
               plain_ms=cuda_ms(lambda: composite.composite_static_plain(*a1),
                                3),
               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    chunk_blocks = int(torch.clamp((cnt + composite.CHUNK - 1)
+                                   // composite.CHUNK, max=nc).sum())
     log(f"  applied entries {entries} of {int(cnt.clamp(max=K).sum())} "
-        f"active; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
-        f"blended (α > 0); kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"active, chunks {int(applied.sum())} applied of {chunk_blocks} "
+        f"composited by the chunk blocks; (pixel, entry) pairs: "
+        f"{P_ * entries} alpha, {blended} blended (α > 0); kernel "
+        f"{k1['ms']:.4f} ms (its two launches' device time under the "
+        f"profiler {kernel_ms(lambda: composite.composite_static(*a1), 20):.4f}"
+        f" ms; "
+        f"first design {FIRST_DESIGN_MS['composite_static']} ms), plain "
+        f"{k1['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the (applied entry, warp) pairs that the cull skips, by the kernels'
+    # test's plain twin on K1's warp rectangles
+    box1 = composite_sel.cull_boxes(pay, a1[5])             # (T, 4, K)
+    cull1 = composite_sel.culled(box1, composite.warp_rects(
+        torch.arange(T, device=dev, dtype=torch.int32), a1[3], a1[4]))
+    col_used = (torch.arange(K, device=dev) < torch.minimum(
+        cnt, applied * composite.CHUNK)[:, None])           # (T, K)
+    skipped1 = int((cull1 & col_used[:, None]).sum())
+    pairs1 = int(col_used.sum()) * cull1.shape[1]
+    log(f"  cull skipped {skipped1} of {pairs1} (applied entry, warp) pairs "
+        f"({skipped1 / pairs1:.4f}); {composite.kernel_threads(a1[3])} "
+        f"threads a block")
     kernels.append(k1)
 
     # 3b. K1b at full size, for a numpy-seeded cotangent ----------------------
@@ -304,7 +355,7 @@ def main() -> int:
     ct1 = torch.as_tensor(np.random.default_rng(0).normal(
         size=tuple(out_k.shape)).astype(np.float32), device=dev)
     a1b = (pay, counts, skip, ct1, out_k, car_k, *a1[3:])
-    g_k = composite.composite_static_bwd(*a1b)
+    g_k = composite.composite_static_bwd(*a1b, chunk_acc=acc_k)
     g_p = composite.composite_static_bwd_plain(pay, counts, skip, ct1,
                                                *a1[3:])
     e1b = check_rows("K1b", g_k, g_p, "payload grad")
@@ -319,11 +370,15 @@ def main() -> int:
                source="sim_a_splat_torch/csrc/composite_bwd.cu",
                replaces="sim_a_splat_tpu/ops/pallas_composite.py:277",
                max_abs_err=e1b,
-               ms=cuda_ms(lambda: composite.composite_static_bwd(*a1b), 20),
+               ms=cuda_ms(lambda: composite.composite_static_bwd(
+                   *a1b, chunk_acc=acc_k), 20),
                plain_ms=cuda_ms(lambda: composite.composite_static_bwd_plain(
                    pay, counts, skip, ct1, *a1[3:]), 3),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms, "
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms "
+        f"(device time under the profiler "
+        f"{kernel_ms(lambda: composite.composite_static_bwd(*a1b, chunk_acc=acc_k), 20):.4f}"
+        f" ms; first design {FIRST_DESIGN_MS['composite_static_bwd']} ms), "
         f"plain {k1b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     kernels.append(k1b)
 
@@ -449,7 +504,7 @@ def main() -> int:
         f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     kernels.append(k2b)
     # free the checks' tensors before the forward step's peak-memory reading
-    del ct1, a1b, g_k, g_p, ct2, a2b, gs_k, gd_k, gs_p, gd_p
+    del ct1, a1b, acc_k, g_k, g_p, ct2, a2b, gs_k, gd_k, gs_p, gd_p
 
     # 5. the main path forward, timed ----------------------------------------
     def reset_counts():
@@ -640,6 +695,12 @@ def main() -> int:
                               scene, P, states0, actions, raster, imgs0,
                               drop0, reset_counts, counts_now, profiled, dev)
     del imgs0
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 11b. K2 and K4 at a dynamic capacity past their backward kernels'
+    # partial sums in shared memory ------------------------------------------
+    large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
+                   states0, actions, raster, dev)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 12-15. the moving camera -----------------------------------------------
@@ -908,6 +969,105 @@ def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
     log(f"per-env image max|Δ| vs plain: {e_img:.3e}; gradients max|Δ| / "
         f"max|g|: {e_grad:.3e}")
     return [k4, k4b]
+
+
+def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
+                   states0, actions, raster, dev):
+    """K2f, K2b, K4f and K4b at ``dyn_capacity`` BIG_KD, past the room of
+    K2b's and K4b's per-warp partial sums of the dynamic list in shared
+    memory (the backward kernels then add those sums atomically), on 8 envs
+    of the main path's scene through the selected-tile and the per-env
+    steps, against their plain versions run in float64 (their float32
+    log-space sums drift over dynamic lists of up to 2,048 entries), the
+    gradients at TOL_GRAD_LONG."""
+    import numpy as np
+    import torch
+
+    def f64(args):
+        return [a.double() if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+    s8 = pusht.PushTState(*(f[:8] for f in states0))
+    a8 = actions[:8]
+    seen = {}
+
+    def capture(key, fn):
+        def wrapped(*args):
+            seen[key] = args
+            return fn(*args)
+        return wrapped
+
+    prepare, step, _ = entry.make_step_cached_batch(
+        graph, RES, RES, raster, dyn_capacity=BIG_KD, sel_tiles=SEL_TILES,
+        dyn_max_tiles=DYN_M, device=dev)
+    with replaced(composite_sel, "composite_pair_sel",
+                  capture("k2", composite_sel.composite_pair_sel)):
+        step(prepare(scene), scene, s8, a8)
+    a2 = seen.pop("k2")
+    spay, dpay, ids, cs_pad, cd = a2[:5]
+    ts = a2[5]
+    T1 = spay.shape[0]
+    log(f"K2 at dyn_capacity {BIG_KD} (8 envs; dynamic partial sums in "
+        f"shared memory: {composite_sel.bwd_dyn_partials(BIG_KD, ts)}, "
+        f"largest dynamic count {int(cd.max())}):")
+    rows = [0, 1, 2, 4]
+    out_k = composite_sel.composite_pair_sel(*a2)
+    out_p = composite_sel.composite_pair_sel_plain(*f64(a2))
+    bidx = torch.arange(ids.shape[0], device=dev)[:, None]
+    sel_k, sel_p = out_k[bidx, ids.long()], out_p[bidx, ids.long()]
+    check("K2", sel_k[:, :, rows], sel_p[:, :, rows], TOL,
+          "rgb+trans (selected rows)")
+    dscale = max(1.0, float(spay[:, 8].abs().max()),
+                 float(dpay[:, :, 8].abs().max()))
+    check("K2", sel_k[:, :, 3] / dscale, sel_p[:, :, 3] / dscale, TOL,
+          "depth_acc / max depth")
+    ct = torch.zeros_like(out_k)
+    ct[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(*ids.shape, 5, out_k.shape[-1])).astype(np.float32), device=dev)
+    ct[:, T1 - 1] = 0.0
+    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2[:5], ct, out_k,
+                                                      *a2[5:])
+    gs_p, gd_p = composite_sel.composite_pair_sel_bwd_plain(
+        *f64(a2[:5]), ct.double(), *a2[5:])
+    check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
+               "static grad, summed per tile", TOL_GRAD_LONG)
+    check_rows("K2b", gd_k, gd_p, "dynamic grad", TOL_GRAD_LONG)
+    log(f"  K2f {cuda_ms(lambda: composite_sel.composite_pair_sel(*a2), 5):.4f}"
+        f" ms, K2b {cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2[:5], ct, out_k, *a2[5:]), 5):.4f}"
+        f" ms ({composite_sel.smem_bytes(BIG_KD, ts, True, False)} B shared)")
+    del a2, spay, dpay, out_k, out_p, sel_k, sel_p, ct, gs_k, gd_k, gs_p, gd_p
+
+    prepare, step, _ = entry.make_step_cached(
+        graph, RES, RES, raster, dyn_capacity=BIG_KD, dyn_max_tiles=DYN_M,
+        device=dev)
+    with replaced(composite_pair, "composite_pair",
+                  capture("k4", composite_pair.composite_pair)):
+        step(prepare(scene), scene, s8, a8)
+    a4 = seen.pop("k4")
+    skip = a4[4]
+    log(f"K4 at dyn_capacity {BIG_KD} (8 envs, "
+        f"{int((skip > 0).sum())} touched pairs, largest dynamic count "
+        f"{int(a4[3].max())}):")
+    out_k = composite_pair.composite_pair(*a4)
+    out_p = composite_pair.composite_pair_plain(*f64(a4))
+    check("K4", out_k[..., rows], out_p[..., rows], TOL, "rgb+trans")
+    dscale = max(1.0, float(a4[0][:, 8].abs().max()),
+                 float(a4[1][:, :, 8].abs().max()))
+    check("K4", out_k[..., 3] / dscale, out_p[..., 3] / dscale, TOL,
+          "depth_acc / max depth")
+    ct = torch.zeros_like(out_k)
+    ct[skip > 0] = torch.nn.functional.pad(torch.as_tensor(
+        np.random.default_rng(5).normal(
+            size=(int((skip > 0).sum()), out_k.shape[2], 5)).astype(
+                np.float32), device=dev), (0, 3))
+    gs_k, gd_k = composite_pair.composite_pair_bwd(*a4[:5], ct, out_k,
+                                                   *a4[5:])
+    gs_p, gd_p = composite_pair.composite_pair_bwd_plain(*f64(a4[:5]),
+                                                         ct.double(), *a4[5:])
+    check_rows("K4b", gs_k, gs_p, "static grad, summed over envs",
+               TOL_GRAD_LONG)
+    check_rows("K4b", gd_k, gd_p, "dynamic grad", TOL_GRAD_LONG)
+    log(f"  K4f {cuda_ms(lambda: composite_pair.composite_pair(*a4), 5):.4f} "
+        f"ms, K4b {cuda_ms(lambda: composite_pair.composite_pair_bwd(*a4[:5], ct, out_k, *a4[5:]), 5):.4f} ms")
 
 
 def moving_camera(entry, composite, composite_single, rasterize_moving,

@@ -23,6 +23,8 @@ namespace splat {
 constexpr int CHUNK = 128;                           // list entries per chunk
 constexpr float ALPHA_CLAMP = 0.9990000128746033f;   // float32(0.999)
 constexpr float ALPHA_MIN = 0.003921568859368563f;   // float32(1 / 255)
+// shared memory a block may opt into on Hopper (H100/H200: 227 KB)
+constexpr size_t SMEM_OPTIN = 232448;
 
 // payload rows: x, y, conic a, conic b, conic c, r, g, b, depth, opacity
 constexpr int ROW_X = 0, ROW_Y = 1, ROW_CA = 2, ROW_CB = 3, ROW_CC = 4;
@@ -273,13 +275,16 @@ __device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
 
 // Sum g[ROWS] over the 32 lanes of the warp in a fixed order; lane 0 writes
 // the sums to part[r * stride + col].  A warp where no lane has alpha > 0
-// writes zeros without shuffling.  All 32 lanes must call it together.
+// writes zeros without shuffling.  With ADD lane 0 adds the nonzero sums to
+// part atomically instead (nothing where no lane has alpha > 0).  All 32
+// lanes must call it together.
+template <bool ADD = false>
 __device__ __forceinline__ void warp_sum_rows(const float g[ROWS], bool any,
                                               float* part, int stride,
                                               int col) {
   const bool lane0 = (threadIdx.x & 31) == 0;
   if (!__any_sync(0xffffffffu, any)) {
-    if (lane0) {
+    if (!ADD && lane0) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) part[r * stride + col] = 0.0f;
     }
@@ -291,7 +296,12 @@ __device__ __forceinline__ void warp_sum_rows(const float g[ROWS], bool any,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane0) part[r * stride + col] = v;
+    if (lane0) {
+      if (!ADD)
+        part[r * stride + col] = v;
+      else if (v != 0.0f)
+        atomicAdd(part + r * stride + col, v);
+    }
   }
 }
 
@@ -331,19 +341,22 @@ __device__ __forceinline__ void zero_cols(float* dst, int stride, int lo,
 // the forward's output: the forward's merged walk is replayed, T advanced by
 // the same float operations (entry_grad), so every stop decision is
 // bit-identical to the forward's.  sd (ROWS, Kd) is in shared memory; ss
-// holds one static chunk, part_s (warps, ROWS, CHUNK) and part_d (warps,
-// ROWS, Kd) the warps' per-entry partial sums.  gd (ROWS, Kd) receives the
-// dynamic gradient, every column written once (zero past count_d).  The
-// static gradient goes to gs (ROWS, Ks): written once per column, zero for
-// the chunks the forward never applied, or with ADD added atomically to
-// what gs holds (a row that several blocks share; nothing is added for
-// chunks never applied).
-template <bool ADD>
+// holds one static chunk.  With PARTIALS, part_s (warps, ROWS, CHUNK) and
+// part_d (warps, ROWS, Kd) receive the warps' per-entry partial sums, and
+// the block adds them in warp order: gd (ROWS, Kd) receives the dynamic
+// gradient, every column written once (zero past count_d), and the static
+// gradient goes to gs (ROWS, Ks), written once per column, zero for the
+// chunks the forward never applied, or with ADD added atomically to what gs
+// holds (a row that several blocks share; nothing is added for chunks never
+// applied).  Without PARTIALS (needs ADD) each warp adds its sums to gs and
+// to gd atomically; gd must be zeroed first.
+template <bool ADD, bool PARTIALS = true>
 __device__ __forceinline__ void pair_walk_grad(
     float* ss, const float* sd, int Kd, int count_d, const float* tile,
     int Ks, int count_s, float power_min, bool has_pmin, float term_eps,
     bool has_term, BwdPixel& st, float* part_s, float* part_d, float* gs,
     float* gd) {
+  static_assert(ADD || PARTIALS, "the direct sums are atomic adds");
   const int warps = blockDim.x >> 5;
   float* my_part_s = part_s + (threadIdx.x >> 5) * ROWS * CHUNK;
   float* my_part_d = part_d + (threadIdx.x >> 5) * ROWS * Kd;
@@ -359,24 +372,37 @@ __device__ __forceinline__ void pair_walk_grad(
       const float ds = ss[ROW_DEPTH * CHUNK + e];
       while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
         const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
-        warp_sum_rows(g, hit, my_part_d, Kd, j);
+        if (PARTIALS)
+          warp_sum_rows(g, hit, my_part_d, Kd, j);
+        else
+          warp_sum_rows<true>(g, hit, gd, Kd, j);
         ++j;
       }
       const bool hit = entry_grad(ss, CHUNK, e, power_min, has_pmin, st, g);
-      warp_sum_rows(g, hit, my_part_s, CHUNK, e);
+      if (PARTIALS)
+        warp_sum_rows(g, hit, my_part_s, CHUNK, e);
+      else
+        warp_sum_rows<true>(g, hit, gs + c0, Ks, e);
     }
-    __syncthreads();
-    block_sum_rows<ADD>(part_s, warps, CHUNK, n, CHUNK, gs + c0, Ks);
+    if (PARTIALS) {
+      __syncthreads();
+      block_sum_rows<ADD>(part_s, warps, CHUNK, n, CHUNK, gs + c0, Ks);
+    }
     c0 += CHUNK;
     if (has_term && !__syncthreads_or(st.T >= term_eps)) break;
   }
   if (!ADD) zero_cols(gs, Ks, c0, Ks);
   for (; j < count_d; ++j) {
     const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
-    warp_sum_rows(g, hit, my_part_d, Kd, j);
+    if (PARTIALS)
+      warp_sum_rows(g, hit, my_part_d, Kd, j);
+    else
+      warp_sum_rows<true>(g, hit, gd, Kd, j);
   }
-  __syncthreads();
-  block_sum_rows(part_d, warps, Kd, count_d, Kd, gd, Kd);
+  if (PARTIALS) {
+    __syncthreads();
+    block_sum_rows(part_d, warps, Kd, count_d, Kd, gd, Kd);
+  }
 }
 
 }  // namespace splat

@@ -85,6 +85,10 @@ extern "C" int composite_pair_launch(
     int has_term, void* stream) {
   if (B > 0 && T > 0) {
     const size_t smem = sizeof(float) * ROWS * (Kd + CHUNK);
+    cudaError_t err = cudaFuncSetAttribute(
+        composite_pair_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
     composite_pair_fwd<<<dim3(T, B), ts * ts, smem, (cudaStream_t)stream>>>(
         (const float*)spay, (const float*)dpay, (const int*)counts_s,
         (const int*)counts_d, (const int*)skip, (float*)out, T, Ks, Kd, ts,

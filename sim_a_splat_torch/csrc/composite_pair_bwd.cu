@@ -31,6 +31,13 @@
 // most B blocks per row.  The order of those float additions across envs
 // changes from run to run.
 //
+// Where the warps' partials do not fit in a block's shared memory beside
+// the dynamic list (Kd > 512 at ts 16), the block zeroes its pair's gd row
+// and every warp adds its sums to gs and gd with atomicAdd instead.  Only
+// there: at the main path's Kd = 128, ts 16 the atomic layout took 4.65 ms
+// against 4.22 (+10 %, chip_levers.py lever atomic_sums, H100 80GB HBM3 at
+// 700 W).
+//
 // What bounds it on an H100: the per-pixel sequential walk and the
 // per-entry warp reductions of the touched pairs; the largest
 // traffic is the dynamic gradient gd (168 MB at the main path's shape),
@@ -44,6 +51,13 @@ using namespace splat;
 
 namespace {
 
+// Shared memory of a K4b block: the dynamic list (ROWS, Kd) and one static
+// chunk, and with partials each warp's per-entry sums of both.
+size_t smem_bytes(int Kd, int warps, bool partials) {
+  return sizeof(float) * ROWS * (Kd + CHUNK) * (1 + (partials ? warps : 0));
+}
+
+template <bool PARTIALS>
 __global__ void __launch_bounds__(1024)
 composite_pair_bwd(const float* __restrict__ spay,
                    const float* __restrict__ dpay,
@@ -75,6 +89,7 @@ composite_pair_bwd(const float* __restrict__ spay,
 
   const float* dsrc = dpay + pair * ROWS * Kd;
   for (int i = p; i < ROWS * Kd; i += P) sd[i] = dsrc[i];
+  if (!PARTIALS) zero_cols(gd_pair, Kd, 0, Kd);
   __syncthreads();
 
   const size_t row = (pair * P + p) * 8;
@@ -82,33 +97,46 @@ composite_pair_bwd(const float* __restrict__ spay,
   init_bwd_pixel(st, (float)(p % ts) + 0.5f + (float)((t % tx) * ts),
                  (float)(p / ts) + 0.5f + (float)((t / tx) * ts), ct + row,
                  out + row, 1);
-  pair_walk_grad<true>(ss, sd, Kd, count_d, spay + (size_t)t * ROWS * Ks, Ks,
-                       count_s, power_min, has_pmin != 0, term_eps,
-                       has_term != 0, st, part_s, part_d,
-                       gs + (size_t)t * ROWS * Ks, gd_pair);
+  pair_walk_grad<true, PARTIALS>(
+      ss, sd, Kd, count_d, spay + (size_t)t * ROWS * Ks, Ks, count_s,
+      power_min, has_pmin != 0, term_eps, has_term != 0, st, part_s, part_d,
+      gs + (size_t)t * ROWS * Ks, gd_pair);
+}
+
+template <bool PARTIALS>
+int launch(const void* spay, const void* dpay, const void* counts_s,
+           const void* counts_d, const void* skip, const void* ct,
+           const void* out, void* gs, void* gd, int B, int T, int Ks, int Kd,
+           int ts, int tx, float power_min, int has_pmin, float term_eps,
+           int has_term, cudaStream_t stream) {
+  const int threads = ts * ts;
+  const size_t smem = smem_bytes(Kd, threads / 32, PARTIALS);
+  cudaError_t err = cudaFuncSetAttribute(
+      composite_pair_bwd<PARTIALS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  composite_pair_bwd<PARTIALS><<<dim3(T, B), threads, smem, stream>>>(
+      (const float*)spay, (const float*)dpay, (const int*)counts_s,
+      (const int*)counts_d, (const int*)skip, (const float*)ct,
+      (const float*)out, (float*)gs, (float*)gd, T, Ks, Kd, ts, tx,
+      power_min, has_pmin, term_eps, has_term);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The caller checks the layout (ts² % 32 == 0) and the shared memory of the
+// layout without partials, and zeroes gs.
 extern "C" int composite_pair_bwd_launch(
     const void* spay, const void* dpay, const void* counts_s,
     const void* counts_d, const void* skip, const void* ct, const void* out,
     void* gs, void* gd, int B, int T, int Ks, int Kd, int ts, int tx,
     float power_min, int has_pmin, float term_eps, int has_term,
     void* stream) {
-  if (B > 0 && T > 0) {
-    const int threads = ts * ts;
-    const size_t smem =
-        sizeof(float) * ROWS * (Kd + CHUNK) * (1 + threads / 32);
-    cudaError_t err = cudaFuncSetAttribute(
-        composite_pair_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    composite_pair_bwd<<<dim3(T, B), threads, smem, (cudaStream_t)stream>>>(
-        (const float*)spay, (const float*)dpay, (const int*)counts_s,
-        (const int*)counts_d, (const int*)skip, (const float*)ct,
-        (const float*)out, (float*)gs, (float*)gd, T, Ks, Kd, ts, tx,
-        power_min, has_pmin, term_eps, has_term);
-  }
-  return (int)cudaGetLastError();
+  if (B <= 0 || T <= 0) return (int)cudaGetLastError();
+  auto go = smem_bytes(Kd, ts * ts / 32, true) <= SMEM_OPTIN ? launch<true>
+                                                             : launch<false>;
+  return go(spay, dpay, counts_s, counts_d, skip, ct, out, gs, gd, B, T, Ks,
+            Kd, ts, tx, power_min, has_pmin, term_eps, has_term,
+            (cudaStream_t)stream);
 }

@@ -32,6 +32,14 @@
 // there is no per-slot buffer and no separate per-tile sum (the cross-env
 // order of those adds varies from run to run).
 //
+// Where the dynamic list's partials (warps × 10 × Kd floats) do not fit
+// beside the staged lists (Kd > 2176 at ts 8, > 896 at ts 16, > 384 at
+// ts 24, > 128 at ts 32), the block zeroes its slot's row of gd and each
+// warp adds its dynamic sums to it with atomicAdd instead (their order then
+// varies from run to run).  Only there: at the main path's Kd = 128, ts 16
+// the atomic layout took 2.13 ms against 1.96 (+8.8 %, chip_levers.py lever
+// atomic_sums, H100 80GB HBM3 at 700 W).
+//
 // What bounds it on an H100: the latency and issue of the per-pixel
 // gradient, not bytes.  The first design walked every entry for every
 // pixel and reduced every entry that any pixel of a warp hit with 50
@@ -52,6 +60,11 @@ using namespace splat;
 
 namespace {
 
+// DYN_PARTIALS: the warps' partial sums of the dynamic list are kept in
+// shared memory with the static chunk's (the layout wherever it fits);
+// else each warp adds its dynamic sums atomically to the slot's row of gd,
+// which the block zeroes first.
+template <bool DYN_PARTIALS>
 __global__ void __launch_bounds__(sel::MAX_THREADS)
 composite_pair_sel_bwd(const float* __restrict__ spay,
                        const float* __restrict__ dpay,
@@ -84,7 +97,18 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
     const size_t row = (size_t)(b * T1 + tid) * 8 * P + pix.p[k];
     init_bwd_pixel(st[k], pix.px, pix.py[k], ct + row, out + row, P);
   }
-  float* part = s.part + (threadIdx.x >> 5) * ROWS * s.L;
+  // a warp's partial sums: row stride and the column of staged column i
+  const int pstride = DYN_PARTIALS ? s.L : CHUNK;
+  auto pcol = [&](int i) { return DYN_PARTIALS ? i : i - Kd; };
+  float* part = s.part + (threadIdx.x >> 5) * ROWS * pstride;
+  float* gslot = gd + (size_t)slot * ROWS * Kd;
+  if (!DYN_PARTIALS) {
+    for (int j = threadIdx.x; j < Kd; j += blockDim.x) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) gslot[r * Kd + j] = 0.0f;
+    }
+    __syncthreads();
+  }
   auto visit = [&](int i) {
     const float4 g0 = s.g0[i];
     const float2 g1 = s.g1[i];
@@ -106,7 +130,10 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
         any = true;
       }
     }
-    sel::warp_sum_store(sum, any, part + i, s.L);
+    if (DYN_PARTIALS || i >= Kd)
+      sel::warp_sum_store(sum, any, part + pcol(i), pstride);
+    else
+      sel::warp_sum_store<true>(sum, any, gslot + i, Kd);
   };
   // the warps (a bit mask) that visited staged column i, from their hit
   // words (dynamic, or the current static chunk's)
@@ -116,11 +143,12 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
       m |= ((hits[w * words + (e >> 5)] >> (e & 31)) & 1u) << w;
     return m;
   };
-  // row r of column i summed over the warps of mask m, in warp order
+  // row r of staged column i summed over the warps of mask m, in warp
+  // order
   auto warp_total = [&](unsigned m, int r, int i) {
     float v = 0.0f;
     for (; m; m &= m - 1u)
-      v += s.part[((__ffs(m) - 1) * ROWS + r) * s.L + i];
+      v += s.part[((__ffs(m) - 1) * ROWS + r) * pstride + pcol(i)];
     return v;
   };
   // after each applied chunk: each entry's sums go to the tile's row (the
@@ -150,8 +178,8 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
                    chunk_end, alive);
 
   // the dynamic list's sums, every column written once
+  if (!DYN_PARTIALS) return;
   __syncthreads();
-  float* gslot = gd + (size_t)slot * ROWS * Kd;
   for (int j = threadIdx.x; j < Kd; j += blockDim.x) {
     const unsigned m = j < count_d ? visitors(s.dhit, s.dwords, j) : 0u;
 #pragma unroll
@@ -159,22 +187,30 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
   }
 }
 
+// The layout of a K2b block at (Kd, warps): the dynamic list's partial
+// sums in shared memory where they fit, else added to gd atomically.
+bool dyn_partials(int Kd, int warps) {
+  return sel::smem_bytes(Kd, warps, true) <= SMEM_OPTIN;
+}
+
+template <bool DYN_PARTIALS>
 int launch(const void* spay, const void* dpay, const void* ids,
            const void* counts_s_pad, const void* counts_d, const void* ct,
            const void* out, void* gs, void* gd, int B, int TT, int T1,
            int Ks, int Kd, int ts, int tx, float power_min, int has_pmin,
            float term_eps, int has_term, cudaStream_t stream) {
   const int threads = ts * ts / sel::PY;
-  const size_t smem = sel::smem_bytes(Kd, threads / 32, true);
+  const size_t smem = sel::smem_bytes(Kd, threads / 32, true, DYN_PARTIALS);
   cudaError_t err = cudaFuncSetAttribute(
-      composite_pair_sel_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      composite_pair_sel_bwd<DYN_PARTIALS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  composite_pair_sel_bwd<<<dim3(TT, B), threads, smem, stream>>>(
-      (const float*)spay, (const float*)dpay, (const int*)ids,
-      (const int*)counts_s_pad, (const int*)counts_d, (const float*)ct,
-      (const float*)out, (float*)gs, (float*)gd, TT, T1, Ks, Kd, ts, tx,
-      power_min, has_pmin, term_eps, has_term);
+  composite_pair_sel_bwd<DYN_PARTIALS>
+      <<<dim3(TT, B), threads, smem, stream>>>(
+          (const float*)spay, (const float*)dpay, (const int*)ids,
+          (const int*)counts_s_pad, (const int*)counts_d, (const float*)ct,
+          (const float*)out, (float*)gs, (float*)gd, TT, T1, Ks, Kd, ts, tx,
+          power_min, has_pmin, term_eps, has_term);
   return (int)cudaGetLastError();
 }
 
@@ -189,9 +225,11 @@ extern "C" int composite_pair_sel_bwd_launch(
     int Kd, int ts, int tx, float power_min, int has_pmin, float term_eps,
     int has_term, void* stream) {
   if (B <= 0 || TT <= 0) return (int)cudaGetLastError();
-  return launch(spay, dpay, ids, counts_s_pad, counts_d, ct, out, gs, gd, B,
-                TT, T1, Ks, Kd, ts, tx, power_min, has_pmin, term_eps,
-                has_term, (cudaStream_t)stream);
+  auto go = dyn_partials(Kd, ts * ts / sel::PY / 32) ? launch<true>
+                                                     : launch<false>;
+  return go(spay, dpay, ids, counts_s_pad, counts_d, ct, out, gs, gd, B, TT,
+            T1, Ks, Kd, ts, tx, power_min, has_pmin, term_eps, has_term,
+            (cudaStream_t)stream);
 }
 
 // Blocks of composite_pair_sel_bwd that fit on one SM at (Kd, ts) into
@@ -199,12 +237,14 @@ extern "C" int composite_pair_sel_bwd_launch(
 extern "C" int composite_pair_sel_bwd_blocks_per_sm(int Kd, int ts,
                                                     int* blocks) {
   const int threads = ts * ts / sel::PY;
-  const size_t smem = sel::smem_bytes(Kd, threads / 32, true);
+  const bool in_smem = dyn_partials(Kd, threads / 32);
+  const size_t smem = sel::smem_bytes(Kd, threads / 32, true, in_smem);
+  auto kernel = in_smem ? composite_pair_sel_bwd<true>
+                        : composite_pair_sel_bwd<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      composite_pair_sel_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, composite_pair_sel_bwd, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
   return (int)err;
 }

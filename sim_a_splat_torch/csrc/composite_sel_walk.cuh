@@ -76,15 +76,20 @@ struct Smem {
   int* merge;         // (CHUNK) dynamic entries in front of each static one
   unsigned* dhit;     // (warps, Kd / 32) each warp's unculled dynamic entries
   unsigned* shit;     // (warps, CHUNK / 32) each warp's unculled static ones
-  float* part;        // (warps, ROWS, L) the backward's per-warp sums
+  float* part;        // (warps, ROWS, L or CHUNK) the backward's per-warp sums
   int L, dwords;
 };
 
-__host__ __device__ inline size_t smem_bytes(int Kd, int warps, bool bwd) {
+// With dyn_partials (the backward's layout wherever it fits) the warps'
+// partial sums cover all L staged columns, else only the static chunk's.
+__host__ __device__ inline size_t smem_bytes(int Kd, int warps, bool bwd,
+                                             bool dyn_partials = true) {
   const size_t L = (size_t)Kd + CHUNK;
   return L * (3 * sizeof(float4) + sizeof(float2)) + CHUNK * sizeof(int) +
          (size_t)warps * (Kd / 32 + CHUNK / 32) * sizeof(unsigned) +
-         (bwd ? (size_t)warps * ROWS * L * sizeof(float) : 0);
+         (bwd ? (size_t)warps * ROWS * (dyn_partials ? L : CHUNK) *
+                    sizeof(float)
+              : 0);
 }
 
 __device__ __forceinline__ Smem carve(void* base, int Kd, int warps) {
@@ -277,13 +282,16 @@ __device__ __forceinline__ void merged_walk(const Smem& s, const float* tile,
 // Sum v[ROWS] over the 32 lanes of the warp by a transposed halving
 // exchange (12 shuffles: each step sends half of the values a lane holds)
 // in a fixed order, and store row r's sum at dst[r * stride].  A warp where
-// no lane has any set stores zeros without shuffling.  All 32 lanes call it.
+// no lane has any set stores zeros without shuffling.  With ADD the nonzero
+// sums are added to dst atomically instead (nothing where none is set).
+// All 32 lanes call it.
+template <bool ADD = false>
 __device__ __forceinline__ void warp_sum_store(const float v[ROWS], bool any,
                                                float* dst, int stride) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   if (!__any_sync(full, any)) {
-    if (lane < ROWS) dst[lane * stride] = 0.0f;
+    if (!ADD && lane < ROWS) dst[lane * stride] = 0.0f;
     return;
   }
   // lanes with bit 4 set keep rows 5-9, the others rows 0-4
@@ -316,7 +324,12 @@ __device__ __forceinline__ void warp_sum_store(const float v[ROWS], bool any,
   // lane bits (4, 3, 2, 1) hold row 5·b4 + 3·b3 + 2·b2 + b1 where that
   // index stays inside each step's real (unpadded) values
   const int in5 = 3 * b3 + 2 * b2 + b1, in3 = 2 * b2 + b1;
-  if (!(lane & 1) && in3 < 3 && in5 < 5) dst[(5 * b4 + in5) * stride] = z;
+  if (!(lane & 1) && in3 < 3 && in5 < 5) {
+    if (!ADD)
+      dst[(5 * b4 + in5) * stride] = z;
+    else if (z != 0.0f)
+      atomicAdd(dst + (5 * b4 + in5) * stride, z);
+  }
 }
 
 }  // namespace sel

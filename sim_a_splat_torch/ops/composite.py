@@ -4,16 +4,21 @@ and its gradient.
 Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
 (``_call_bwd``) under the custom VJP ``composite_pallas`` of
 ``sim_a_splat_tpu/ops/pallas_composite.py``.  The CUDA sources are
-``csrc/composite.cu`` (K1f) and ``csrc/composite_bwd.cu`` (K1b); their notes
-say what bounds each on an H100 and how the designs keep every operand on
-chip.
+``csrc/composite.cu`` (K1f) and ``csrc/composite_bwd.cu`` (K1b), with their
+chunk walk in ``csrc/composite_static_walk.cuh``; their notes say what
+bounds each on an H100 and what the design does about it: one block per
+(tile, chunk) composites its chunk from transmittance 1, an in-order
+combine per tile applies the chunks with the reference's early stop, and
+K1b restarts every applied chunk in parallel from the state the forward
+saved (``chunk_acc``), with K2's warp-level footprint cull in both.
 
 ``composite_static`` is the public entry: it goes through the autograd
 Function ``CompositeStatic``, whose forward is K1f and whose backward is
 K1b.  On a CPU tensor each direction runs its plain version
 (``composite_static_plain``, ``composite_static_bwd_plain``); on a CUDA
 tensor it launches the kernel (adding one to ``launches`` or
-``launches_bwd``) or raises.
+``launches_bwd``) or raises.  ``composite_static_fwd`` returns K1f's saved
+state beside its outputs, for ``composite_static_bwd``.
 
 Semantics (the reference's): payload (T, 10, K) rows [x, y, conic a b c,
 r, g, b, depth, opacity], depth-sorted per tile, active entries first;
@@ -161,23 +166,65 @@ def _check_inputs(payload, counts, skip, ts):
             raise ValueError(f"{name} is on {a.device}, payload on "
                              f"{payload.device}")
     if not (ts * ts <= 1024):
-        raise ValueError(f"tile size {ts}: one thread per pixel needs "
+        raise ValueError(f"tile size {ts}: the kernels' pixel layout needs "
                          "ts² ≤ 1024")
     if payload.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {payload.device}")
 
 
-def _forward(payload, counts, skip, ts, tx, sigma_cutoff, term_eps):
-    """K1f on CUDA tensors, the plain version on CPU tensors."""
+# ---- the kernels' block layout (csrc/composite_static_walk.cuh) -------------
+
+RECT_X, RECT_Y = 8, 4   # a warp's pixel rectangle in the K1 blocks
+                        # (stat::RECT_X, RECT_Y), one pixel a thread
+
+
+def kernel_threads(ts: int) -> int:
+    """Threads of a K1f chunk block or a K1b block at tile size ``ts``: each
+    warp owns an 8 × 4 rectangle of pixel centres, and the rectangles cover
+    the tile rounded up to whole rectangles."""
+    return -(-ts // RECT_X) * -(-ts // RECT_Y) * 32
+
+
+def warp_rects(tile_ids: torch.Tensor, ts: int, tx: int) -> torch.Tensor:
+    """(S,) tile ids → (S, W, 4) float32 [rx0, rx1, ry0, ry1], the pixel
+    centres spanned by each of the W warps of a K1 chunk block
+    (``stat::Pixel``), row-major; past the tile's edge where ts is not a
+    multiple of the rectangle (those pixels are never composited)."""
+    wgx = -(-ts // RECT_X)
+    w = torch.arange(kernel_threads(ts) // 32, device=tile_ids.device)
+    wx = (w % wgx) * RECT_X
+    wy = (w // wgx) * RECT_Y
+    t = tile_ids.long()[:, None]
+    ox, oy = ((t % tx) * ts).float(), ((t // tx) * ts).float()
+    return torch.stack([(wx.float() + 0.5) + ox,
+                        ((wx + RECT_X - 1).float() + 0.5) + ox,
+                        (wy.float() + 0.5) + oy,
+                        ((wy + RECT_Y - 1).float() + 0.5) + oy], dim=-1)
+
+
+def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
+                         skip: torch.Tensor, ts: int, tx: int,
+                         sigma_cutoff: Optional[float] = None,
+                         term_eps: Optional[float] = None):
+    """K1f with the state K1b restarts from: (out (T, P, 8), carries
+    (T, P, nc), chunk_acc (T, nc, 4, P), the r, g, b, depth_acc
+    accumulators at the start of every chunk).  CUDA tensors launch K1f
+    (one chunk-block launch and its combine, counted once in ``launches``);
+    CPU tensors run the plain version, whose backward needs no saved state
+    (chunk_acc None)."""
     global launches
+    _check_inputs(payload, counts, skip, ts)
     if payload.device.type == "cpu":
-        return composite_static_plain(payload, counts, skip, ts, tx,
-                                      sigma_cutoff, term_eps)
+        out, carries = composite_static_plain(payload, counts, skip, ts, tx,
+                                              sigma_cutoff, term_eps)
+        return out, carries, None
     payload, counts, skip = (a.contiguous() for a in (payload, counts, skip))
     T, _, K = payload.shape
     P = ts * ts
+    nc = K // CHUNK
     out = payload.new_empty((T, P, 8))
-    carries = payload.new_empty((T, P, K // CHUNK))
+    carries = payload.new_empty((T, P, nc))
+    chunk_acc = payload.new_empty((T, nc, 4, P))
     pmin = power_min_of(sigma_cutoff)
     launch = _kernels.function("composite", "composite_static_launch",
                                _FWD_ARGS)
@@ -185,31 +232,35 @@ def _forward(payload, counts, skip, ts, tx, sigma_cutoff, term_eps):
         stream = torch.cuda.current_stream(payload.device).cuda_stream
         rc = launch(
             payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
-            out.data_ptr(), carries.data_ptr(), T, K, ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
+            out.data_ptr(), carries.data_ptr(), chunk_acc.data_ptr(), T, K,
+            ts, tx, 0.0 if pmin is None else pmin, int(pmin is not None),
             0.0 if term_eps is None else term_eps, int(term_eps is not None),
             stream)
     _kernels.check(rc, "composite_static")
     launches += 1
-    return out, carries
+    return out, carries, chunk_acc
 
 
 def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
                          skip: torch.Tensor, ct: torch.Tensor,
                          out: torch.Tensor, carries: torch.Tensor, ts: int,
                          tx: int, sigma_cutoff: Optional[float] = None,
-                         term_eps: Optional[float] = None) -> torch.Tensor:
+                         term_eps: Optional[float] = None,
+                         chunk_acc: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """K1 backward: the gradient of the payload (T, 10, K) for the
-    cotangent ``ct`` (T, P, 8) of the forward's ``out``, given that forward's
-    ``out`` and ``carries``.  CPU tensors run the plain version; CUDA
-    tensors launch K1b, which walks every applied chunk again from its
-    saved chunk-start transmittance."""
+    cotangent ``ct`` (T, P, 8) of the forward's ``out``, given that
+    forward's ``out``, ``carries`` and ``chunk_acc``
+    (:func:`composite_static_fwd`).  CPU tensors run the plain version;
+    CUDA tensors launch K1b, which restarts every applied chunk from its
+    saved chunk-start transmittance and accumulators."""
     global launches_bwd
     _check_inputs(payload, counts, skip, ts)
     T, _, K = payload.shape
     P = ts * ts
+    nc = K // CHUNK
     for name, a, shape in (("ct", ct, (T, P, 8)), ("out", out, (T, P, 8)),
-                           ("carries", carries, (T, P, K // CHUNK))):
+                           ("carries", carries, (T, P, nc))):
         if a.dtype != torch.float32 or tuple(a.shape) != shape \
                 or a.device != payload.device:
             raise ValueError(f"{name} must be float32 {shape} on "
@@ -218,11 +269,19 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
     if payload.device.type == "cpu":
         return composite_static_bwd_plain(payload, counts, skip, ct, ts, tx,
                                           sigma_cutoff, term_eps)
-    if P % 32:
-        raise ValueError(f"tile size {ts}: the backward kernel reduces over "
-                         "whole warps and needs ts² % 32 == 0")
-    payload, counts, skip, ct, out, carries = (
-        a.contiguous() for a in (payload, counts, skip, ct, out, carries))
+    shape = (T, nc, 4, P)
+    if chunk_acc is None or chunk_acc.dtype != torch.float32 \
+            or tuple(chunk_acc.shape) != shape \
+            or chunk_acc.device != payload.device:
+        raise ValueError(f"K1b restarts from the forward's chunk_acc, float32 "
+                         f"{shape} on {payload.device} "
+                         "(composite_static_fwd); got "
+                         + ("None" if chunk_acc is None else
+                            f"{chunk_acc.dtype} {tuple(chunk_acc.shape)} on "
+                            f"{chunk_acc.device}"))
+    payload, counts, skip, ct, out, carries, chunk_acc = (
+        a.contiguous() for a in (payload, counts, skip, ct, out, carries,
+                                 chunk_acc))
     grad = torch.empty_like(payload)
     pmin = power_min_of(sigma_cutoff)
     launch = _kernels.function("composite_bwd", "composite_static_bwd_launch",
@@ -232,7 +291,7 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
         rc = launch(
             payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
             ct.data_ptr(), out.data_ptr(), carries.data_ptr(),
-            grad.data_ptr(), T, K, ts, tx,
+            chunk_acc.data_ptr(), grad.data_ptr(), T, K, ts, tx,
             0.0 if pmin is None else pmin, int(pmin is not None),
             0.0 if term_eps is None else term_eps, int(term_eps is not None),
             stream)
@@ -244,22 +303,22 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
 class CompositeStatic(torch.autograd.Function):
     """K1 with its gradient: forward K1f → (out, carries), backward K1b →
     the payload's gradient.  ``carries`` is saved state, not an output to
-    differentiate."""
+    differentiate; so is K1f's ``chunk_acc``, which only K1b reads."""
 
     @staticmethod
     def forward(ctx, payload, counts, skip, ts, tx, sigma_cutoff, term_eps):
-        out, carries = _forward(payload, counts, skip, ts, tx, sigma_cutoff,
-                                term_eps)
-        ctx.save_for_backward(payload, counts, skip, out, carries)
+        out, carries, chunk_acc = composite_static_fwd(
+            payload, counts, skip, ts, tx, sigma_cutoff, term_eps)
+        ctx.save_for_backward(payload, counts, skip, out, carries, chunk_acc)
         ctx.mark_non_differentiable(carries)
         ctx.args = (ts, tx, sigma_cutoff, term_eps)
         return out, carries
 
     @staticmethod
     def backward(ctx, ct_out, _ct_carries):
-        payload, counts, skip, out, carries = ctx.saved_tensors
+        payload, counts, skip, out, carries, chunk_acc = ctx.saved_tensors
         grad = composite_static_bwd(payload, counts, skip, ct_out, out,
-                                    carries, *ctx.args)
+                                    carries, *ctx.args, chunk_acc=chunk_acc)
         return grad, None, None, None, None, None, None
 
 
@@ -280,5 +339,5 @@ def composite_static(payload: torch.Tensor, counts: torch.Tensor,
 # T, K, ts, tx, power_min, has_pmin, term_eps, has_term, stream
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I, _I, _I, _I, _F, _I, _F, _I, _VP]
-_FWD_ARGS = [_VP] * 5 + _TAIL
-_BWD_ARGS = [_VP] * 7 + _TAIL
+_FWD_ARGS = [_VP] * 6 + _TAIL
+_BWD_ARGS = [_VP] * 8 + _TAIL

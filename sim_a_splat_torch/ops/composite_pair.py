@@ -9,7 +9,9 @@ kernel once per env under the per-env step's ``vmap``; here the env axis is
 explicit and one launch covers every env.  The CUDA sources are
 ``csrc/composite_pair.cu`` (K4f) and ``csrc/composite_pair_bwd.cu`` (K4b);
 they walk the merged sequence with ``pair_walk`` (``composite_common.cuh``),
-and their notes say what bounds each on an H100.
+and their notes say what bounds each on an H100.  Where K4b's per-warp
+partial sums do not fit in a block's shared memory (``bwd_smem_bytes``),
+its warps add their sums to the gradients atomically.
 
 ``composite_pair`` is the public entry: it goes through the autograd
 Function ``CompositePair``, whose forward is K4f and whose backward is K4b.
@@ -109,9 +111,6 @@ def _check_inputs(spay, dpay, counts_s, counts_d, skip, ts):
     if Ks % CHUNK or Kd % CHUNK:
         raise ValueError(f"capacities Ks={Ks}, Kd={Kd} must be multiples "
                          f"of {CHUNK}")
-    if Kd > 1024:
-        raise ValueError(f"dyn capacity Kd={Kd} > 1024 does not fit the "
-                         "kernel's shared memory")
     for name, a, shape in (("counts_s", counts_s, (T,)),
                            ("counts_d", counts_d, (B, T)),
                            ("skip", skip, (B, T))):
@@ -153,6 +152,7 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     if spay.device.type == "cpu":
         return composite_pair_plain(spay, dpay, counts_s, counts_d, skip, ts,
                                     tx, sigma_cutoff, term_eps)
+    _check_smem(dpay.shape[-1], ts)
     spay, dpay, counts_s, counts_d, skip = (
         a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip))
     B, T = skip.shape
@@ -170,10 +170,23 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     return out
 
 
-def bwd_smem_bytes(Kd: int, ts: int) -> int:
+def bwd_smem_bytes(Kd: int, ts: int, partials: bool = True) -> int:
     """Shared memory of one K4b block: the dynamic list (10, Kd), one static
-    chunk (10, 128) and every warp's per-entry partial sums for both."""
-    return 4 * 10 * (Kd + CHUNK) * (1 + ts * ts // 32)
+    chunk (10, 128) and, with ``partials`` (wherever they fit: Kd ≤ 512 at
+    ts 16), every warp's per-entry partial sums for both; without them the
+    warps add their sums to the gradients atomically.  K4f's block holds the
+    lists alone, as K4b's without partials."""
+    return 4 * 10 * (Kd + CHUNK) * (1 + (ts * ts // 32 if partials else 0))
+
+
+def _check_smem(Kd: int, ts: int) -> None:
+    """Raise unless a K4f or K4b block takes the dynamic capacity Kd: its
+    list and one static chunk fit in a block's shared memory (Kd ≤ 5,632)."""
+    need = bwd_smem_bytes(Kd, ts, partials=False)
+    if need > composite_sel.SMEM_OPTIN_BYTES:
+        raise ValueError(f"dyn capacity Kd={Kd} needs {need} B of shared "
+                         "memory per K4 block, more than "
+                         f"{composite_sel.SMEM_OPTIN_BYTES}")
 
 
 def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
@@ -201,11 +214,7 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
     if P % 32:
         raise ValueError(f"tile size {ts}: the backward kernel reduces over "
                          "whole warps and needs ts² % 32 == 0")
-    smem = bwd_smem_bytes(Kd, ts)
-    if smem > composite_sel.SMEM_OPTIN_BYTES:
-        raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
-                         f"{smem} B of shared memory per block, more than "
-                         f"{composite_sel.SMEM_OPTIN_BYTES}")
+    _check_smem(Kd, ts)
     spay, dpay, counts_s, counts_d, skip, ct, out = (
         a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip, ct,
                                  out))

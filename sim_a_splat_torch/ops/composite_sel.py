@@ -12,7 +12,10 @@ warp-level footprint cull, two pixels per thread in a compact 8 × 8
 rectangle per warp, entry-major staging with the merge positions
 found once per chunk, and in K2b the forward walk replayed (no saved
 state), a transposed warp reduction and the per-tile sum of the static
-gradient done in the kernel with atomic adds.
+gradient done in the kernel with atomic adds.  Where the dynamic list's
+per-warp partial sums do not fit in a K2b block's shared memory
+(``bwd_dyn_partials``), the warps add them to the gradient atomically, so
+the card takes every dynamic capacity up to 2048 at every tile size.
 
 ``composite_pair_sel`` is the public entry: it goes through the autograd
 Function ``CompositePairSel``, whose forward is K2f and whose backward is
@@ -203,24 +206,32 @@ def kernel_threads(ts: int) -> int:
     return ts * ts // 2
 
 
-def smem_bytes(Kd: int, ts: int, bwd: bool) -> int:
+def smem_bytes(Kd: int, ts: int, bwd: bool, dyn_partials: bool = True) -> int:
     """Shared memory of one K2f (``bwd`` False) or K2b block, as
     ``sel::smem_bytes``: Kd + 128 staged entries of 56 B (the dynamic list
     and one static chunk), the chunk's merge positions, each warp's hit
-    words and, for K2b, each warp's per-entry partial sums (10 rows)."""
+    words and, for K2b, each warp's per-entry partial sums (10 rows) of the
+    static chunk and, with ``dyn_partials``, of the dynamic list."""
     warps = kernel_threads(ts) // 32
     L = Kd + CHUNK
     return (56 * L + 4 * CHUNK + 4 * warps * (Kd // 32 + CHUNK // 32)
-            + (4 * warps * 10 * L if bwd else 0))
+            + (4 * warps * 10 * (L if dyn_partials else CHUNK) if bwd else 0))
+
+
+def bwd_dyn_partials(Kd: int, ts: int) -> bool:
+    """Whether a K2b block keeps the dynamic list's partial sums in shared
+    memory (where they fit, as at the main path's Kd = 128, ts = 16); past
+    that each warp adds them to the slot's gradient row atomically."""
+    return smem_bytes(Kd, ts, True) <= SMEM_OPTIN_BYTES
 
 
 def _check_kernel(Kd: int, ts: int, bwd: bool) -> None:
-    """Raise unless the kernels take (Kd, ts)."""
+    """Raise unless the kernels take (Kd, ts): K2f's staged lists, and K2b's
+    with at least the static chunk's partial sums, must fit in the shared
+    memory of a block (K2f: Kd ≤ 3,968 at ts 8 and 16, 3,840 at 24 and 32;
+    K2b: ≤ 3,840 at ts 8, 3,584 at 16, 3,072 at 24 and 2,432 at 32)."""
     kernel_threads(ts)
-    if Kd > 1024:
-        raise ValueError(f"dyn capacity Kd={Kd} > 1024 does not fit the "
-                         "kernels' hit words")
-    need = smem_bytes(Kd, ts, bwd)
+    need = smem_bytes(Kd, ts, bwd, dyn_partials=False)
     if need > SMEM_OPTIN_BYTES:
         raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
                          f"{need} B of shared memory per "

@@ -16,7 +16,10 @@ log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
 for K2f and K4f (the CPU tests' bounds against the reference), atol 2e-5
 for K3f (K1's walk on per-env lists).  K2's tests also cover narrow
 footprints (the warp-level cull active), many envs adding into one tile's static gradient, and every tile size the
-K2 wrappers accept.  Gradients: each
+K2 wrappers accept; K1's cover its edge cases (counts, skips, stops after
+chunk 0 and 1) at tile sizes 8, 12, 16 and 32; K2's and K4's cover
+dynamic capacities past the room of the backward kernels' partial sums in
+shared memory (up to 2048).  Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -31,9 +34,10 @@ import pytest
 import torch
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, assert_fields_close, assert_rows_close, k1_inputs,
-    k2_inputs, k2_shared_tile_inputs, k3_inputs, k4_inputs,
-    selected_cotangent, torch_raster,
+    K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
+    k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
+    k2_shared_tile_inputs, k3_inputs, k4_inputs, selected_cotangent,
+    torch_raster,
 )
 
 from sim_a_splat_torch import entry
@@ -84,13 +88,14 @@ def test_k1_kernel_matches_plain(dev):
 @pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
 def test_k1b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     args = [torch.as_tensor(a, device=dev) for a in k1_inputs()]
-    out, car = composite.composite_static(*args, TS, TX, sigma_cutoff,
-                                          term_eps)
+    out, car, chunk_acc = composite.composite_static_fwd(
+        *args, TS, TX, sigma_cutoff, term_eps)
     ct = torch.as_tensor(np.random.default_rng(10).normal(
         size=tuple(out.shape)).astype(np.float32), device=dev)
     before = composite.launches_bwd
     got = composite.composite_static_bwd(*args, ct, out, car, TS, TX,
-                                         sigma_cutoff, term_eps)
+                                         sigma_cutoff, term_eps,
+                                         chunk_acc=chunk_acc)
     torch.cuda.synchronize()
     assert composite.launches_bwd == before + 1
     want = composite.composite_static_bwd_plain(*args, ct, TS, TX,
@@ -98,6 +103,37 @@ def test_k1b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     assert_rows_close(got, want, GRAD_REL, "K1b")
     assert not got[5].any() and not got[2].any()    # skipped, empty tiles
     assert not got[3, :, 130:].any()                # past the count
+
+
+@pytest.mark.parametrize("ts", [8, 12, 16, 32])
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k1_edge_cases(dev, ts, sigma_cutoff, term_eps):
+    """K1f and K1b on one edge case a tile (every chunk applied, a count cut
+    mid-chunk, count 0, a count past the capacity, stops after chunk 0 and
+    after chunk 1, skip 0), at tile sizes that fill the warps' 8 × 8
+    rectangles and one (12) that does not."""
+    args = [torch.as_tensor(a, device=dev) for a in k1_case_inputs(ts)]
+    before = (composite.launches, composite.launches_bwd)
+    out, car, chunk_acc = composite.composite_static_fwd(
+        *args, ts, TX, sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    want, want_car, applied, _ = composite.composite_static_plain(
+        *args, ts, TX, sigma_cutoff, term_eps, return_work=True)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(car, want_car, atol=2e-5, rtol=0)
+    ct = torch.as_tensor(np.random.default_rng(ts).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    got = composite.composite_static_bwd(*args, ct, out, car, ts, TX,
+                                         sigma_cutoff, term_eps,
+                                         chunk_acc=chunk_acc)
+    torch.cuda.synchronize()
+    assert (composite.launches, composite.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    assert_rows_close(got, composite.composite_static_bwd_plain(
+        *args, ct, ts, TX, sigma_cutoff, term_eps), GRAD_REL, "K1b")
+    counts = torch.where(args[2] > 0, args[1], 0).tolist()
+    for t, n in enumerate(applied.tolist()):    # never applied: zero
+        assert not got[t, :, min(n * 128, counts[t]):].any()
 
 
 def test_k2_kernel_matches_plain(dev):
@@ -140,15 +176,18 @@ def test_k2b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
         assert not got_s[2].any()
 
 
-def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed):
-    """K2f and K2b on the card against their plain versions."""
+def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed,
+                  plain_dtype=torch.float32):
+    """K2f and K2b on the card against their plain versions (run in
+    ``plain_dtype``)."""
     args = [torch.as_tensor(a, device=dev) for a in inputs]
     ids = args[2]
     before = (composite_sel.launches, composite_sel.launches_bwd)
     out = composite_sel.composite_pair_sel(*args, ts, tx, sigma_cutoff,
                                            term_eps)
-    ref = composite_sel.composite_pair_sel_plain(*args, ts, tx, sigma_cutoff,
-                                                 term_eps)
+    plain = [a.to(plain_dtype) if a.is_floating_point() else a for a in args]
+    ref = composite_sel.composite_pair_sel_plain(*plain, ts, tx, sigma_cutoff,
+                                                 term_eps).float()
     for b in range(ids.shape[0]):
         rows = ids[b].long()
         torch.testing.assert_close(out[b, rows], ref[b, rows], atol=5e-5,
@@ -162,7 +201,7 @@ def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed):
     assert (composite_sel.launches, composite_sel.launches_bwd) == \
         (before[0] + 1, before[1] + 1)
     want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
-        *args, ct, ts, tx, sigma_cutoff, term_eps)
+        *plain, ct.to(plain_dtype), ts, tx, sigma_cutoff, term_eps)
     T = args[0].shape[0] - 1
     used = torch.unique(ids[ids < T].long())
     assert_rows_close(gs[used], want_s[used], GRAD_REL, "K2b static")
@@ -195,6 +234,50 @@ def test_k2b_shared_tile_contention(dev, sigma_cutoff, term_eps):
 @pytest.mark.parametrize("ts", [8, 16, 24, 32])
 def test_k2_every_tile_size(dev, ts):
     _k2_both_ways(dev, k2_inputs(seed=9, ts=ts), ts, TX, 3.0, 1e-4, 17)
+
+
+@pytest.mark.parametrize("Kd,ts", [(1152, 16), (2048, 16), (256, 32),
+                                   (1024, 32)])
+def test_k2_large_dyn_capacity(dev, Kd, ts):
+    """Dynamic lists that fill capacities past the room of K2b's dynamic
+    partial sums in shared memory (Kd > 896 at ts 16, > 128 at ts 32): K2b
+    then adds them to the gradient atomically.  The plain versions run in
+    float64: over lists of ~2,000 entries their float32 log-space sums
+    drift past the 2e-4 bound, while the kernels' walk stays within it."""
+    assert not composite_sel.bwd_dyn_partials(Kd, ts)
+    _k2_both_ways(dev, k2_full_dyn_inputs(Kd, ts), ts, TX, 3.0, 1e-4, 18,
+                  plain_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("Kd,ts", [(1152, 16), (2048, 16), (256, 32),
+                                   (1024, 32)])
+def test_k4_large_dyn_capacity(dev, Kd, ts):
+    """K4f and K4b at capacities past the room of K4b's partial sums in
+    shared memory (Kd > 512 at ts 16, every Kd at ts 32).  The plain
+    versions run in float64: over lists of ~2,300 merged entries their
+    float32 log-space sums drift past the 5e-5 and 2e-4 bounds, while the
+    kernels' walk stays within them."""
+    args = [torch.as_tensor(a, device=dev) for a in k4_inputs(Kd=Kd, ts=ts)]
+    plain = as_float64(args)
+    leaves = (args[0].clone().requires_grad_(),
+              args[1].clone().requires_grad_())
+    before = (composite_pair.launches, composite_pair.launches_bwd)
+    out = composite_pair.composite_pair(*leaves, *args[2:], ts, TX, 3.0, 1e-4)
+    torch.testing.assert_close(out.detach(), composite_pair.composite_pair_plain(
+        *plain, ts, TX, 3.0, 1e-4).float(), atol=5e-5, rtol=1e-4)
+    ct = torch.as_tensor(np.random.default_rng(19).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    ct[args[4] == 0] = 0.0
+    (out * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert (composite_pair.launches, composite_pair.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    want_s, want_d = composite_pair.composite_pair_bwd_plain(
+        *plain, ct.double(), ts, TX, 3.0, 1e-4)
+    assert_rows_close(leaves[0].grad, want_s, GRAD_REL,
+                      "K4b static, summed over envs")
+    assert_rows_close(leaves[1].grad, want_d, GRAD_REL, "K4b dynamic")
+    assert not leaves[1].grad[args[4] == 0].any()
 
 
 def _scene_and_states(device):

@@ -221,9 +221,21 @@ def test_kernel_limits_raise_clearly():
     for ts in (4, 12, 40):
         with pytest.raises(ValueError, match="tile size"):
             cs.kernel_threads(ts)
-    # K2b at the main path's Kd = 128, ts = 16: 4 warps, 56 KB
+    # K2b at the main path's Kd = 128, ts = 16: 4 warps, 56 KB, the
+    # dynamic list's partial sums in shared memory
     assert cs.smem_bytes(128, 16, True) == 55_936
-    with pytest.raises(ValueError, match="shared memory"):
-        cs._check_kernel(1024, 32, bwd=True)
-    with pytest.raises(ValueError, match="1024"):
-        cs._check_kernel(1152, 16, bwd=False)
+    assert cs.bwd_dyn_partials(128, 16)
+    # past their room K2b adds the dynamic sums atomically, and both kernels
+    # take every dynamic capacity up to 2048 at every tile size
+    assert not cs.bwd_dyn_partials(1024, 16)
+    assert not cs.bwd_dyn_partials(256, 32)
+    for ts in (8, 16, 24, 32):
+        for Kd in range(128, 2049, 128):
+            cs._check_kernel(Kd, ts, bwd=False)
+            cs._check_kernel(Kd, ts, bwd=True)
+    # the limits left: the staged lists (and K2b's static partials) must fit
+    for Kd, ts, bwd in ((3968, 16, False), (3840, 32, False),
+                        (3584, 16, True), (2432, 32, True)):
+        cs._check_kernel(Kd, ts, bwd)
+        with pytest.raises(ValueError, match="shared memory"):
+            cs._check_kernel(Kd + 128, ts, bwd)

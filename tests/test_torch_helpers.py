@@ -114,6 +114,22 @@ def k1_inputs(seed=0, K=384):
     return pay, counts, skip
 
 
+def k1_case_inputs(ts=K_TS, seed=4, K=384):
+    """K1 inputs (payload (7, 10, K), counts, skip) over a 3-wide grid of
+    ``ts`` × ``ts`` tiles, one edge case a tile: 0, every chunk applied;
+    1, cut by its count mid-chunk; 2, count 0; 3, count past the capacity;
+    4, nearly opaque, stops after chunk 0; 5, skip 0; 6, nearly opaque in
+    chunk 1 only, stops after chunk 1 (with term_eps 1e-4)."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray([K, 200, 0, K + 40, K, 300, K], np.int32)
+    skip = np.asarray([1, 1, 1, 1, 1, 0, 1], np.int32)
+    pay = tile_lists(rng, range(7), counts, K, ts, K_TX, opaque=(4,),
+                     scale=(0.5, 2.0))
+    opaque = tile_lists(rng, [6], [K], K, ts, K_TX, opaque=(0,))
+    pay[6, :, 128:256] = opaque[0, :, 128:256]
+    return pay, counts, skip
+
+
 def k2_inputs(seed=1, Ks=256, Kd=128, scale=(1.0, 6.0), ts=K_TS):
     """K2 inputs (spay_pad, dpay, ids, counts_s_pad, counts_d) for two envs
     of four slots: static tiles as in :func:`k1_inputs` plus the zero trash
@@ -151,6 +167,20 @@ def k2_shared_tile_inputs(seed=6, B=24, Ks=256, Kd=128):
     return spay, dpay.reshape(*ids.shape, 10, Kd), ids, counts_s, counts_d
 
 
+def k2_full_dyn_inputs(Kd, ts=K_TS, seed=12):
+    """K2 inputs as :func:`k2_inputs` but with dynamic lists that fill the
+    capacity ``Kd`` (or most of it) and narrow footprints, so that every
+    dynamic partial sum of the kernels' walk is exercised."""
+    spay, dpay, ids, counts_s, _ = k2_inputs(seed, Kd=Kd, scale=(0.3, 2.0),
+                                             ts=ts)
+    rng = np.random.default_rng(seed)
+    counts_d = np.asarray([[Kd, Kd - 100, 7, 0], [Kd // 2, Kd, 0, 0]],
+                          np.int32)
+    dpay = tile_lists(rng, ids.reshape(-1), counts_d.reshape(-1), Kd, ts,
+                      K_TX, scale=(0.3, 2.0))
+    return spay, dpay.reshape(*ids.shape, 10, Kd), ids, counts_s, counts_d
+
+
 def k3_inputs(seed=2, Km=256):
     """K3 inputs for two envs over the 3 × 2 tile grid: per-env payloads
     (2, T+1, 10, Km) with the zero trash row, dense ids (each env names
@@ -169,9 +199,10 @@ def k3_inputs(seed=2, Km=256):
     return spay, ids, counts
 
 
-def k4_inputs(seed=3, Ks=256, Kd=128):
+def k4_inputs(seed=3, Ks=256, Kd=128, ts=K_TS):
     """K4 inputs (spay (T, 10, Ks), dpay (2, T, 10, Kd), counts_s (T,),
-    counts_d (2, T), skip (2, T)) over the 3 × 2 tile grid: a full static
+    counts_d (2, T), skip (2, T)) over a 3 × 2 grid of ``ts`` × ``ts``
+    tiles: a full static
     list, lists cut mid-chunk, an empty one, a count past the capacity and
     a nearly opaque tile that stops early; dynamic lists full, cut, empty,
     past the capacity and nearly opaque; pairs with skip 0 (one of them
@@ -179,12 +210,12 @@ def k4_inputs(seed=3, Ks=256, Kd=128):
     on one grid, so that they tie."""
     rng = np.random.default_rng(seed)
     counts_s = np.asarray([Ks, 100, 0, 200, Ks + 40, 150], np.int32)
-    spay = tile_lists(rng, range(K_T), counts_s, Ks, K_TS, K_TX, opaque=(4,))
+    spay = tile_lists(rng, range(K_T), counts_s, Ks, ts, K_TX, opaque=(4,))
     counts_d = np.asarray([[40, Kd, 7, 0, 60, Kd + 30],
                            [60, 0, Kd, 5, 0, 90]], np.int32)
     skip = np.asarray([[1, 1, 1, 0, 1, 1],
                        [1, 1, 1, 0, 0, 1]], np.int32)
-    dpay = np.stack([tile_lists(rng, range(K_T), counts_d[b], Kd, K_TS, K_TX,
+    dpay = np.stack([tile_lists(rng, range(K_T), counts_d[b], Kd, ts, K_TX,
                                 opaque=(5,) if b == 1 else ())
                      for b in range(2)])
     return spay, dpay, counts_s, counts_d, skip
