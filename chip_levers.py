@@ -26,10 +26,16 @@ edit each (one ``nvcc`` per file, in parallel, into
   gradient then is wrong: a measure of what the in-kernel sum costs);
 - ``fast_div``: K2b's division by 1 - alpha with ``__fdividef`` (2 ulp)
   instead of the IEEE division (changes the gradient's last bits);
-- ``atomic_sums``: K2b's dynamic sums and K4b's static and dynamic sums
-  added by each warp to the gradient with ``atomicAdd`` (the layout past
-  the shared memory's room) instead of kept in shared memory and added in
-  warp order.
+- ``windows_always``: the code that moves the dynamic window compiled into
+  the K2 and K4 kernels where the list is one window (the main path's
+  Kd = 128), instead of compiled out (``sel::Layout::windows``);
+- ``mask_test``: K2f's masked pixels (past a tile that is not a multiple
+  of 8) kept out of the blend by a test of every alpha, instead of by
+  starting them at T = 0 (no pixel is masked at the main path's ts 16:
+  the test's cost alone).
+
+K4b runs K2b's block body (``composite_sel_walk.cuh``), so every lever of
+K2 and K2b acts on it too.
 
 Each variant is timed in two rounds, with its largest deviation from the
 design's own output: K2 and K4b by CUDA events around 10 launches, K1
@@ -61,17 +67,19 @@ VARIANTS = {
                  "  return false;")],
     "py1": [(WALK, PY2, "constexpr int PY = 1;")],
     "py4": [(WALK, PY2, "constexpr int PY = 4;")],
-    "shfl_down": [(BWD, "sel::warp_sum_store(sum, any, part + pcol(i), "
-                        "pstride);",
-                   "warp_sum_rows(sum, any, part, pstride, pcol(i));")],
-    "no_atomics": [(BWD, "if (v != 0.0f) atomicAdd(",
+    "shfl_down": [(WALK, "warp_sum_store(sum, any, part + i, s.L);",
+                   "warp_sum_rows(sum, any, part, s.L, i);")],
+    "no_atomics": [(WALK, "if (v != 0.0f) atomicAdd(",
                     "if (v == 1e38f) atomicAdd(")],
     "fast_div": [(COMMON, "(suffix + st.trans_term) / one_m",
                   "__fdividef(suffix + st.trans_term, one_m)")],
-    "atomic_sums": [(BWD, "return sel::smem_bytes(Kd, warps, true) <= "
-                          "SMEM_OPTIN;", "return false;"),
-                    (K4B, "smem_bytes(Kd, ts * ts / 32, true) <= SMEM_OPTIN",
-                     "false")],
+    "windows_always": [(WALK, "    windows = W < Kd;",
+                        "    windows = true;")],
+    "mask_test": [(WALK, "    T[k] = pix.on[k] ? 1.0f : 0.0f;",
+                   "    T[k] = 1.0f;"),
+                  (WALK, "      any |= a[k] > 0.0f;",
+                   "      if (!pix.on[k]) a[k] = 0.0f;\n"
+                   "      any |= a[k] > 0.0f;")],
 }
 
 
@@ -151,7 +159,7 @@ def main_path_inputs(dev):
 def build_variants(workdir: Path):
     """{variant: {source: library}}, built in parallel."""
     from sim_a_splat_torch.ops import _kernels
-    nvcc, procs = _kernels.nvcc_path(), []
+    jobs = []
     for name, edits in VARIANTS.items():
         src = workdir / name
         shutil.copytree(_kernels.CSRC, src)
@@ -161,17 +169,11 @@ def build_variants(workdir: Path):
                 raise RuntimeError(f"variant {name}: {old!r} not once in "
                                    f"{fname}")
             (src / fname).write_text(text.replace(old, new))
-        for cu in (FWD, BWD, K1F, K1B, K4B):
-            lib = src / (cu + ".so")
-            procs.append((name, cu, lib, subprocess.Popen(
-                [nvcc, *_kernels.NVCC_FLAGS, "-I", str(src), "-o", str(lib),
-                 str(src / cu)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
+        jobs += [(name, cu, (src / cu, src, src / (cu + ".so")))
+                 for cu in (FWD, BWD, K1F, K1B, K4B)]
+    _kernels.compile_all([job for _, _, job in jobs])
     libs = {}
-    for name, cu, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}/{cu}:\n{log}")
+    for name, cu, (_, _, lib) in jobs:
         libs.setdefault(name, {})[cu] = ctypes.CDLL(str(lib))
     return libs
 

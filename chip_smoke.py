@@ -3,7 +3,12 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With ``--parent DIR`` (the root of another checkout, e.g. the parent
+commit's ``git archive``) it also builds that checkout's K2 and K4 kernels
+and times them on the same inputs, in turns with this tree's (parent,
+this, this, parent), beside this tree's times.
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of its path, and
@@ -18,9 +23,11 @@ training, at N=100k gaussians, SH degree 3, 256×256:
   (``entry.make_step_cached``, K1f, K1b, K4f, K4b), B=128, forward and
   in training, its images against the selected-tile path's and its
   ``static_skip=False`` variant;
-- K2 and K4 at ``dyn_capacity`` 2048 on 8 of those envs, past the room of
-  their backward kernels' dynamic partial sums in shared memory, against
-  their plain versions in float64;
+- K2 and K4 at ``dyn_capacity`` 4096 on 2 of those envs, past the
+  dynamic windows of their backward kernels (and past the first design's
+  card limits), against their plain versions in float64, and at
+  ``dyn_capacity`` 1024 and tile size 32 (a window of 128 entries in the
+  backward kernels), timed;
 - the moving camera attached to each env's agent (K3f, K3b): the R=32
   frame candidate-cache rollout (``entry.make_step_moving_cached``) at
   B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``),
@@ -29,8 +36,10 @@ training, at N=100k gaussians, SH degree 3, 256×256:
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
-dropped tiles), that all gradients are finite, and that the images and the
-gradients agree with the port's plain path.  Any disagreement raises.
+dropped tiles), that all gradients are finite, that the images and the
+gradients agree with the port's plain path, and that K4 (which runs K2's
+block body) gives K2's output and dynamic gradient bit for bit on the
+same (env, tile) pairs.  Any disagreement raises.
 
 Output: phase reports, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with per-kernel launches, max |Δ|, kernel / plain
@@ -53,11 +62,13 @@ import time
 
 B, N, RES, SH_DEGREE = 128, 100_000, 256, 3
 SEL_TILES, DYN_CAP, DYN_M = 36, 128, 9
-BIG_KD = 2048   # a dynamic capacity past the backward kernels' partials
+BIG_KD = 4096   # a dynamic capacity past the backward kernels' windows
+LONG_ENVS = 2   # envs of the BIG_KD phase (its float64 plain versions)
+TS32_KD = 1024  # the dynamic capacity of the tile-size-32 phase
 ITERS = 5
 # K2f and K2b of the first design (one thread per pixel, K2b's per-slot
-# output summed by index_add_), K4 that keeps that walk, and K1f and K1b of
-# the first design (one block per tile walking its chunks in order): this
+# output summed by index_add_), K4 on that walk, and K1f and K1b of the
+# first design (one block per tile walking its chunks in order): this
 # script on an NVIDIA H100 80GB HBM3 at 700 W
 FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
                    "composite_pair_sel_bwd": 4.2181,
@@ -88,10 +99,10 @@ TOL_GRAD_LONG = 2e-3  # gradients at dyn_capacity BIG_KD against the plain
              # versions in float64: the kernels take each suffix sum as
              # ct . (out - prefix), and each step of those float32
              # accumulators rounds at the accumulator's size, so over merged
-             # lists of ~3,000 entries (the main scene's at BIG_KD) the
-             # error of a near-opaque entry's gradient grows past TOL_GRAD;
-             # the bound tests/test_torch_grad.py holds float32 suffix sums
-             # to against float64
+             # lists of thousands of entries (the main scene's at BIG_KD)
+             # the error of a near-opaque entry's gradient grows past
+             # TOL_GRAD; the bound tests/test_torch_grad.py holds float32
+             # suffix sums to against float64
 TOL_GRAD = 2e-4  # gradients, kernel vs plain: each payload row (and each
              # scene field) within TOL_GRAD × its largest plain gradient.
              # The plain backward is autograd through the plain forward; in
@@ -216,6 +227,81 @@ def check(name, got, want, atol, what):
     return err
 
 
+def k2_slots_of_k4(spay, dpay, counts_s, counts_d, skip):
+    """K2's inputs (spay_pad, dpay, ids, counts_s_pad, counts_d) for the
+    (env, tile) pairs that K4's inputs touch (skip > 0): the static lists
+    with the zero trash row, each env's touched tiles as its slots in tile
+    order (pads name the trash row), their dynamic lists and counts."""
+    import torch
+    B, T = skip.shape
+    on = skip > 0
+    TT = max(int(on.sum(1).max()), 1)
+    order = torch.argsort((~on).to(torch.int8), dim=1, stable=True)[:, :TT]
+    real = torch.gather(on, 1, order)
+    ids = torch.where(real, order, T).to(torch.int32)
+    bidx = torch.arange(B, device=skip.device)[:, None]
+    safe = torch.where(real, order, 0)
+    dsel = torch.where(real[..., None, None], dpay[bidx, safe], 0.0)
+    cd = torch.where(real, counts_d[bidx, safe], 0).to(torch.int32)
+    return (torch.cat([spay, spay.new_zeros((1, *spay.shape[1:]))]),
+            dsel.contiguous(), ids,
+            torch.cat([counts_s, counts_s.new_zeros(1)]), cd)
+
+
+def parent_libraries(parent):
+    """{source name: loaded library} of the K2 and K4 kernels of the checkout
+    at ``parent``, built from its ``csrc`` (one nvcc each, in parallel) into
+    ``sim_a_splat_torch/_build/parent/``."""
+    import ctypes
+    from pathlib import Path
+    from sim_a_splat_torch.ops import _kernels
+    csrc = Path(parent).resolve() / "sim_a_splat_torch" / "csrc"
+    out = _kernels.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    names = ("composite_sel", "composite_sel_bwd", "composite_pair",
+             "composite_pair_bwd")
+    jobs = {n: (csrc / f"{n}.cu", csrc, out / f"lib{n}.so") for n in names}
+    _kernels.compile_all(list(jobs.values()))
+    return {n: ctypes.CDLL(str(job[2])) for n, job in jobs.items()}
+
+
+@contextlib.contextmanager
+def kernels_of(libs):
+    """The port's wrappers launch the kernels of ``libs`` ({source name:
+    library}, e.g. parent_libraries') while inside; the tree's after."""
+    from sim_a_splat_torch.ops import _kernels
+    saved = {n: _kernels._loaded.get(n) for n in libs}
+    _kernels._loaded.update(libs)
+    try:
+        yield
+    finally:
+        for n, lib in saved.items():
+            if lib is None:
+                _kernels._loaded.pop(n, None)
+            else:
+                _kernels._loaded[n] = lib
+
+
+def versus_parent(label, fn, parent, reps):
+    """With the parent's libraries ``parent``: ``fn()`` (one kernel call
+    through its wrapper) timed by CUDA events with the parent's kernels and
+    this tree's, in turns (parent, this, this, parent), logged with the
+    ratio of the means; returns (this tree's ms, the parent's ms), or None
+    without ``parent``."""
+    if not parent:
+        return None
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        with kernels_of(parent) if who == "parent" else contextlib.nullcontext():
+            times[who].append(cuda_ms(fn, reps))
+    new, old = (sum(times[k]) / 2 for k in ("this", "parent"))
+    log(f"  {label}: this tree {times['this'][0]:.4f} / {times['this'][1]:.4f}"
+        f" ms, the parent's kernel {times['parent'][0]:.4f} / "
+        f"{times['parent'][1]:.4f} ms (in turns, this call): "
+        f"{new / old - 1:+.1%}")
+    return new, old
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -253,6 +339,12 @@ def main() -> int:
     report = _kernels.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(parallel nvcc; rebuilt: {sorted(report) or 'none, cached'})")
+    parent = None
+    if "--parent" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        parent = parent_libraries(sys.argv[sys.argv.index("--parent") + 1])
+        log(f"the parent's K2 and K4 kernels built in "
+            f"{time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -428,8 +520,11 @@ def main() -> int:
         f"{entries}; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
         f"blended (α > 0); kernel {k2['ms']:.4f} ms "
         f"({composite_sel.blocks_per_sm(False, Kd, ts2)} blocks/SM, "
-        f"{composite_sel.smem_bytes(Kd, ts2, False)} B shared), plain "
+        f"{composite_sel.smem_bytes(Kd, ts2, False)} B shared; first design "
+        f"{FIRST_DESIGN_MS['composite_pair_sel']} ms), plain "
         f"{k2['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K2f", lambda: composite_sel.composite_pair_sel(*a2),
+                  parent, 10)
     # the (entry, warp) pairs of the applied entries that the cull skips,
     # by the kernels' test's plain twin
     sbox = composite_sel.cull_boxes(spay, sigma2)           # (T+1, 4, Ks)
@@ -500,8 +595,11 @@ def main() -> int:
     log(f"  gradient pairs (α > 0): {blended}; kernel {k2b['ms']:.4f} ms "
         f"with the per-tile sum and its zero fill "
         f"({composite_sel.blocks_per_sm(True, Kd, ts2)} blocks/SM, "
-        f"{composite_sel.smem_bytes(Kd, ts2, True)} B shared), plain "
+        f"{composite_sel.smem_bytes(Kd, ts2, True)} B shared; first design "
+        f"{FIRST_DESIGN_MS['composite_pair_sel_bwd']} ms), plain "
         f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+                  parent, 10)
     kernels.append(k2b)
     # free the checks' tensors before the forward step's peak-memory reading
     del ct1, a1b, acc_k, g_k, g_p, ct2, a2b, gs_k, gd_k, gs_p, gd_p
@@ -691,29 +789,23 @@ def main() -> int:
     del out_train, g_k, g_p
 
     # 8-11. the per-env fixed-camera step (kernel K4) --------------------------
-    kernels += per_env_camera(entry, composite, composite_pair, pusht, graph,
-                              scene, P, states0, actions, raster, imgs0,
-                              drop0, reset_counts, counts_now, profiled, dev)
+    kernels += per_env_camera(entry, composite, composite_sel, composite_pair,
+                              pusht, graph, scene, P, states0, actions,
+                              raster, imgs0, drop0, reset_counts, counts_now,
+                              profiled, parent, dev)
     del imgs0
     log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 11b. K2 and K4 at a dynamic capacity past their backward kernels'
-    # partial sums in shared memory ------------------------------------------
+    # windows, and at tile size 32 ---------------------------------------------
     large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
-                   states0, actions, raster, dev)
+                   states0, actions, raster, parent, dev)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 12-15. the moving camera -----------------------------------------------
     kernels += moving_camera(entry, composite, composite_single,
                              rasterize_moving, pusht, graph, scene, P, gen,
                              reset_counts, counts_now, profiled, dev)
-    ms = {k["name"]: k["ms"] for k in kernels}
-    for new_, old_ in (("composite_pair_sel", "composite_pair"),
-                       ("composite_pair_sel_bwd", "composite_pair_bwd")):
-        log(f"{new_} {ms[new_]:.4f} ms against {old_} {ms[old_]:.4f} ms "
-            f"(the old walk on the same pairs, this call): "
-            f"{ms[old_] / ms[new_]:.2f}×; recorded for the first design: "
-            f"{FIRST_DESIGN_MS[new_]} and {FIRST_DESIGN_MS[old_]} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -723,17 +815,19 @@ def main() -> int:
     return 0
 
 
-def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
-                   P, states0, actions, raster, imgs_sel, drop_sel,
-                   reset_counts, counts_now, profiled, dev):
+def per_env_camera(entry, composite, composite_sel, composite_pair, pusht,
+                   graph, scene, P, states0, actions, raster, imgs_sel,
+                   drop_sel, reset_counts, counts_now, profiled, parent, dev):
     """The per-env fixed-camera path (``entry.make_step_cached``, the
     reference's vmapped ``_make_step_cached``): K4f/K4b against their plain
-    versions at full size, ITERS forward steps and ITERS train steps (timed,
-    launches checked), the images against the plain path (8 envs), against
-    the selected-tile path's ``imgs_sel`` (same states, both exact) and
-    with ``static_skip=False`` (16 envs), and the gradients against the
-    plain path (8 envs).  Returns the K4f and K4b entries of the
-    ``kernels`` line."""
+    versions at full size, against K2f/K2b on the same (env, tile) pairs
+    (bit for bit) and, with ``parent``, timed beside the parent's kernels;
+    ITERS forward steps and ITERS train steps (timed, launches checked), the
+    images against the plain path (8 envs), against the selected-tile
+    path's ``imgs_sel`` (same states, both exact) and with
+    ``static_skip=False`` (16 envs), and the gradients against the plain
+    path (8 envs).  Returns the K4f and K4b entries of the ``kernels``
+    line."""
     import numpy as np
     import torch
     prepare, step, _ = entry.make_step_cached(
@@ -796,8 +890,28 @@ def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
               bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"  touched (env, tile) pairs {n_on} of {Bk * T}, entries {entries}; "
         f"(pixel, entry) pairs: {P_ * entries} alpha, {blended} blended "
-        f"(α > 0); kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"(α > 0); kernel {k4['ms']:.4f} ms (first design "
+        f"{FIRST_DESIGN_MS['composite_pair']} ms), plain "
+        f"{k4['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K4f", lambda: composite_pair.composite_pair(*a4), parent,
+                  10)
+    # K4 runs K2's block body: K2f on the same (env, tile) pairs
+    a2 = k2_slots_of_k4(*a4[:5])
+    ids = a2[2]
+    out2 = composite_sel.composite_pair_sel(*a2, *a4[5:])
+    bidx = torch.arange(Bk, device=dev)[:, None]
+    real = ids < T
+    safe = torch.where(real, ids, 0).long()
+    same = torch.equal(out_k[bidx, safe][real],
+                       out2[bidx, safe][real].transpose(-1, -2))
+    k2_ms = cuda_ms(lambda: composite_sel.composite_pair_sel(*a2, *a4[5:]),
+                    10)
+    log(f"  K4f on the {int(real.sum())} touched pairs equals K2f on the same "
+        f"pairs (slots of {tuple(ids.shape)}) bit for bit: {same}; K2f there "
+        f"{k2_ms:.4f} ms, K4f {k4['ms']:.4f} ms "
+        f"({k4['ms'] / k2_ms:.2f}×, with the skipped pairs' output)")
+    if not same:
+        raise AssertionError("K4f differs from K2f on the same pairs")
 
     log("K4b composite_pair_bwd vs composite_pair_bwd_plain (the plain "
         "version 8 envs at a time):")
@@ -840,9 +954,25 @@ def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
                plain_ms=cuda_ms(k4b_plain, 1, warmup=0),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"  gradient pairs (α > 0): {blended}; kernel {k4b['ms']:.4f} ms "
-        f"(with the zero fill of the static gradient), plain "
+        f"(with the zero fill of the static gradient; first design "
+        f"{FIRST_DESIGN_MS['composite_pair_bwd']} ms), plain "
         f"{k4b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K4b", lambda: composite_pair.composite_pair_bwd(*a4b),
+                  parent, 10)
+    ct2 = torch.zeros_like(out2)
+    ct2[bidx, ids.long()] = torch.where(             # pads: the trash row
+        real[..., None, None], ct4[bidx, safe].transpose(-1, -2), 0.0)
+    a2b = (*a2, ct2, out2, *a4[5:])
+    _, gd2 = composite_sel.composite_pair_sel_bwd(*a2b)
+    same = torch.equal(gd_k[bidx, safe][real], gd2[real])
+    k2b_ms = cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b), 10)
+    log(f"  K4b's dynamic gradient on the touched pairs equals K2b's bit for "
+        f"bit: {same}; K2b there {k2b_ms:.4f} ms, K4b {k4b['ms']:.4f} ms "
+        f"({k4b['ms'] / k2b_ms:.2f}×, with the skipped pairs' zero rows)")
+    if not same:
+        raise AssertionError("K4b's dynamic gradient differs from K2b's")
     del a4, a4b, out_k, out_p, ct4, gs_k, gd_k, gs_p, gd_p, spay, dpay
+    del a2, a2b, out2, ct2, gd2
 
     # 9. the per-env step forward, timed --------------------------------------
     def forward_counts(n):
@@ -972,22 +1102,24 @@ def per_env_camera(entry, composite, composite_pair, pusht, graph, scene,
 
 
 def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
-                   states0, actions, raster, dev):
-    """K2f, K2b, K4f and K4b at ``dyn_capacity`` BIG_KD, past the room of
-    K2b's and K4b's per-warp partial sums of the dynamic list in shared
-    memory (the backward kernels then add those sums atomically), on 8 envs
-    of the main path's scene through the selected-tile and the per-env
-    steps, against their plain versions run in float64 (their float32
-    log-space sums drift over dynamic lists of up to 2,048 entries), the
-    gradients at TOL_GRAD_LONG."""
+                   states0, actions, raster, parent, dev):
+    """K2f, K2b, K4f and K4b at ``dyn_capacity`` BIG_KD, past the dynamic
+    windows of the backward kernels (896 entries at ts 16) and past the
+    first design's card limits, on LONG_ENVS envs of the main path's scene
+    through the selected-tile and the per-env steps, against their plain
+    versions run in float64 (their float32 log-space sums drift over
+    dynamic lists of thousands of entries), the gradients at TOL_GRAD_LONG;
+    then all four at tile size 32 and ``dyn_capacity`` TS32_KD on 8 envs
+    (the backward's window: 128 entries), K4 against K2 on the same pairs
+    bit for bit, timed (beside the parent's kernels with ``parent``)."""
     import numpy as np
     import torch
 
     def f64(args):
         return [a.double() if torch.is_tensor(a) and a.is_floating_point()
                 else a for a in args]
-    s8 = pusht.PushTState(*(f[:8] for f in states0))
-    a8 = actions[:8]
+    sN = pusht.PushTState(*(f[:LONG_ENVS] for f in states0))
+    aN = actions[:LONG_ENVS]
     seen = {}
 
     def capture(key, fn):
@@ -1001,14 +1133,15 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
         dyn_max_tiles=DYN_M, device=dev)
     with replaced(composite_sel, "composite_pair_sel",
                   capture("k2", composite_sel.composite_pair_sel)):
-        step(prepare(scene), scene, s8, a8)
+        step(prepare(scene), scene, sN, aN)
     a2 = seen.pop("k2")
     spay, dpay, ids, cs_pad, cd = a2[:5]
     ts = a2[5]
     T1 = spay.shape[0]
-    log(f"K2 at dyn_capacity {BIG_KD} (8 envs; dynamic partial sums in "
-        f"shared memory: {composite_sel.bwd_dyn_partials(BIG_KD, ts)}, "
-        f"largest dynamic count {int(cd.max())}):")
+    log(f"K2 at dyn_capacity {BIG_KD} ({LONG_ENVS} envs; windows of "
+        f"{composite_sel.window(BIG_KD, ts, False)} (K2f) and "
+        f"{composite_sel.window(BIG_KD, ts, True)} (K2b) entries, largest "
+        f"dynamic count {int(cd.max())}):")
     rows = [0, 1, 2, 4]
     out_k = composite_sel.composite_pair_sel(*a2)
     out_p = composite_sel.composite_pair_sel_plain(*f64(a2))
@@ -1024,27 +1157,29 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
     ct[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(4).normal(
         size=(*ids.shape, 5, out_k.shape[-1])).astype(np.float32), device=dev)
     ct[:, T1 - 1] = 0.0
-    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2[:5], ct, out_k,
-                                                      *a2[5:])
+    a2b = (*a2[:5], ct, out_k, *a2[5:])
+    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
     gs_p, gd_p = composite_sel.composite_pair_sel_bwd_plain(
         *f64(a2[:5]), ct.double(), *a2[5:])
     check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
                "static grad, summed per tile", TOL_GRAD_LONG)
     check_rows("K2b", gd_k, gd_p, "dynamic grad", TOL_GRAD_LONG)
     log(f"  K2f {cuda_ms(lambda: composite_sel.composite_pair_sel(*a2), 5):.4f}"
-        f" ms, K2b {cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2[:5], ct, out_k, *a2[5:]), 5):.4f}"
-        f" ms ({composite_sel.smem_bytes(BIG_KD, ts, True, False)} B shared)")
-    del a2, spay, dpay, out_k, out_p, sel_k, sel_p, ct, gs_k, gd_k, gs_p, gd_p
+        f" ms ({composite_sel.smem_bytes(BIG_KD, ts, False)} B shared), K2b "
+        f"{cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b), 5):.4f}"
+        f" ms ({composite_sel.smem_bytes(BIG_KD, ts, True)} B shared)")
+    del a2, a2b, spay, dpay, out_k, out_p, sel_k, sel_p, ct, gs_k, gd_k
+    del gs_p, gd_p
 
     prepare, step, _ = entry.make_step_cached(
         graph, RES, RES, raster, dyn_capacity=BIG_KD, dyn_max_tiles=DYN_M,
         device=dev)
     with replaced(composite_pair, "composite_pair",
                   capture("k4", composite_pair.composite_pair)):
-        step(prepare(scene), scene, s8, a8)
+        step(prepare(scene), scene, sN, aN)
     a4 = seen.pop("k4")
     skip = a4[4]
-    log(f"K4 at dyn_capacity {BIG_KD} (8 envs, "
+    log(f"K4 at dyn_capacity {BIG_KD} ({LONG_ENVS} envs, "
         f"{int((skip > 0).sum())} touched pairs, largest dynamic count "
         f"{int(a4[3].max())}):")
     out_k = composite_pair.composite_pair(*a4)
@@ -1059,15 +1194,72 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
         np.random.default_rng(5).normal(
             size=(int((skip > 0).sum()), out_k.shape[2], 5)).astype(
                 np.float32), device=dev), (0, 3))
-    gs_k, gd_k = composite_pair.composite_pair_bwd(*a4[:5], ct, out_k,
-                                                   *a4[5:])
+    a4b = (*a4[:5], ct, out_k, *a4[5:])
+    gs_k, gd_k = composite_pair.composite_pair_bwd(*a4b)
     gs_p, gd_p = composite_pair.composite_pair_bwd_plain(*f64(a4[:5]),
                                                          ct.double(), *a4[5:])
     check_rows("K4b", gs_k, gs_p, "static grad, summed over envs",
                TOL_GRAD_LONG)
     check_rows("K4b", gd_k, gd_p, "dynamic grad", TOL_GRAD_LONG)
     log(f"  K4f {cuda_ms(lambda: composite_pair.composite_pair(*a4), 5):.4f} "
-        f"ms, K4b {cuda_ms(lambda: composite_pair.composite_pair_bwd(*a4[:5], ct, out_k, *a4[5:]), 5):.4f} ms")
+        f"ms, K4b {cuda_ms(lambda: composite_pair.composite_pair_bwd(*a4b), 5):.4f} ms")
+    del a4, a4b, out_k, out_p, ct, gs_k, gd_k, gs_p, gd_p
+
+    # tile size 32: K2b's and K4b's window is one chunk -----------------------
+    raster32 = raster._replace(tile_size=32, tile_capacity=4096)
+    s8 = pusht.PushTState(*(f[:8] for f in states0))
+    prepare, step, _ = entry.make_step_cached_batch(
+        graph, RES, RES, raster32, dyn_capacity=TS32_KD, sel_tiles=SEL_TILES,
+        dyn_max_tiles=DYN_M, device=dev)
+    with replaced(composite_sel, "composite_pair_sel",
+                  capture("k2", composite_sel.composite_pair_sel)):
+        step(prepare(scene), scene, s8, actions[:8])
+    prepare, step, _ = entry.make_step_cached(
+        graph, RES, RES, raster32, dyn_capacity=TS32_KD, dyn_max_tiles=DYN_M,
+        device=dev)
+    with replaced(composite_pair, "composite_pair",
+                  capture("k4", composite_pair.composite_pair)):
+        step(prepare(scene), scene, s8, actions[:8])
+    a2, a4 = seen.pop("k2"), seen.pop("k4")
+    log(f"K2 and K4 at tile size 32, dyn_capacity {TS32_KD} (8 envs; "
+        f"windows {composite_sel.window(TS32_KD, 32, False)} forward, "
+        f"{composite_sel.window(TS32_KD, 32, True)} backward; largest dynamic "
+        f"count {int(a2[4].max())}, {int((a4[4] > 0).sum())} touched pairs):")
+    out2 = composite_sel.composite_pair_sel(*a2)
+    out4 = composite_pair.composite_pair(*a4)
+    k2 = k2_slots_of_k4(*a4[:5])
+    real = k2[2] < a4[4].shape[1]
+    safe = torch.where(real, k2[2], 0).long()
+    b8 = torch.arange(8, device=dev)[:, None]
+    same = torch.equal(out4[b8, safe][real], composite_sel.composite_pair_sel(
+        *k2, *a4[5:])[b8, safe][real].transpose(-1, -2))
+    log(f"  K4f equals K2f on the touched pairs bit for bit: {same}")
+    if not same:
+        raise AssertionError("K4f differs from K2f on the same pairs at "
+                             "tile size 32")
+    ids = a2[2]
+    ct2 = torch.zeros_like(out2)
+    ct2[b8, ids.long(), :5] = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(*ids.shape, 5, out2.shape[-1])).astype(np.float32), device=dev)
+    ct2[:, -1] = 0.0
+    ct4 = torch.zeros_like(out4)
+    ct4[a4[4] > 0] = torch.nn.functional.pad(torch.as_tensor(
+        np.random.default_rng(7).normal(
+            size=(int((a4[4] > 0).sum()), out4.shape[2], 5)).astype(
+                np.float32), device=dev), (0, 3))
+    a2b = (*a2[:5], ct2, out2, *a2[5:])
+    a4b = (*a4[:5], ct4, out4, *a4[5:])
+    for g in (*composite_sel.composite_pair_sel_bwd(*a2b),
+              *composite_pair.composite_pair_bwd(*a4b)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("a gradient at tile size 32 is not finite")
+    for label, fn in (
+            ("K2f", lambda: composite_sel.composite_pair_sel(*a2)),
+            ("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b)),
+            ("K4f", lambda: composite_pair.composite_pair(*a4)),
+            ("K4b", lambda: composite_pair.composite_pair_bwd(*a4b))):
+        if versus_parent(f"{label} at ts 32", fn, parent, 5) is None:
+            log(f"  {label} at ts 32: {cuda_ms(fn, 5):.4f} ms")
 
 
 def moving_camera(entry, composite, composite_single, rasterize_moving,

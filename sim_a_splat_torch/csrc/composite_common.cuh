@@ -1,7 +1,7 @@
 // Shared device helpers of the compositing kernels (K1: composite.cu,
-// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu, whose walk
-// is in composite_sel_walk.cuh; K3: composite_single.cu,
-// composite_single_bwd.cu; K4: composite_pair.cu, composite_pair_bwd.cu).
+// composite_bwd.cu; K2: composite_sel.cu, composite_sel_bwd.cu and K4:
+// composite_pair.cu, composite_pair_bwd.cu, whose walk is in
+// composite_sel_walk.cuh; K3: composite_single.cu, composite_single_bwd.cu).
 //
 // Alpha of one list entry at one pixel, term by term as the reference's
 // _chunk_geometry (sim_a_splat_tpu/ops/pallas_composite.py:81-101) and the
@@ -137,49 +137,6 @@ __device__ __forceinline__ int composite_walk(float* s, const float* list,
   return applied;
 }
 
-// Merged front-to-back walk of one static tile list (ROWS, Ks) of count_s
-// active entries and one dynamic list sd (ROWS, Kd) of count_d entries,
-// already in shared memory, for this thread's pixel, all threads of the
-// block together (kernel K4; K2 walks with composite_sel_walk.cuh).  The
-// TPU kernels never build the merged list: they recover each side's
-// transmittance in front of an entry with depth-indicator contractions on
-// the MXU.  Here the merged order is
-// walked directly.  The order of two depth-sorted lists does not depend on
-// the pixel, so every thread walks the same sequence: each static chunk is
-// staged in ss (ROWS * CHUNK floats) next to the dynamic list, and before
-// static entry i every dynamic entry with dd_j < ds_i is composited (static
-// first on equal depth, the merge-path rule of merge_sorted_lists).  The
-// early stop is checked after each applied static chunk, when the running
-// T is exactly the reference's ts * Td(< dbound); once it stops, the
-// remaining static chunks are skipped and the remaining dynamic entries are
-// still composited, attenuated only by the static chunks that were applied.
-__device__ __forceinline__ void pair_walk(float* ss, const float* sd, int Kd,
-                                          int count_d, const float* tile,
-                                          int Ks, int count_s, float px,
-                                          float py, float power_min,
-                                          bool has_pmin, float term_eps,
-                                          bool has_term, float acc[4],
-                                          float& T) {
-  int j = 0;                                   // next dynamic entry
-  for (int c0 = 0; c0 < count_s; c0 += CHUNK) {
-    __syncthreads();                           // previous chunk fully read
-    stage_chunk(ss, tile, Ks, c0);
-    __syncthreads();
-    const int n = min(CHUNK, count_s - c0);
-    for (int e = 0; e < n; ++e) {
-      const float ds = ss[ROW_DEPTH * CHUNK + e];
-      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
-        composite_entry(sd, Kd, j, px, py, power_min, has_pmin, T, acc);
-        ++j;
-      }
-      composite_entry(ss, CHUNK, e, px, py, power_min, has_pmin, T, acc);
-    }
-    if (has_term && !__syncthreads_or(T >= term_eps)) break;
-  }
-  for (; j < count_d; ++j)
-    composite_entry(sd, Kd, j, px, py, power_min, has_pmin, T, acc);
-}
-
 // ---- backward ---------------------------------------------------------------
 //
 // gsplat's gradient of one front-to-back composite, per pixel, entry by
@@ -275,16 +232,13 @@ __device__ __forceinline__ bool entry_grad(const float* s, int stride, int e,
 
 // Sum g[ROWS] over the 32 lanes of the warp in a fixed order; lane 0 writes
 // the sums to part[r * stride + col].  A warp where no lane has alpha > 0
-// writes zeros without shuffling.  With ADD lane 0 adds the nonzero sums to
-// part atomically instead (nothing where no lane has alpha > 0).  All 32
-// lanes must call it together.
-template <bool ADD = false>
+// writes zeros without shuffling.  All 32 lanes must call it together.
 __device__ __forceinline__ void warp_sum_rows(const float g[ROWS], bool any,
                                               float* part, int stride,
                                               int col) {
   const bool lane0 = (threadIdx.x & 31) == 0;
   if (!__any_sync(0xffffffffu, any)) {
-    if (!ADD && lane0) {
+    if (lane0) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) part[r * stride + col] = 0.0f;
     }
@@ -296,21 +250,13 @@ __device__ __forceinline__ void warp_sum_rows(const float g[ROWS], bool any,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane0) {
-      if (!ADD)
-        part[r * stride + col] = v;
-      else if (v != 0.0f)
-        atomicAdd(part + r * stride + col, v);
-    }
+    if (lane0) part[r * stride + col] = v;
   }
 }
 
 // dst[r * dst_stride + col], col < n_cols: the sum over the block's warps
 // of part[(warp * ROWS + r) * stride + col], added in warp order (the
 // result does not depend on scheduling), for col < n_valid; 0 past it.
-// With ADD the nonzero sums are added to dst atomically instead (several
-// blocks then sum into one row; dst left untouched where the sum is 0).
-template <bool ADD = false>
 __device__ __forceinline__ void block_sum_rows(const float* part, int warps,
                                                int stride, int n_valid,
                                                int n_cols, float* dst,
@@ -320,10 +266,7 @@ __device__ __forceinline__ void block_sum_rows(const float* part, int warps,
     float v = 0.0f;
     if (col < n_valid)
       for (int w = 0; w < warps; ++w) v += part[(w * ROWS + r) * stride + col];
-    if (!ADD)
-      dst[r * dst_stride + col] = v;
-    else if (v != 0.0f)
-      atomicAdd(dst + r * dst_stride + col, v);
+    dst[r * dst_stride + col] = v;
   }
 }
 
@@ -334,74 +277,6 @@ __device__ __forceinline__ void zero_cols(float* dst, int stride, int lo,
   for (int i = threadIdx.x; i < ROWS * n; i += blockDim.x) {
     const int r = i / n;
     dst[r * stride + lo + (i - r * n)] = 0.0f;
-  }
-}
-
-// Gradient of pair_walk (kernel K4b), with no saved state beyond
-// the forward's output: the forward's merged walk is replayed, T advanced by
-// the same float operations (entry_grad), so every stop decision is
-// bit-identical to the forward's.  sd (ROWS, Kd) is in shared memory; ss
-// holds one static chunk.  With PARTIALS, part_s (warps, ROWS, CHUNK) and
-// part_d (warps, ROWS, Kd) receive the warps' per-entry partial sums, and
-// the block adds them in warp order: gd (ROWS, Kd) receives the dynamic
-// gradient, every column written once (zero past count_d), and the static
-// gradient goes to gs (ROWS, Ks), written once per column, zero for the
-// chunks the forward never applied, or with ADD added atomically to what gs
-// holds (a row that several blocks share; nothing is added for chunks never
-// applied).  Without PARTIALS (needs ADD) each warp adds its sums to gs and
-// to gd atomically; gd must be zeroed first.
-template <bool ADD, bool PARTIALS = true>
-__device__ __forceinline__ void pair_walk_grad(
-    float* ss, const float* sd, int Kd, int count_d, const float* tile,
-    int Ks, int count_s, float power_min, bool has_pmin, float term_eps,
-    bool has_term, BwdPixel& st, float* part_s, float* part_d, float* gs,
-    float* gd) {
-  static_assert(ADD || PARTIALS, "the direct sums are atomic adds");
-  const int warps = blockDim.x >> 5;
-  float* my_part_s = part_s + (threadIdx.x >> 5) * ROWS * CHUNK;
-  float* my_part_d = part_d + (threadIdx.x >> 5) * ROWS * Kd;
-  float g[ROWS];
-  int j = 0;                                     // next dynamic entry
-  int c0 = 0;                                    // next static chunk
-  while (c0 < count_s) {
-    __syncthreads();          // previous chunk's partials read
-    stage_chunk(ss, tile, Ks, c0);
-    __syncthreads();
-    const int n = min(CHUNK, count_s - c0);
-    for (int e = 0; e < n; ++e) {
-      const float ds = ss[ROW_DEPTH * CHUNK + e];
-      while (j < count_d && sd[ROW_DEPTH * Kd + j] < ds) {
-        const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
-        if (PARTIALS)
-          warp_sum_rows(g, hit, my_part_d, Kd, j);
-        else
-          warp_sum_rows<true>(g, hit, gd, Kd, j);
-        ++j;
-      }
-      const bool hit = entry_grad(ss, CHUNK, e, power_min, has_pmin, st, g);
-      if (PARTIALS)
-        warp_sum_rows(g, hit, my_part_s, CHUNK, e);
-      else
-        warp_sum_rows<true>(g, hit, gs + c0, Ks, e);
-    }
-    if (PARTIALS) {
-      __syncthreads();
-      block_sum_rows<ADD>(part_s, warps, CHUNK, n, CHUNK, gs + c0, Ks);
-    }
-    c0 += CHUNK;
-    if (has_term && !__syncthreads_or(st.T >= term_eps)) break;
-  }
-  if (!ADD) zero_cols(gs, Ks, c0, Ks);
-  for (; j < count_d; ++j) {
-    const bool hit = entry_grad(sd, Kd, j, power_min, has_pmin, st, g);
-    if (PARTIALS)
-      warp_sum_rows(g, hit, my_part_d, Kd, j);
-    else
-      warp_sum_rows<true>(g, hit, gd, Kd, j);
-  }
-  if (PARTIALS) {
-    __syncthreads();
-    block_sum_rows(part_d, warps, Kd, count_d, Kd, gd, Kd);
   }
 }
 

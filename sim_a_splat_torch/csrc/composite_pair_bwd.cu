@@ -13,52 +13,43 @@
 // env's dynamic gradient, every column written (zero for skipped pairs and
 // past the counts).
 //
-// Design: one block per (tile, env), one thread per pixel, as K4f.  The TPU
-// kernel needs no saved state: pass A replays the forward's stop decisions,
-// pass B takes the static gradients from union suffix sums, then the
-// dynamic ones.  Here K4f's merged walk is replayed once (pair_walk_grad in
-// composite_common.cuh): every stop decision is bit-identical
-// to K4f's, and each entry's union suffix sum is ct . (out - prefix) with
-// the prefixes rounded as K4f rounded out.
+// Design: one block per (tile, env), as K4f.  The TPU kernel needs no saved
+// state: pass A replays the forward's stop decisions, pass B takes the
+// static gradients from union suffix sums, then the dynamic ones.  Here a
+// touched pair runs K2b's block body (grad_block in
+// composite_sel_walk.cuh): K4f's merged walk replayed with K2's layout,
+// windows and cull, every stop decision bit-identical to K4f's, each
+// entry's union suffix sum ct . (out - prefix) with the prefixes rounded as
+// K4f rounded out, the per-warp sums in shared memory added in warp order.
+// A skipped pair writes a zero gd row and does nothing else.
 //
 // The static gradient is shared by every env (the reference's vmap sums
 // each env's (T, 10, Ks) gradient in its transpose).  A per-env buffer
 // would be 1.34 GB at the main path's shape, and only the ~13 % of pairs a
-// dynamic gaussian touches contribute.  So each block sums its entries over
-// the pixels in shared memory (per-warp partials in warp order, no atomics)
-// and adds the nonzero sums to its tile's row with atomicAdd: no buffer,
-// no compaction of the touched pairs on the host, and a contention of at
-// most B blocks per row.  The order of those float additions across envs
-// changes from run to run.
+// dynamic gaussian touches contribute.  So each block sums each static
+// column over its pixels, as K2b does per slot, and adds the nonzero sums
+// to its tile's row with atomicAdd: no buffer, no compaction of the touched
+// pairs on the host, and a contention of at most B blocks per row.  The
+// order of those float additions across envs changes from run to run.
+// Each dynamic column is stored once, when its window retires.
 //
-// Where the warps' partials do not fit in a block's shared memory beside
-// the dynamic list (Kd > 512 at ts 16), the block zeroes its pair's gd row
-// and every warp adds its sums to gs and gd with atomicAdd instead.  Only
-// there: at the main path's Kd = 128, ts 16 the atomic layout took 4.65 ms
-// against 4.22 (+10 %, chip_levers.py lever atomic_sums, H100 80GB HBM3 at
-// 700 W).
-//
-// What bounds it on an H100: the per-pixel sequential walk and the
-// per-entry warp reductions of the touched pairs; the largest
-// traffic is the dynamic gradient gd (168 MB at the main path's shape),
-// written once, most of it zeros of skipped pairs.
+// What bounds it on an H100: the per-pixel gradient of the touched pairs
+// (K2b's note); the largest traffic is the dynamic gradient gd (168 MB at
+// the main path's shape), written once, most of it zeros of skipped pairs.
+// The first design (one thread per pixel, no cull, 50 shuffles an entry)
+// took 2.2 times K2b's time on the same pairs.
 
 #include <cuda_runtime.h>
 
-#include "composite_common.cuh"
+#include "composite_sel_walk.cuh"
 
 using namespace splat;
 
 namespace {
 
-// Shared memory of a K4b block: the dynamic list (ROWS, Kd) and one static
-// chunk, and with partials each warp's per-entry sums of both.
-size_t smem_bytes(int Kd, int warps, bool partials) {
-  return sizeof(float) * ROWS * (Kd + CHUNK) * (1 + (partials ? warps : 0));
-}
-
-template <bool PARTIALS>
-__global__ void __launch_bounds__(1024)
+// WINDOWS: the dynamic list takes more than one window (sel::Layout).
+template <bool WINDOWS>
+__global__ void __launch_bounds__(sel::MAX_THREADS)
 composite_pair_bwd(const float* __restrict__ spay,
                    const float* __restrict__ dpay,
                    const int* __restrict__ counts_s,
@@ -67,66 +58,30 @@ composite_pair_bwd(const float* __restrict__ spay,
                    const float* __restrict__ ct,
                    const float* __restrict__ out, float* __restrict__ gs,
                    float* __restrict__ gd, int n_tiles, int Ks, int Kd,
-                   int ts, int tx, float power_min, int has_pmin,
+                   int W, int ts, int tx, float power_min, int has_pmin,
                    float term_eps, int has_term) {
-  extern __shared__ float smem[];
-  const int p = threadIdx.x;
-  const int P = blockDim.x;
-  const int warps = P >> 5;
-  float* sd = smem;                              // (ROWS, Kd) dynamic list
-  float* ss = sd + ROWS * Kd;                    // (ROWS, CHUNK) static chunk
-  float* part_s = ss + ROWS * CHUNK;             // (warps, ROWS, CHUNK)
-  float* part_d = part_s + warps * ROWS * CHUNK;  // (warps, ROWS, Kd)
+  extern __shared__ float4 smem[];
   const int t = blockIdx.x;
   const size_t pair = (size_t)blockIdx.y * n_tiles + t;
+  const int P = ts * ts;
   float* gd_pair = gd + pair * ROWS * Kd;
   if (skip[pair] <= 0) {                         // uniform across the block
     zero_cols(gd_pair, Kd, 0, Kd);
     return;
   }
-  const int count_s = min(counts_s[t], Ks);
-  const int count_d = min(counts_d[pair], Kd);
-
-  const float* dsrc = dpay + pair * ROWS * Kd;
-  for (int i = p; i < ROWS * Kd; i += P) sd[i] = dsrc[i];
-  if (!PARTIALS) zero_cols(gd_pair, Kd, 0, Kd);
-  __syncthreads();
-
-  const size_t row = (pair * P + p) * 8;
-  BwdPixel st;
-  init_bwd_pixel(st, (float)(p % ts) + 0.5f + (float)((t % tx) * ts),
-                 (float)(p / ts) + 0.5f + (float)((t / tx) * ts), ct + row,
-                 out + row, 1);
-  pair_walk_grad<true, PARTIALS>(
-      ss, sd, Kd, count_d, spay + (size_t)t * ROWS * Ks, Ks, count_s,
-      power_min, has_pmin != 0, term_eps, has_term != 0, st, part_s, part_d,
-      gs + (size_t)t * ROWS * Ks, gd_pair);
-}
-
-template <bool PARTIALS>
-int launch(const void* spay, const void* dpay, const void* counts_s,
-           const void* counts_d, const void* skip, const void* ct,
-           const void* out, void* gs, void* gd, int B, int T, int Ks, int Kd,
-           int ts, int tx, float power_min, int has_pmin, float term_eps,
-           int has_term, cudaStream_t stream) {
-  const int threads = ts * ts;
-  const size_t smem = smem_bytes(Kd, threads / 32, PARTIALS);
-  cudaError_t err = cudaFuncSetAttribute(
-      composite_pair_bwd<PARTIALS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  composite_pair_bwd<PARTIALS><<<dim3(T, B), threads, smem, stream>>>(
-      (const float*)spay, (const float*)dpay, (const int*)counts_s,
-      (const int*)counts_d, (const int*)skip, (const float*)ct,
-      (const float*)out, (float*)gs, (float*)gd, T, Ks, Kd, ts, tx,
-      power_min, has_pmin, term_eps, has_term);
-  return (int)cudaGetLastError();
+  const sel::Smem s = sel::carve(smem, W, blockDim.x >> 5);
+  const sel::Pixels pix(ts, tx, t);
+  sel::grad_block<true, WINDOWS>(
+      s, pix, spay + (size_t)t * ROWS * Ks, Ks, min(counts_s[t], Ks),
+      dpay + pair * ROWS * Kd, Kd, min(counts_d[pair], Kd), power_min,
+      has_pmin != 0, term_eps, has_term != 0, ct + pair * P * 8,
+      out + pair * P * 8, P, gs + (size_t)t * ROWS * Ks, gd_pair);
 }
 
 }  // namespace
 
-// The caller checks the layout (ts² % 32 == 0) and the shared memory of the
-// layout without partials, and zeroes gs.
+// The caller checks the layout, as for composite_pair_launch, and zeroes
+// gs.
 extern "C" int composite_pair_bwd_launch(
     const void* spay, const void* dpay, const void* counts_s,
     const void* counts_d, const void* skip, const void* ct, const void* out,
@@ -134,9 +89,17 @@ extern "C" int composite_pair_bwd_launch(
     float power_min, int has_pmin, float term_eps, int has_term,
     void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaGetLastError();
-  auto go = smem_bytes(Kd, ts * ts / 32, true) <= SMEM_OPTIN ? launch<true>
-                                                             : launch<false>;
-  return go(spay, dpay, counts_s, counts_d, skip, ct, out, gs, gd, B, T, Ks,
-            Kd, ts, tx, power_min, has_pmin, term_eps, has_term,
-            (cudaStream_t)stream);
+  const sel::Layout l(Kd, ts, true);
+  auto kernel =
+      l.windows ? composite_pair_bwd<true> : composite_pair_bwd<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)l.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(T, B), l.threads, l.smem, (cudaStream_t)stream>>>(
+      (const float*)spay, (const float*)dpay, (const int*)counts_s,
+      (const int*)counts_d, (const int*)skip, (const float*)ct,
+      (const float*)out, (float*)gs, (float*)gd, T, Ks, Kd, l.W, ts, tx,
+      power_min, has_pmin, term_eps, has_term);
+  return (int)cudaGetLastError();
 }

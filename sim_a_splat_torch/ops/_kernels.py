@@ -56,35 +56,46 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def compile_all(jobs) -> dict:
+    """Compile each (source ``.cu``, include directory, library path) job
+    with ``nvcc``, one process each, all started together.  Returns
+    {library path: nvcc's output (ptxas' report)}; raises with nvcc's
+    output on failure."""
+    nvcc = nvcc_path()
+    procs = []
+    for src, inc, lib in jobs:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(inc), "-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = {}, []
+    for src, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {src} (rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, lib)
+        logs[lib] = log
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
 def build_all() -> dict:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all started together.  Returns {name: {"seconds", "ptxas"}} for the
-    sources built by this call; raises with nvcc's output on failure."""
+    sources built by this call (seconds: the whole build's); raises with
+    nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
     t0 = time.perf_counter()
-    for name in KERNEL_SOURCES:
-        lib = _library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
-    report, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (rc {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, lib)
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return report
+    jobs = {name: _library_path(name) for name in KERNEL_SOURCES}
+    jobs = {name: lib for name, lib in jobs.items() if not lib.exists()}
+    logs = compile_all([(CSRC / f"{name}.cu", CSRC, lib)
+                        for name, lib in jobs.items()])
+    seconds = time.perf_counter() - t0
+    return {name: {"seconds": seconds, "ptxas": logs[lib]}
+            for name, lib in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,11 +7,13 @@ Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
 ``sim_a_splat_tpu/ops/pallas_composite_pair.py``.  The reference runs that
 kernel once per env under the per-env step's ``vmap``; here the env axis is
 explicit and one launch covers every env.  The CUDA sources are
-``csrc/composite_pair.cu`` (K4f) and ``csrc/composite_pair_bwd.cu`` (K4b);
-they walk the merged sequence with ``pair_walk`` (``composite_common.cuh``),
-and their notes say what bounds each on an H100.  Where K4b's per-warp
-partial sums do not fit in a block's shared memory (``bwd_smem_bytes``),
-its warps add their sums to the gradients atomically.
+``csrc/composite_pair.cu`` (K4f) and ``csrc/composite_pair_bwd.cu`` (K4b).
+A touched (env, tile) pair is the problem K2 solves on a selected slot, so
+they run K2's block bodies (``csrc/composite_sel_walk.cuh``: the warp-level
+cull, two pixels a thread, the dynamic list staged in windows, the merged
+walk), and take what K2 takes on the card: every ``Kd % 128 == 0`` and
+tile sizes 1 to 32 (``composite_sel.kernel_threads``, ``window``).  Their
+notes say what bounds each on an H100.
 
 ``composite_pair`` is the public entry: it goes through the autograd
 Function ``CompositePair``, whose forward is K4f and whose backward is K4b.
@@ -98,7 +100,7 @@ def composite_pair_bwd_plain(spay, dpay, counts_s, counts_d, skip, ct,
                  for g, x in zip(grads, (spay, dpay)))
 
 
-def _check_inputs(spay, dpay, counts_s, counts_d, skip, ts):
+def _check_inputs(spay, dpay, counts_s, counts_d, skip):
     if spay.dtype != torch.float32 or spay.dim() != 3 or spay.shape[1] != 10:
         raise ValueError("spay must be float32 (T, 10, Ks), got "
                          f"{spay.dtype} {tuple(spay.shape)}")
@@ -122,9 +124,6 @@ def _check_inputs(spay, dpay, counts_s, counts_d, skip, ts):
                              f"{spay.device}")
     if dpay.device != spay.device:
         raise ValueError(f"dpay is on {dpay.device}, spay on {spay.device}")
-    if not (ts * ts <= 1024):
-        raise ValueError(f"tile size {ts}: one thread per pixel needs "
-                         "ts² ≤ 1024")
     if spay.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {spay.device}")
 
@@ -152,7 +151,7 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     if spay.device.type == "cpu":
         return composite_pair_plain(spay, dpay, counts_s, counts_d, skip, ts,
                                     tx, sigma_cutoff, term_eps)
-    _check_smem(dpay.shape[-1], ts)
+    composite_sel.kernel_threads(ts)
     spay, dpay, counts_s, counts_d, skip = (
         a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip))
     B, T = skip.shape
@@ -170,25 +169,6 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     return out
 
 
-def bwd_smem_bytes(Kd: int, ts: int, partials: bool = True) -> int:
-    """Shared memory of one K4b block: the dynamic list (10, Kd), one static
-    chunk (10, 128) and, with ``partials`` (wherever they fit: Kd ≤ 512 at
-    ts 16), every warp's per-entry partial sums for both; without them the
-    warps add their sums to the gradients atomically.  K4f's block holds the
-    lists alone, as K4b's without partials."""
-    return 4 * 10 * (Kd + CHUNK) * (1 + (ts * ts // 32 if partials else 0))
-
-
-def _check_smem(Kd: int, ts: int) -> None:
-    """Raise unless a K4f or K4b block takes the dynamic capacity Kd: its
-    list and one static chunk fit in a block's shared memory (Kd ≤ 5,632)."""
-    need = bwd_smem_bytes(Kd, ts, partials=False)
-    if need > composite_sel.SMEM_OPTIN_BYTES:
-        raise ValueError(f"dyn capacity Kd={Kd} needs {need} B of shared "
-                         "memory per K4 block, more than "
-                         f"{composite_sel.SMEM_OPTIN_BYTES}")
-
-
 def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
                        ts: int, tx: int, sigma_cutoff: Optional[float] = None,
                        term_eps: Optional[float] = None):
@@ -198,10 +178,9 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
     tensors launch K4b, which replays the forward's walk (so it needs no
     state beyond ``out``) and sums the static gradient per tile."""
     global launches_bwd
-    _check_inputs(spay, dpay, counts_s, counts_d, skip, ts)
+    _check_inputs(spay, dpay, counts_s, counts_d, skip)
     B, T = skip.shape
     P = ts * ts
-    Kd = dpay.shape[-1]
     for name, a in (("ct", ct), ("out", out)):
         if a.dtype != torch.float32 or tuple(a.shape) != (B, T, P, 8) \
                 or a.device != spay.device:
@@ -211,10 +190,7 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
     if spay.device.type == "cpu":
         return composite_pair_bwd_plain(spay, dpay, counts_s, counts_d, skip,
                                         ct, ts, tx, sigma_cutoff, term_eps)
-    if P % 32:
-        raise ValueError(f"tile size {ts}: the backward kernel reduces over "
-                         "whole warps and needs ts² % 32 == 0")
-    _check_smem(Kd, ts)
+    composite_sel.kernel_threads(ts)
     spay, dpay, counts_s, counts_d, skip, ct, out = (
         a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip, ct,
                                  out))
@@ -269,6 +245,6 @@ def composite_pair(spay: torch.Tensor, dpay: torch.Tensor,
     Both lists are depth-sorted, active entries first, inactive entries at
     opacity 0; counts past a capacity are clamped to it.  Differentiable in
     ``spay`` (summed over the envs) and ``dpay``."""
-    _check_inputs(spay, dpay, counts_s, counts_d, skip, ts)
+    _check_inputs(spay, dpay, counts_s, counts_d, skip)
     return CompositePair.apply(spay, dpay, counts_s, counts_d, skip, ts, tx,
                                sigma_cutoff, term_eps)

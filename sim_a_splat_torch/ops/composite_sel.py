@@ -5,17 +5,17 @@ Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
 (``_call_bwd``) under the custom VJP ``composite_pair_sel`` (shared 3-D
 static payload) of ``sim_a_splat_tpu/ops/pallas_composite_sel.py``.  The
 CUDA sources are ``csrc/composite_sel.cu`` (K2f) and
-``csrc/composite_sel_bwd.cu`` (K2b), with their shared walk in
-``csrc/composite_sel_walk.cuh``; their notes say what bounds each on an
-H100 (instruction issue, not bytes) and what the design does about it: a
-warp-level footprint cull, two pixels per thread in a compact 8 × 8
-rectangle per warp, entry-major staging with the merge positions
-found once per chunk, and in K2b the forward walk replayed (no saved
-state), a transposed warp reduction and the per-tile sum of the static
-gradient done in the kernel with atomic adds.  Where the dynamic list's
-per-warp partial sums do not fit in a K2b block's shared memory
-(``bwd_dyn_partials``), the warps add them to the gradient atomically, so
-the card takes every dynamic capacity up to 2048 at every tile size.
+``csrc/composite_sel_bwd.cu`` (K2b), with their walk and block bodies in
+``csrc/composite_sel_walk.cuh`` (shared with K4, ``composite_pair``); their
+notes say what bounds each on an H100 (instruction issue, not bytes) and
+what the design does about it: a warp-level footprint cull, two pixels per
+thread in a compact 8 × 8 rectangle per warp, entry-major staging with the
+dynamic list in windows and the merge positions found once per chunk, and
+in K2b the forward walk replayed (no saved state), a transposed warp
+reduction and the per-tile sum of the static gradient done in the kernel
+with atomic adds.  The kernels take every dynamic capacity the reference
+takes (``Kd % 128 == 0``: the window, ``window``, is the largest that fits
+in a block's shared memory) and tile sizes 1 to 32 (``kernel_threads``).
 
 ``composite_pair_sel`` is the public entry: it goes through the autograd
 Function ``CompositePairSel``, whose forward is K2f and whose backward is
@@ -24,7 +24,8 @@ K2b.  CPU tensors run the plain versions (``composite_pair_sel_plain``,
 one to ``launches`` or ``launches_bwd``) or raise.  Only the shared-payload
 mode is ported; the per-env 4-D payload belongs to the moving camera and
 raises.  ``cull_boxes``, ``warp_rects`` and ``culled`` are the plain twin
-of the kernels' cull test, for the tests and the chip run's counts.
+of the kernels' cull test, and ``walk_schedule`` of their window schedule,
+for the tests and the chip run's counts.
 
 The plain forward follows the reference's algebra (log-space
 transmittances and depth-indicator contractions, chunk-granular early stop
@@ -35,6 +36,7 @@ entries first, inactive entries at opacity 0).
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 from typing import Optional
 
@@ -196,54 +198,58 @@ def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d):
 
 # ---- the kernels' block layout (csrc/composite_sel_walk.cuh) ----------------
 
+RECT_X = RECT_Y = 8   # a warp's pixel rectangle in the K2 and K4 blocks
+                      # (sel::RECT_X, RECT_Y), two pixels a thread
+
+
 def kernel_threads(ts: int) -> int:
-    """Threads per block of K2f and K2b for tile size ``ts``: each warp owns
-    an 8 × 8 rectangle of the tile, two pixels per thread, so ts must be a
-    multiple of 8 and at most 32 (512 threads, the launch bounds)."""
-    if ts % 8 or not 8 <= ts <= 32:
-        raise ValueError(f"tile size {ts}: the K2 kernels' warps own 8 × 8 "
-                         "pixel rectangles and need ts in {8, 16, 24, 32}")
-    return ts * ts // 2
+    """Threads per block of K2f, K2b, K4f and K4b for tile size ``ts``
+    (``sel::block_threads``): ceil(ts / 8)² warps, each owning an 8 × 8
+    rectangle of the tile, two pixels a thread; the pixels past a tile that
+    is not a multiple of 8 are masked.  A block holds one tile of at most
+    1,024 pixels (512 threads, the launch bounds that leave each thread 128
+    registers), so the kernels take 1 ≤ ts ≤ 32, a limit of the card port:
+    the reference takes any tile size."""
+    if not 1 <= ts <= 32:
+        raise ValueError(f"tile size {ts}: the K2 and K4 kernels hold one "
+                         "tile per block and take 1 ≤ ts ≤ 32")
+    return (-(-ts // RECT_X)) * (-(-ts // RECT_Y)) * 32
 
 
-def smem_bytes(Kd: int, ts: int, bwd: bool, dyn_partials: bool = True) -> int:
-    """Shared memory of one K2f (``bwd`` False) or K2b block, as
-    ``sel::smem_bytes``: Kd + 128 staged entries of 56 B (the dynamic list
-    and one static chunk), the chunk's merge positions, each warp's hit
-    words and, for K2b, each warp's per-entry partial sums (10 rows) of the
-    static chunk and, with ``dyn_partials``, of the dynamic list."""
+def _block_bytes(W: int, warps: int, bwd: bool) -> int:
+    """``sel::smem_bytes``: W + 128 staged entries of 56 B (the dynamic
+    window and one static chunk), the chunk's merge positions, each warp's
+    hit words and, for a backward block, each warp's per-entry partial sums
+    (10 rows) of every staged column."""
+    L = W + CHUNK
+    return (56 * L + 4 * CHUNK + 4 * warps * (W // 32 + CHUNK // 32)
+            + (4 * warps * 10 * L if bwd else 0))
+
+
+def window(Kd: int, ts: int, bwd: bool) -> int:
+    """The dynamic window of a K2f / K4f (``bwd`` False) or K2b / K4b block
+    at capacity Kd (``sel::window``): the largest multiple of 128, at most
+    Kd, whose block fits in a block's shared memory.  The walk stages the
+    dynamic list that many entries at a time, so every capacity runs; the
+    main path's Kd = 128 is one window."""
     warps = kernel_threads(ts) // 32
-    L = Kd + CHUNK
-    return (56 * L + 4 * CHUNK + 4 * warps * (Kd // 32 + CHUNK // 32)
-            + (4 * warps * 10 * (L if dyn_partials else CHUNK) if bwd else 0))
+    W = Kd
+    while W > CHUNK and _block_bytes(W, warps, bwd) > SMEM_OPTIN_BYTES:
+        W -= CHUNK
+    return W
 
 
-def bwd_dyn_partials(Kd: int, ts: int) -> bool:
-    """Whether a K2b block keeps the dynamic list's partial sums in shared
-    memory (where they fit, as at the main path's Kd = 128, ts = 16); past
-    that each warp adds them to the slot's gradient row atomically."""
-    return smem_bytes(Kd, ts, True) <= SMEM_OPTIN_BYTES
-
-
-def _check_kernel(Kd: int, ts: int, bwd: bool) -> None:
-    """Raise unless the kernels take (Kd, ts): K2f's staged lists, and K2b's
-    with at least the static chunk's partial sums, must fit in the shared
-    memory of a block (K2f: Kd ≤ 3,968 at ts 8 and 16, 3,840 at 24 and 32;
-    K2b: ≤ 3,840 at ts 8, 3,584 at 16, 3,072 at 24 and 2,432 at 32)."""
-    kernel_threads(ts)
-    need = smem_bytes(Kd, ts, bwd, dyn_partials=False)
-    if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"dyn capacity Kd={Kd} at tile size {ts} needs "
-                         f"{need} B of shared memory per "
-                         f"{'K2b' if bwd else 'K2f'} block, more than "
-                         f"{SMEM_OPTIN_BYTES}")
+def smem_bytes(Kd: int, ts: int, bwd: bool) -> int:
+    """Shared memory of one K2f / K4f (``bwd`` False) or K2b / K4b block at
+    capacity Kd, with its window (``sel::Layout``)."""
+    return _block_bytes(window(Kd, ts, bwd), kernel_threads(ts) // 32, bwd)
 
 
 def blocks_per_sm(bwd: bool, Kd: int, ts: int) -> int:
     """Blocks of K2f (``bwd`` False) or K2b that fit on one SM of the
     current card at (Kd, ts) (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     in the launch library)."""
-    _check_kernel(Kd, ts, bwd)
+    kernel_threads(ts)
     name = "composite_sel_bwd" if bwd else "composite_sel"
     fn = _kernels.function(
         name, f"composite_pair_sel{'_bwd' if bwd else ''}_blocks_per_sm",
@@ -251,6 +257,55 @@ def blocks_per_sm(bwd: bool, Kd: int, ts: int) -> int:
     n = ctypes.c_int(0)
     _kernels.check(fn(Kd, ts, ctypes.byref(n)), f"{name} occupancy")
     return n.value
+
+
+def walk_schedule(ds, dd, W: int, chunks: Optional[int] = None):
+    """Plain twin of the kernels' walk order (``sel::merged_walk``) for one
+    block: the sorted static depths ``ds`` and dynamic depths ``dd`` of its
+    active entries, the window ``W`` (a multiple of 32) and the static chunks
+    the walk applies (default all; the early stop cuts them) → (visits,
+    windows): each entry a warp that culls nothing visits, in order, as
+    ("s" or "d", index, start of the window staged then), and the window
+    starts in the order they are staged.  The kernel's sub-runs, slides and
+    stop points, step by step."""
+    ds, dd = [float(v) for v in ds], [float(v) for v in dd]
+    count_s, count_d = len(ds), len(dd)
+    n_chunks = -(-count_s // CHUNK) if chunks is None else chunks
+    visits, windows = [], [0]
+    w0 = jd = 0
+
+    def until(lim):                        # dynamic_until
+        nonlocal jd
+        if lim > w0 + W:
+            raise AssertionError(f"dynamic entry {lim - 1} past the window "
+                                 f"[{w0}, {w0 + W})")
+        visits.extend(("d", j, w0) for j in range(jd, min(lim, count_d)))
+        jd = max(jd, lim)
+
+    def slide():                           # retire the window, stage the next
+        nonlocal w0
+        until(w0 + W)
+        w0 += W
+        windows.append(w0)
+
+    for c0 in range(0, n_chunks * CHUNK, CHUNK):
+        n = min(CHUNK, count_s - c0)
+        merge = [bisect.bisect_left(dd, ds[c0 + e]) for e in range(n)]
+        e0 = 0
+        while True:
+            e1 = next((e for e in range(e0, n) if merge[e] > w0 + W), n)
+            for e in range(e0, e1):
+                until(merge[e])
+                visits.append(("s", c0 + e, w0))
+            if e1 == n:
+                break
+            slide()
+            e0 = e1
+        until(merge[n - 1])
+    while count_d > w0 + W:
+        slide()
+    until(count_d)
+    return visits, windows
 
 
 # ---- plain twin of the kernels' warp-level cull (used by tests) -------------
@@ -304,16 +359,20 @@ def cull_boxes(rows: torch.Tensor, sigma_cutoff: Optional[float] = None):
 
 def warp_rects(tile_ids: torch.Tensor, ts: int, tx: int) -> torch.Tensor:
     """(S,) tile ids → (S, W, 4) float32 [rx0, rx1, ry0, ry1], the pixel
-    centres spanned by each of the W warps of a K2 block (``sel::Pixels``):
-    8 × 8 rectangles in row-major order."""
+    centres spanned by each of the W warps of a K2 or K4 block
+    (``sel::Pixels``): 8 × 8 rectangles in row-major order, cut to the
+    tile."""
     w = torch.arange(kernel_threads(ts) // 32, device=tile_ids.device)
-    wx = (w % (ts // 8)) * 8
-    wy = (w // (ts // 8)) * 8
+    wgx = -(-ts // RECT_X)
+    wx = (w % wgx) * RECT_X
+    wy = (w // wgx) * RECT_Y
+    x1 = torch.clamp(wx + RECT_X, max=ts) - 1
+    y1 = torch.clamp(wy + RECT_Y, max=ts) - 1
     t = tile_ids.long()[:, None]
     ox, oy = ((t % tx) * ts).float(), ((t // tx) * ts).float()
-    return torch.stack([(wx.float() + 0.5) + ox, ((wx + 7).float() + 0.5) + ox,
+    return torch.stack([(wx.float() + 0.5) + ox, (x1.float() + 0.5) + ox,
                         (wy.float() + 0.5) + oy,
-                        ((wy + 7).float() + 0.5) + oy], dim=-1)
+                        (y1.float() + 0.5) + oy], dim=-1)
 
 
 def culled(boxes: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
@@ -373,7 +432,7 @@ def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
         return composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad,
                                         counts_d, ts, tx, sigma_cutoff,
                                         term_eps)
-    _check_kernel(dpay.shape[-1], ts, bwd=False)
+    kernel_threads(ts)
     spay_pad, dpay, ids, counts_s_pad, counts_d = (
         a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d))
     out = dpay.new_empty((ids.shape[0], spay_pad.shape[0], 8, ts * ts))
@@ -414,7 +473,7 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
     if spay_pad.device.type != "cuda":
         raise ValueError("the K2b kernel takes CUDA tensors; on the CPU use "
                          "composite_pair_sel_bwd_plain")
-    _check_kernel(dpay.shape[-1], ts, bwd=True)
+    kernel_threads(ts)
     spay_pad, dpay, ids, counts_s_pad, counts_d, ct, out = (
         a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d,
                                  ct, out))

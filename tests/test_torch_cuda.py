@@ -15,11 +15,12 @@ accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
 log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
 for K2f and K4f (the CPU tests' bounds against the reference), atol 2e-5
 for K3f (K1's walk on per-env lists).  K2's tests also cover narrow
-footprints (the warp-level cull active), many envs adding into one tile's static gradient, and every tile size the
-K2 wrappers accept; K1's cover its edge cases (counts, skips, stops after
-chunk 0 and 1) at tile sizes 8, 12, 16 and 32; K2's and K4's cover
-dynamic capacities past the room of the backward kernels' partial sums in
-shared memory (up to 2048).  Gradients: each
+footprints (the warp-level cull active) and many envs adding into one
+tile's static gradient; K2's and K4's cover every tile size from 8 to 32
+in steps of 4 (masked pixels where ts % 8 != 0), dynamic capacities that
+take several windows (up to 8,192), and K4 against K2 on the same (env,
+tile) pairs, bit for bit; K1's cover its edge cases (counts, skips, stops
+after chunk 0 and 1) at tile sizes 8, 12, 16 and 32.  Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -36,10 +37,11 @@ import torch
 from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
     k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
-    k2_shared_tile_inputs, k3_inputs, k4_inputs, selected_cotangent,
-    torch_raster,
+    k2_shared_tile_inputs, k3_inputs, k4_inputs, rows_rel_err,
+    selected_cotangent, torch_raster,
 )
 
+from chip_smoke import k2_slots_of_k4
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops import (
     composite, composite_pair, composite_sel, composite_single,
@@ -231,32 +233,68 @@ def test_k2b_shared_tile_contention(dev, sigma_cutoff, term_eps):
                   term_eps, 16)
 
 
-@pytest.mark.parametrize("ts", [8, 16, 24, 32])
+@pytest.mark.parametrize("ts", [8, 16, 24, 32, 12, 20, 28])
 def test_k2_every_tile_size(dev, ts):
+    """Every tile size up to 32, those that are not a multiple of 8 with
+    masked pixels in the warps of the tile's right and bottom edges."""
     _k2_both_ways(dev, k2_inputs(seed=9, ts=ts), ts, TX, 3.0, 1e-4, 17)
 
 
-@pytest.mark.parametrize("Kd,ts", [(1152, 16), (2048, 16), (256, 32),
-                                   (1024, 32)])
+LONG_CASES = [(1152, 16), (2048, 16), (256, 32), (1024, 32), (8192, 16),
+              (4096, 32)]
+
+
+@pytest.mark.parametrize("Kd,ts", LONG_CASES)
 def test_k2_large_dyn_capacity(dev, Kd, ts):
-    """Dynamic lists that fill capacities past the room of K2b's dynamic
-    partial sums in shared memory (Kd > 896 at ts 16, > 128 at ts 32): K2b
-    then adds them to the gradient atomically.  The plain versions run in
-    float64: over lists of ~2,000 entries their float32 log-space sums
-    drift past the 2e-4 bound, while the kernels' walk stays within it."""
-    assert not composite_sel.bwd_dyn_partials(Kd, ts)
+    """Dynamic lists that fill capacities past the backward's window (896
+    entries at ts 16, 128 at ts 32) and, at 8,192 and 4,096, past the
+    forward's (3,968 and 3,840) and the first design's card limits: the
+    walk stages them window by window.  The plain versions run in float64:
+    over lists of ~2,000 entries their float32 log-space sums drift past
+    the 2e-4 bound, while the kernels' walk stays within it.  Beside it,
+    at Kd 2048 / ts 16, the kernels' error against float64 is printed next
+    to the reference's own on these inputs (test_torch_grad.py's
+    test_k2_reference_suffix_sums_on_long_lists: 6.41e-5 static, 1.86e-5
+    dynamic)."""
+    assert composite_sel.window(Kd, ts, True) < Kd
     _k2_both_ways(dev, k2_full_dyn_inputs(Kd, ts), ts, TX, 3.0, 1e-4, 18,
                   plain_dtype=torch.float64)
 
 
-@pytest.mark.parametrize("Kd,ts", [(1152, 16), (2048, 16), (256, 32),
-                                   (1024, 32)])
+def test_k2b_suffix_sums_against_the_reference(dev):
+    """K2b on the inputs of test_k2_reference_suffix_sums_on_long_lists
+    (Kd 2048, ts 16, the cotangent of seed 18) against the plain backward
+    in float64: no further from it than the reference's own float32
+    backward (6.41e-5 of a row's scale static, 1.86e-5 dynamic, measured
+    on the CPU in interpret mode).  Measured on an H100: 1.12e-5 and
+    5.1e-6, so the kernels' float32 suffix sums on long lists are no
+    fault against the reference."""
+    spay, dpay, ids, cs, cd = (torch.as_tensor(a, device=dev)
+                               for a in k2_full_dyn_inputs(2048, 16))
+    ct = torch.as_tensor(selected_cotangent(
+        np.random.default_rng(18), ids.cpu().numpy(),
+        (ids.shape[0], spay.shape[0], 8, 256)), device=dev)
+    args = (spay, dpay, ids, cs, cd)
+    out = composite_sel.composite_pair_sel(*args, 16, TX, 3.0, 1e-4)
+    gs, gd = composite_sel.composite_pair_sel_bwd(*args, ct, out, 16, TX,
+                                                  3.0, 1e-4)
+    want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
+        *as_float64(args), ct.double(), 16, TX, 3.0, 1e-4)
+    T = spay.shape[0] - 1
+    err_s = rows_rel_err(gs[:T], want_s[:T])
+    err_d = rows_rel_err(gd, want_d)
+    print(f"K2b vs float64 at Kd 2048: static {err_s:.3e}, dynamic "
+          f"{err_d:.3e} (the reference's own: 6.41e-5, 1.86e-5)")
+    assert err_s <= 6.41e-5 and err_d <= 1.86e-5
+
+
+@pytest.mark.parametrize("Kd,ts", LONG_CASES)
 def test_k4_large_dyn_capacity(dev, Kd, ts):
-    """K4f and K4b at capacities past the room of K4b's partial sums in
-    shared memory (Kd > 512 at ts 16, every Kd at ts 32).  The plain
-    versions run in float64: over lists of ~2,300 merged entries their
-    float32 log-space sums drift past the 5e-5 and 2e-4 bounds, while the
-    kernels' walk stays within them."""
+    """K4f and K4b at capacities past the backward's window and, at 8,192
+    and 4,096, past the forward's.  The plain versions run in float64: over
+    lists of ~2,300 merged entries their float32 log-space sums drift past
+    the 5e-5 and 2e-4 bounds, while the kernels' walk stays within them."""
+    assert composite_sel.window(Kd, ts, True) < Kd
     args = [torch.as_tensor(a, device=dev) for a in k4_inputs(Kd=Kd, ts=ts)]
     plain = as_float64(args)
     leaves = (args[0].clone().requires_grad_(),
@@ -434,6 +472,66 @@ def test_k4b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     assert_rows_close(leaves[1].grad, want_d, GRAD_REL, "K4b dynamic")
     assert not leaves[1].grad[args[4] == 0].any()
     assert not leaves[0].grad[2].any()            # the empty static tile
+
+
+@pytest.mark.parametrize("ts", [8, 12, 16, 20, 24, 28, 32])
+def test_k4_every_tile_size(dev, ts):
+    """K4f and K4b at every tile size up to 32 against their plain
+    versions."""
+    args = [torch.as_tensor(a, device=dev) for a in k4_inputs(seed=7, ts=ts)]
+    leaves = (args[0].clone().requires_grad_(),
+              args[1].clone().requires_grad_())
+    out = composite_pair.composite_pair(*leaves, *args[2:], ts, TX, 3.0, 1e-4)
+    torch.testing.assert_close(out.detach(), composite_pair.composite_pair_plain(
+        *args, ts, TX, 3.0, 1e-4), atol=5e-5, rtol=1e-4)
+    ct = torch.as_tensor(np.random.default_rng(ts).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    ct[args[4] == 0] = 0.0
+    (out * ct).sum().backward()
+    want_s, want_d = composite_pair.composite_pair_bwd_plain(
+        *args, ct, ts, TX, 3.0, 1e-4)
+    assert_rows_close(leaves[0].grad, want_s, GRAD_REL,
+                      "K4b static, summed over envs")
+    assert_rows_close(leaves[1].grad, want_d, GRAD_REL, "K4b dynamic")
+
+
+@pytest.mark.parametrize("Kd,ts", [(128, 16), (256, 12), (8192, 16),
+                                   (4096, 32)])
+def test_k4_touched_pairs_equal_k2(dev, Kd, ts):
+    """K4 runs K2's block body: on every touched (env, tile) pair K4f's
+    output equals K2f's on the same pair, and K4b's dynamic gradient
+    K2b's, to the last bit, with the dynamic list in one window (Kd 128,
+    256) and in several (8,192 at ts 16, 4,096 at ts 32)."""
+    args = [torch.as_tensor(a, device=dev) for a in k4_inputs(Kd=Kd, ts=ts)]
+    out4 = composite_pair.composite_pair(*args, ts, TX, 3.0, 1e-4)
+    a2 = k2_slots_of_k4(*args)
+    out2 = composite_sel.composite_pair_sel(*a2, ts, TX, 3.0, 1e-4)
+    ids = a2[2]
+    assert (composite_sel.window(Kd, ts, False) < Kd) == (Kd > 256)
+    B, T = args[4].shape
+    pairs = 0
+    for b in range(B):
+        for t in ids[b][ids[b] < T].tolist():
+            assert torch.equal(out4[b, t], out2[b, t].T), (b, t)
+            pairs += 1
+    assert pairs == int((args[4] > 0).sum())
+    ct4 = torch.as_tensor(np.random.default_rng(Kd).normal(
+        size=tuple(out4.shape)).astype(np.float32), device=dev)
+    ct4[args[4] == 0] = 0.0
+    ct2 = torch.zeros_like(out2)
+    bidx = torch.arange(B, device=dev)[:, None]
+    real = ids < T
+    safe = torch.where(real, ids, 0).long()
+    # pads name the trash row, which takes zeros
+    ct2[bidx, ids.long()] = torch.where(real[..., None, None],
+                                        ct4[bidx, safe].transpose(-1, -2),
+                                        0.0)
+    _, gd4 = composite_pair.composite_pair_bwd(*args, ct4, out4, ts, TX,
+                                               3.0, 1e-4)
+    _, gd2 = composite_sel.composite_pair_sel_bwd(*a2, ct2, out2, ts, TX,
+                                                  3.0, 1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(gd4[bidx, safe][real], gd2[real])
 
 
 def test_per_env_step_on_card_matches_cpu(dev):

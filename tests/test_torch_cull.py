@@ -31,10 +31,10 @@ CLAMP32 = float(np.float32(ALPHA_CLAMP))
 
 def warp_of_pixel(ts):
     """(P,) warp index of each pixel under the kernels' layout: 8 × 8
-    rectangles in row-major order."""
+    rectangles in row-major order, ceil(ts / 8) to a row."""
     p = torch.arange(ts * ts)
     x, y = p % ts, p // ts
-    return x // 8 + (y // 8) * (ts // 8)
+    return x // 8 + (y // 8) * -(-ts // 8)
 
 
 def origin(tile, ts):
@@ -197,17 +197,21 @@ def test_non_finite_entries_are_never_culled():
     assert not bool(cs.culled(boxes, rects).any())
 
 
-@pytest.mark.parametrize("ts", [8, 16, 24, 32])
+@pytest.mark.parametrize("ts", [8, 16, 24, 32, 1, 5, 12, 20, 28])
 def test_kernel_layout_covers_the_tile(ts):
-    """Every accepted tile size: the warps' rectangles tile the tile once,
-    the block fits the launch bounds and the main path's shared memory."""
+    """Every tile size the kernels take: the warps' rectangles, cut to the
+    tile, cover each pixel once, the block fits the launch bounds and the
+    main path's shared memory."""
     threads = cs.kernel_threads(ts)
-    assert 2 * threads == ts * ts and threads % 32 == 0 and threads <= 512
+    assert threads == 32 * (-(-ts // 8)) ** 2 and threads <= 512
+    if ts % 8 == 0:
+        assert 2 * threads == ts * ts
     rects = cs.warp_rects(torch.tensor([0], dtype=torch.int32), ts, 1)[0]
     assert rects.shape[0] == threads // 32
     cover = torch.zeros(ts, ts, dtype=torch.long)
     for rx0, rx1, ry0, ry1 in rects.long().tolist():
-        assert (rx1 - rx0, ry1 - ry0) == (7, 7)
+        assert 0 <= rx1 - rx0 <= 7 and 0 <= ry1 - ry0 <= 7
+        assert rx1 < ts and ry1 < ts
         cover[ry0:ry1 + 1, rx0:rx1 + 1] += 1
     assert bool((cover == 1).all())
     # each warp's rectangle is the one warp_of_pixel assigns
@@ -218,24 +222,69 @@ def test_kernel_layout_covers_the_tile(ts):
 
 
 def test_kernel_limits_raise_clearly():
-    for ts in (4, 12, 40):
+    """The card's kernels take every tile size up to 32 and every dynamic
+    capacity: the list is staged in windows that fit in shared memory."""
+    for ts in (0, 33, 40):
         with pytest.raises(ValueError, match="tile size"):
             cs.kernel_threads(ts)
-    # K2b at the main path's Kd = 128, ts = 16: 4 warps, 56 KB, the
-    # dynamic list's partial sums in shared memory
+    # K2b at the main path's Kd = 128, ts = 16: 4 warps, 56 KB, one window
     assert cs.smem_bytes(128, 16, True) == 55_936
-    assert cs.bwd_dyn_partials(128, 16)
-    # past their room K2b adds the dynamic sums atomically, and both kernels
-    # take every dynamic capacity up to 2048 at every tile size
-    assert not cs.bwd_dyn_partials(1024, 16)
-    assert not cs.bwd_dyn_partials(256, 32)
-    for ts in (8, 16, 24, 32):
-        for Kd in range(128, 2049, 128):
-            cs._check_kernel(Kd, ts, bwd=False)
-            cs._check_kernel(Kd, ts, bwd=True)
-    # the limits left: the staged lists (and K2b's static partials) must fit
-    for Kd, ts, bwd in ((3968, 16, False), (3840, 32, False),
-                        (3584, 16, True), (2432, 32, True)):
-        cs._check_kernel(Kd, ts, bwd)
-        with pytest.raises(ValueError, match="shared memory"):
-            cs._check_kernel(Kd + 128, ts, bwd)
+    assert cs.window(128, 16, True) == 128
+    # past the room of the backward's partial sums the list takes windows
+    # (896 entries at ts 16, 128 at ts 32); the forward's are larger
+    assert cs.window(1024, 16, True) == 896
+    assert cs.window(256, 32, True) == 128
+    assert cs.window(3968, 16, False) == 3968
+    assert cs.window(4096, 16, False) == 3968
+    assert cs.window(4096, 32, False) == 3840
+    for ts in (1, 8, 12, 16, 24, 32):
+        for Kd in (128, 2048, 4096, 8192, 16384):
+            for bwd in (False, True):
+                assert cs.smem_bytes(Kd, ts, bwd) <= cs.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("ts", [12, 20, 28])
+@pytest.mark.parametrize("sigma", [3.0, None])
+def test_cull_with_masked_pixels(sigma, ts):
+    """Tile sizes that are not a multiple of 8: the warps on the tile's
+    right and bottom edges hold masked pixels, and their cull rectangles
+    are cut to the tile.  No pair whose pixels blend is culled (random
+    entries and entries whose footprints end just past the tile's last
+    pixel centres), and the cut culls entries that reach only the masked
+    pixels, so that the property is not met by culling nothing."""
+    tile = 5
+    ox, oy = origin(tile, ts)
+    rng = np.random.default_rng(ts)
+    K = 256
+    rows = conic_rows(ox + rng.uniform(-20, ts + 20, K),
+                      oy + rng.uniform(-20, ts + 20, K),
+                      rng.uniform(0.3, 4, K), rng.uniform(0.3, 4, K),
+                      rng.uniform(-0.6, 0.6, K),
+                      rng.choice([ALPHA_MIN32, 0.05, 0.5, CLAMP32], K))
+    hit, c, bad = violations(rows, [tile], sigma, ts)
+    assert bad == 0 and bool(hit.any()) and bool(c.any())
+    # footprints of sigma 0.5 whose alpha cut (inside the sigma cut) lies
+    # 0.05 px either side of the last pixel centres' row and column
+    s, op = 0.5, 0.03
+    d = s * np.sqrt(2 * np.log(op / ALPHA_MIN32))
+    edge = []
+    for gap in (-0.05, 0.05):
+        for k in range(4):
+            along = (k + 0.5) * ts / 4
+            edge.append((ox + ts - 0.5 + d + gap, oy + along))
+            edge.append((ox + along, oy + ts - 0.5 + d + gap))
+    ex, ey = (np.array(v) for v in zip(*edge))
+    rows = conic_rows(ex, ey, np.full(ex.size, s), np.full(ex.size, s),
+                      np.zeros(ex.size), np.full(ex.size, op))
+    hit, c, bad = violations(rows, [tile], sigma, ts)
+    assert bad == 0
+    inside = hit.any(dim=1)[0]             # the entries a pixel blends
+    assert bool(inside[:8].all()) and not bool(inside[8:].any())
+    # a rectangle not cut to the tile would keep the far entries
+    full = cs.warp_rects(torch.tensor([tile], dtype=torch.int32), ts, TX)
+    wgx = -(-ts // 8)
+    w = torch.arange(full.shape[1])
+    full[0, :, 1] = ((w % wgx) * 8 + 7).float() + 0.5 + ox
+    full[0, :, 3] = ((w // wgx) * 8 + 7).float() + 0.5 + oy
+    boxes = cs.cull_boxes(torch.as_tensor(rows), sigma)
+    assert int(cs.culled(boxes, full).sum()) < int(c.sum())

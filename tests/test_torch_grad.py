@@ -41,8 +41,9 @@ import jax.numpy as jnp
 
 from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
-    graph_leaves, jax_pusht_states, jax_raster, k1_inputs, k2_inputs, np_of,
-    random_state_vectors, selected_cotangent, torch_raster,
+    graph_leaves, jax_pusht_states, jax_raster, k1_inputs, k2_full_dyn_inputs,
+    k2_inputs, np_of, random_state_vectors, rows_rel_err, selected_cotangent,
+    torch_raster,
 )
 
 import __graft_entry__ as graft
@@ -117,6 +118,32 @@ def test_k2_bwd_plain_matches_pallas(sigma_cutoff, term_eps):
     assert got_s[0].any() and cd[1, 2] == 0
 
 
+def test_k2_reference_suffix_sums_on_long_lists():
+    """The reference's own K2b (``_call_bwd`` in interpret mode, float32
+    suffix sums ``s_tot - prefix``) on the inputs of the card test
+    ``test_k2_large_dyn_capacity`` at Kd 2048, ts 16 (dynamic lists of up
+    to 2,048 entries), against the port's plain backward in float64.
+    Measured: 6.41e-5 of a row's scale on the static gradient and 1.86e-5
+    on the dynamic one (the float32 plain version: 1.04e-5 and 2.7e-6).
+    This is the yardstick for the card kernels' float32 suffix sums on
+    the same input, which the card test measures beside it."""
+    spay, dpay, ids, cs, cd = k2_full_dyn_inputs(2048, 16)
+    B, T1 = ids.shape[0], spay.shape[0]
+    ct = selected_cotangent(np.random.default_rng(18), ids,
+                            (B, T1, 8, K_TS * K_TS))
+    _, vjp = jax.vjp(lambda s, d: jk2(
+        s, d, jnp.asarray(ids), jnp.asarray(cs), jnp.asarray(cd), K_TS, K_TX,
+        3.0, True, 1e-4, "split", False), jnp.asarray(spay), jnp.asarray(dpay))
+    ref_s, ref_d = (np_of(g) for g in vjp(jnp.asarray(ct)))
+    args = [torch.as_tensor(a) for a in (spay, dpay, ids, cs, cd, ct)]
+    exact_s, exact_d = (np_of(g) for g in
+                        composite_sel.composite_pair_sel_bwd_plain(
+                            *as_float64(args), K_TS, K_TX, 3.0, 1e-4))
+    err_s = rows_rel_err(ref_s[:T1 - 1], exact_s[:T1 - 1])
+    err_d = rows_rel_err(ref_d, exact_d)
+    assert 3e-5 < err_s < 1e-4 and 5e-6 < err_d < 4e-5, (err_s, err_d)
+
+
 def test_functions_backward_on_cpu():
     """The Functions' CPU backward is autograd through the plain forward;
     no kernel launches; the forward-only call builds no graph."""
@@ -175,13 +202,15 @@ def test_bwd_wrappers_check_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         composite_sel.composite_pair_sel_bwd_tiles(
             spay, dpay, ids, cs, cd, torch.zeros_like(out2), out2, K_TS, K_TX)
-    # K2b's shared memory: Kd + 128 staged entries, the merge positions, the
-    # warps' hit words and their partials of both lists (55 KB at the main
-    # path's Kd = 128 with 4 warps of 2 pixels a thread)
+    # K2b's shared memory: a window of W dynamic entries and one static
+    # chunk staged, the merge positions, the warps' hit words and their
+    # partials of both (55 KB at the main path's Kd = 128 with 4 warps of 2
+    # pixels a thread); the window is the largest that fits (896 at ts 16)
     assert composite_sel.smem_bytes(128, 16, True) == 55_936
     limit = composite_sel.SMEM_OPTIN_BYTES
-    assert composite_sel.smem_bytes(896, 16, True) <= limit \
-        < composite_sel.smem_bytes(1024, 16, True)
+    assert composite_sel._block_bytes(896, 4, True) <= limit \
+        < composite_sel._block_bytes(1024, 4, True)
+    assert composite_sel.window(1024, 16, True) == 896
 
 
 W = H = 64

@@ -272,3 +272,12 @@ def assert_rows_close(got, want, rel, what):
         err = float(np.abs(g - w).max())
         assert err <= rel * scale, \
             f"{what} row {r}: max|Δ| {err:.3e} > {rel} × {scale:.3e}"
+
+
+def rows_rel_err(got, want) -> float:
+    """The largest over payload rows (axis -2) of max|got - want| / that
+    row's largest |want| (numpy arrays or tensors on any device)."""
+    got, want = np_of(got), np_of(want)
+    return max(float(np.abs(got[..., r, :] - want[..., r, :]).max())
+               / float(np.abs(want[..., r, :]).max())
+               for r in range(want.shape[-2]))

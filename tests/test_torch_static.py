@@ -320,14 +320,18 @@ def test_k1_wrappers_on_the_cpu():
 
 def test_dynamic_capacities_the_card_takes():
     """K4's wrappers take any dynamic capacity on the CPU (the reference
-    does), and the card's limits are the shared memory's, computed from the
-    blocks' layout: K4f and K4b at most 5,632 at every tile size."""
-    composite_pair._check_smem(5632, 16)
-    composite_pair._check_smem(2048, 32)
-    with pytest.raises(ValueError, match="shared memory"):
-        composite_pair._check_smem(5760, 16)
-    assert composite_pair.bwd_smem_bytes(512, 16) \
-        <= cs.SMEM_OPTIN_BYTES < composite_pair.bwd_smem_bytes(640, 16)
+    does), and so do the card's kernels, which run K2's walk: the dynamic
+    list is staged in windows of the largest multiple of 128 that fits in a
+    block's shared memory, and every tile size up to 32 has a block."""
+    for ts in (12, 16, 32):
+        cs.kernel_threads(ts)
+        for Kd in (5632, 5760, 16384):
+            for bwd in (False, True):
+                assert cs.window(Kd, ts, bwd) % 128 == 0
+                assert cs.smem_bytes(Kd, ts, bwd) <= cs.SMEM_OPTIN_BYTES
+    assert cs.window(640, 16, True) == 640 and cs.window(1024, 32, True) == 128
+    with pytest.raises(ValueError, match="tile size"):
+        cs.kernel_threads(33)
     args = [torch.as_tensor(a) for a in k4_inputs(Kd=1152)]
     out = composite_pair.composite_pair(*args, 16, K_TX, 3.0, 1e-4)
     assert out.shape == (2, 6, 256, 8) and bool(torch.isfinite(out).all())
