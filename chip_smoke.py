@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent DIR`` (the root of another checkout, e.g. the parent
-commit's ``git archive``) it also builds that checkout's K2 and K4 kernels
-and times them on the same inputs, in turns with this tree's (parent,
-this, this, parent), beside this tree's times.
+commit's ``git archive``) it also builds that checkout's K2, K3 and K4
+kernels and times them on the same inputs, in turns with this tree's
+(parent, this, this, parent), beside this tree's times; K3 through the
+parent's own wrapper (``ops/composite_single.py``), whose launch interface
+differs from this tree's.
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of its path, and
@@ -30,9 +32,11 @@ training, at N=100k gaussians, SH degree 3, 256×256:
   backward kernels), timed;
 - the moving camera attached to each env's agent (K3f, K3b): the R=32
   frame candidate-cache rollout (``entry.make_step_moving_cached``) at
-  B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``),
-  and one frame against the full per-frame rebin
-  (``entry.make_step_moving``).
+  B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``,
+  with its peak device memory), and one frame against the full per-frame
+  rebin (``entry.make_step_moving``); and K3 in its shared-payload mode
+  (one env's lists shared by the B=16 envs of a frame), which no caller
+  runs, against its plain versions.
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -79,6 +83,9 @@ FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
 B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
              cam_height=-420.0, z_split=0.0)
+MV_RASTER = dict(tile_size=16, tile_capacity=1024, max_tiles_per_gaussian=16,
+                 sigma_cutoff=3.0, term_eps=1e-4,
+                 buckets=((4, 0.80), (9, 0.12), (16, 0.08)))
 TOL_REBIN = (2e-5, 1e-4)  # atol, rtol: the reference's own bound for the
                           # cached render against the full rebin
 # FLOP per (pixel, list entry) pair, exp as one: the alpha (dx, dy, the
@@ -249,9 +256,9 @@ def k2_slots_of_k4(spay, dpay, counts_s, counts_d, skip):
 
 
 def parent_libraries(parent):
-    """{source name: loaded library} of the K2 and K4 kernels of the checkout
-    at ``parent``, built from its ``csrc`` (one nvcc each, in parallel) into
-    ``sim_a_splat_torch/_build/parent/``."""
+    """{source name: loaded library} of the K2, K3 and K4 kernels of the
+    checkout at ``parent``, built from its ``csrc`` (one nvcc each, in
+    parallel) into ``sim_a_splat_torch/_build/parent/``."""
     import ctypes
     from pathlib import Path
     from sim_a_splat_torch.ops import _kernels
@@ -259,10 +266,23 @@ def parent_libraries(parent):
     out = _kernels.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     names = ("composite_sel", "composite_sel_bwd", "composite_pair",
-             "composite_pair_bwd")
+             "composite_pair_bwd", "composite_single", "composite_single_bwd")
     jobs = {n: (csrc / f"{n}.cu", csrc, out / f"lib{n}.so") for n in names}
     _kernels.compile_all(list(jobs.values()))
     return {n: ctypes.CDLL(str(job[2])) for n, job in jobs.items()}
+
+
+def parent_module(parent, name):
+    """The checkout ``parent``'s wrapper module ``ops/<name>.py``, loaded
+    beside this tree's (it launches whatever library ``_kernels`` holds for
+    its sources: the parent's inside ``kernels_of``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(parent).resolve() / "sim_a_splat_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @contextlib.contextmanager
@@ -282,18 +302,20 @@ def kernels_of(libs):
                 _kernels._loaded[n] = lib
 
 
-def versus_parent(label, fn, parent, reps):
+def versus_parent(label, fn, parent, reps, parent_fn=None):
     """With the parent's libraries ``parent``: ``fn()`` (one kernel call
     through its wrapper) timed by CUDA events with the parent's kernels and
     this tree's, in turns (parent, this, this, parent), logged with the
     ratio of the means; returns (this tree's ms, the parent's ms), or None
-    without ``parent``."""
+    without ``parent``.  ``parent_fn``, where given, is the call of the
+    parent's turns (through the parent's wrapper)."""
     if not parent:
         return None
     times = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         with kernels_of(parent) if who == "parent" else contextlib.nullcontext():
-            times[who].append(cuda_ms(fn, reps))
+            f = parent_fn if who == "parent" and parent_fn else fn
+            times[who].append(cuda_ms(f, reps))
     new, old = (sum(times[k]) / 2 for k in ("this", "parent"))
     log(f"  {label}: this tree {times['this'][0]:.4f} / {times['this'][1]:.4f}"
         f" ms, the parent's kernel {times['parent'][0]:.4f} / "
@@ -339,11 +361,13 @@ def main() -> int:
     report = _kernels.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(parallel nvcc; rebuilt: {sorted(report) or 'none, cached'})")
-    parent = None
+    parent = parent_k3 = None
     if "--parent" in sys.argv[1:]:
         t0 = time.perf_counter()
-        parent = parent_libraries(sys.argv[sys.argv.index("--parent") + 1])
-        log(f"the parent's K2 and K4 kernels built in "
+        parent_dir = sys.argv[sys.argv.index("--parent") + 1]
+        parent = parent_libraries(parent_dir)
+        parent_k3 = parent_module(parent_dir, "composite_single")
+        log(f"the parent's K2, K3 and K4 kernels built in "
             f"{time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
@@ -805,7 +829,8 @@ def main() -> int:
     # 12-15. the moving camera -----------------------------------------------
     kernels += moving_camera(entry, composite, composite_single,
                              rasterize_moving, pusht, graph, scene, P, gen,
-                             reset_counts, counts_now, profiled, dev)
+                             reset_counts, counts_now, profiled, parent,
+                             parent_k3, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -1264,19 +1289,17 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
 
 def moving_camera(entry, composite, composite_single, rasterize_moving,
                   pusht, graph, scene, P, gen, reset_counts, counts_now,
-                  profiled, dev):
+                  profiled, parent, parent_k3, dev):
     """The moving-camera path: K3f/K3b against their plain versions at full
-    size, the B=32 forward rollout (timed, profiled, one frame against the
-    full rebin), the B=16 train rollout (timed, broken down) and its
-    gradients against the plain path.  Returns the K3f and K3b entries of
-    the ``kernels`` line."""
+    size (and beside the parent's kernels with ``parent``), K3's shared
+    mode, the B=32 forward rollout (timed, profiled, one frame against the
+    full rebin), the B=16 train rollout (timed, broken down, its peak
+    memory) and its gradients against the plain path.  Returns the K3f and
+    K3b entries of the ``kernels`` line."""
     import numpy as np
     import torch
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
-    raster = RasterConfig(tile_size=16, tile_capacity=1024,
-                          max_tiles_per_gaussian=16, sigma_cutoff=3.0,
-                          term_eps=1e-4,
-                          buckets=((4, 0.80), (9, 0.12), (16, 0.08)))
+    raster = RasterConfig(**MV_RASTER)
 
     def rollout_of(R):
         return entry.make_step_moving_cached(graph, RES, RES, raster, R=R,
@@ -1340,6 +1363,9 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         f"active; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
         f"blended (α > 0); kernel {k3['ms']:.4f} ms, plain "
         f"{k3['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K3f", lambda: composite_single.composite_sel_single(*a3),
+                  parent, 20,
+                  parent_fn=lambda: parent_k3.composite_sel_single(*a3))
 
     log("K3b composite_sel_single_bwd vs composite_sel_single_bwd_plain "
         "(the plain version 4 envs at a time):")
@@ -1380,9 +1406,53 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
                plain_ms=cuda_ms(k3b_plain, 1, warmup=0),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"  gradient pairs (α > 0): {blended}; kernel {k3b['ms']:.4f} ms "
-        f"(with the gradient's zero fill), plain {k3b['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    del a3, spay, ids, counts_pad, out_k, out_p, out_s, ct3, a3b, g_k, g_p
+        f"(with its recompute of the chunk-start state), plain "
+        f"{k3b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent(
+        "K3b", lambda: composite_single.composite_sel_single_bwd(*a3b),
+        parent, 10,
+        parent_fn=lambda: parent_k3.composite_sel_single_bwd(*a3b))
+    del out_k, out_p, out_s, ct3, a3b, g_k, g_p
+
+    # 12b. K3 in the shared-payload mode: env 0's lists shared by all envs --
+    sp, cn = spay[0].contiguous(), counts_pad[0].contiguous()
+    a3s = (sp, ids, cn, *a3[3:])
+    log(f"K3 shared mode (spay {tuple(sp.shape)}, ids {tuple(ids.shape)}):")
+    bidx = torch.arange(Bk, device=dev)[:, None]
+    named = bidx, ids.long()
+    real = ids < T
+    out_k = composite_single.composite_sel_single(*a3s)[named][real]
+    out_p = composite_single.composite_sel_single_plain(*a3s)[named][real]
+    e3s = check("K3 shared", out_k[:, rows], out_p[:, rows], TOL, "rgb+trans")
+    dscale = max(1.0, float(sp[:, 8].abs().max()))
+    check("K3 shared", out_k[:, 3] / dscale, out_p[:, 3] / dscale, TOL,
+          "depth_acc / max depth")
+    with torch.enable_grad():
+        out_s = composite_single.composite_sel_single(
+            sp.detach().requires_grad_(), *a3s[1:]).detach()
+    ct3 = torch.zeros_like(out_s)
+    ct3[named] = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(Bk, ids.shape[1], 8, P_)).astype(np.float32), device=dev)
+    ct3[:, T] = 0.0
+    a3sb = (sp, ids, cn, ct3, out_s, *a3[3:])
+    g_k = composite_single.composite_sel_single_bwd(*a3sb)
+    g_p = torch.zeros_like(sp)
+    for b0 in range(0, Bk, 4):
+        sl = slice(b0, b0 + 4)
+        g_p += composite_single.composite_sel_single_bwd_plain(
+            sp, ids[sl], cn, ct3[sl], *a3[3:])
+    e3sb = check_rows("K3b shared", g_k[:T], g_p[:T], "payload grad (summed "
+                      "over envs by atomicAdd)")
+    if not bool(torch.isfinite(g_k).all()) or bool(g_k[T].any()):
+        raise AssertionError("K3b shared: gradient not finite, or the pad "
+                             "row got one")
+    f_ms = cuda_ms(lambda: composite_single.composite_sel_single(*a3s), 20)
+    b_ms = cuda_ms(lambda: composite_single.composite_sel_single_bwd(*a3sb),
+                   10)
+    log(f"  K3f shared {f_ms:.4f} ms, K3b shared {b_ms:.4f} ms (max|Δ| "
+        f"{e3s:.3e} / {e3sb:.3e})")
+    del a3, a3s, a3sb, spay, sp, ids, counts_pad, out_k, out_p, out_s, ct3
+    del g_k, g_p
 
     # 13. the forward rollout, B=32, timed ------------------------------------
     reset_counts()
@@ -1504,7 +1574,8 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
                  for n in fields)
     frames_s = wall - phases["build"] - phases["backward"]
     log(f"moving camera, train: rollout_loss_and_grads (B={B_MV_TRAIN}, "
-        f"R={R_MV}): {start.elapsed_time(end):.2f} ms (events), "
+        f"R={R_MV}; K3b recomputes its restart state): "
+        f"{start.elapsed_time(end):.2f} ms (events), "
         f"{wall * 1e3:.2f} ms (host clock), "
         f"{B_MV_TRAIN * R_MV / wall:.1f} frames/s; loss {float(loss):.6f}, "
         f"flags {flags_t.tolist()}, grads finite={finite}, launches "

@@ -63,25 +63,8 @@ composite_static_chunks(const float* __restrict__ payload,
   stat::stage_chunk(s, payload + (size_t)t * ROWS * K, K, c0, n, power_min,
                     pm);
   __syncthreads();
-  float T = 1.0f, acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  // composite_entry's steps for the thread's pixel
-  auto visit = [&](int i) {
-    const float4 g0 = s.g0[i];
-    const float2 g1 = s.g1[i];
-    const float a = pix.on ? geom_at(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y,
-                                     pix.px, pix.py, power_min, pm).alpha
-                           : 0.0f;
-    if (a > 0.0f) {
-      const float4 col = s.col[i];
-      const float w = a * T;
-      acc[0] = fmaf(w, col.x, acc[0]);
-      acc[1] = fmaf(w, col.y, acc[1]);
-      acc[2] = fmaf(w, col.z, acc[2]);
-      acc[3] = fmaf(w, col.w, acc[3]);
-      T = T * (1.0f - a);
-    }
-  };
-  stat::chunk_walk(s, n, pix.rect, visit);
+  float T, acc[4];
+  stat::composite_chunk(s, pix, n, power_min, pm, acc, T);
 
   if (!pix.on) return;
   const int P = ts * ts;

@@ -100,43 +100,13 @@ composite_static_bwd(const float* __restrict__ payload,
   }
   __syncthreads();
 
-  float* part = s.part + (threadIdx.x >> 5) * ROWS * CHUNK;
-  auto visit = [&](int i) {
-    const float4 g0 = s.g0[i];
-    const float2 g1 = s.g1[i];
-    float g[ROWS];
-    bool hit = false;
-    if (pix.on) {
-      const Geom G = geom_at(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, st.px,
-                             st.py, power_min, pm);
-      hit = G.alpha > 0.0f;
-      if (hit) {
-        const float4 c4 = s.col[i];
-        const float col[4] = {c4.x, c4.y, c4.z, c4.w};
-        stat::chunk_grad(G, g0.z, g0.w, g1.x, col, st, g);
-      }
-    }
-    if (!hit) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) g[r] = 0.0f;
-    }
-    sel::warp_sum_store(g, hit, part + i, CHUNK);
-  };
-  stat::chunk_walk(s, n, pix.rect, visit);
+  stat::grad_chunk(s, pix, n, power_min, pm, st);
   __syncthreads();
-
-  // each column: the sum over the warps that visited the entry, in warp
-  // order; zero past the count
-  for (int e = threadIdx.x; e < CHUNK; e += blockDim.x) {
-    const unsigned m = e < n ? stat::visitors(s, warps, e) : 0u;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float v = 0.0f;
-      for (unsigned mm = m; mm; mm &= mm - 1u)
-        v += s.part[((__ffs(mm) - 1) * ROWS + r) * CHUNK + e];
-      gt[r * K + c0 + e] = v;
-    }
-  }
+  // each column: the sum over the warps that visited the entry; zero past
+  // the count
+  stat::column_sums(s, warps, n, [&](int r, int e, float v) {
+    gt[r * K + c0 + e] = v;
+  });
 }
 
 }  // namespace

@@ -464,7 +464,8 @@ __device__ __forceinline__ void composite_block(
     T[k] = pix.on[k] ? 1.0f : 0.0f;
     acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
   }
-  // composite_entry's steps for each of the thread's pixels
+  // the front-to-back steps (w = alpha T, acc += w c, T *= 1 - alpha) for
+  // each of the thread's pixels
   auto visit = [&](int i) {
     const float4 g0 = s.g0[i];
     const float2 g1 = s.g1[i];

@@ -1,111 +1,157 @@
 // Kernel K3 backward: gsplat's gradient of the single-list selected-tile
-// composite, for all 10 rows of the per-env payload.
+// composite, for all 10 payload rows.
 //
 // Replaces the TPU kernel _bwd_kernel_single / _call_single_bwd of
 // sim_a_splat_tpu/ops/pallas_composite_sel.py (the backward of the custom
-// VJP composite_sel_single), in its per-env (4-D payload) mode.
+// VJP composite_sel_single), in both of its modes.
 //
-// Layout: spay (B, T+1, 10, K), ids (B, TT), counts (B, T+1) as in K3f
-// (composite_single.cu); ct (B, T+1, 8, P) the cotangent of out and out the
-// training forward's output, whose row 5 holds each slot's applied-chunk
-// count.  Output grad (B, T+1, 10, K), zeroed by the caller: the block of
-// slot (b, i) writes the columns of the chunks it applied at row
-// (b, ids[b, i]), so the gradient is scattered by tile id (each tile named
-// at most once per env; pad slots have count 0 and write nothing).
+// Layout: spay, ids, counts as in K3f (composite_single.cu), per-env
+// (B, T+1, 10, K) or shared (T+1, 10, K); ct (B, T+1, 8, P) the cotangent
+// of out, out the training forward's output, whose row 5 holds each slot's
+// applied-chunk count.  named (B, T+1): 1 where some slot of env b names
+// the row.
+// Output grad, shaped as spay:
+// - per-env: every column written once, at the row the slot names (the
+//   gradient scattered by tile id; each tile named at most once per env
+//   apart from the pad id, whose row has count 0), zero for rows no slot
+//   names and for entries the forward never applied;
+// - shared: each slot's gradient added to its tile's row with atomicAdd
+//   (the reference's _scatter_rows sum over envs and slots); the caller
+//   zeroes grad.
 //
-// Design: one block per (env, slot), one thread per pixel, as K3f.  The
-// block walks exactly the forward's applied chunks again from T = 1 with
-// the very float operations K3f used (entry_grad advances T as
-// composite_entry did), so every transmittance replays bit for bit and no
-// state beyond out is kept.  Suffix sums are taken against running
-// per-channel prefixes, ct . (out - prefix), which the walk rounds as the
-// forward rounded out: the reference's s_tot - (prefix + incl) cancels in
-// float32 on near-opaque tiles.  The 10 per-entry gradients are sums over
-// the tile's pixels: each warp reduces its 32 pixels with shuffles into its
-// own row of shared memory, and after the chunk the warps' partials are
-// added in warp order, so the result is deterministic and needs no atomics.
+// Design: K1b's restart (composite_static_walk.cuh).  One block per
+// (env, row, chunk) in per-env mode, per (env, slot, chunk) in shared mode.
+// A chunk the forward did not apply (at or past row 5's count) writes
+// zeros (per-env) or nothing (shared).  An applied chunk restarts from the
+// chunk-start tc and acc, which the block recomputes by compositing chunks
+// 0 .. c-1 as K3f does (most lists are one chunk long, so most blocks
+// recompute nothing).  So no state is kept: on the moving camera's frames
+// a state kept by K3f (lever k3_kept_state of chip_levers.py) made K3b
+// between 4 % slower and 19 % faster (about 11 % faster in the median of
+// six runs) and cost ~100 MiB a frame, 2.94 GiB more peak memory in a
+// B=16, R=32 train rollout (an H100 80GB HBM3 at 700 W).  It walks the
+// chunk with K1f's cull, keeping the chunk's local sums with the forward's
+// own operations, and takes each suffix as ct . (out - prefix) with
+// prefix = fmaf(tc, L, acc0): no float32 cancellation.  Per entry each
+// warp sums its pixels' 10 rows by K2b's 12-shuffle exchange into per-warp
+// partials, and the block adds the visiting warps' partials in warp order:
+// deterministic, and no atomics in per-env mode.
 //
-// What bounds it on an H100: the per-pixel sequential walk and the
-// per-entry warp reductions (latency and instruction issue), not bytes or
-// FLOPs: at B = 16, T = 256, K = 640 it reads the 105 MB payload and
-// ~34 MB each of cotangent and forward output and writes a 105 MB
-// gradient.  The design reads each payload column once per block, keeps
-// the walk in registers and skips the shuffles of a warp where no pixel
-// sees the entry.
+// What bounds it on an H100: the gradient of the kept pairs (~52 FLOP each)
+// and its IEEE division by 1 - alpha, and writing the gradient: at B = 16,
+// T = 256, K = 640 that is 105 MB, ~0.03 ms of the card's bandwidth, while
+// the applied payload it reads is ~12 MB.
 
 #include <cuda_runtime.h>
 
-#include "composite_common.cuh"
+#include "composite_static_walk.cuh"
 
 using namespace splat;
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(stat::MAX_THREADS)
 composite_single_bwd(const float* __restrict__ spay,
                      const int* __restrict__ ids,
                      const int* __restrict__ counts,
+                     const int* __restrict__ named,
                      const float* __restrict__ ct,
                      const float* __restrict__ out,
                      float* __restrict__ grad, int TT, int T1, int K, int ts,
-                     int tx, float power_min, int has_pmin) {
-  extern __shared__ float smem[];
-  float* s = smem;                     // (ROWS, CHUNK) current chunk
-  float* part = smem + ROWS * CHUNK;   // (warps, ROWS, CHUNK) partial sums
-  const int b = blockIdx.y;
-  const int t = ids[(size_t)b * TT + blockIdx.x];
-  const int p = threadIdx.x;
-  const int P = blockDim.x;
-  const int warps = P >> 5;
-  float* my_part = part + (p >> 5) * ROWS * CHUNK;
-  const size_t row = (size_t)b * T1 + t;
-  const int count = counts[row];
-  const bool pm = has_pmin != 0;
-  const float* list = spay + row * ROWS * K;
-  float* gt = grad + row * ROWS * K;
+                     int tx, float power_min, int has_pmin, int shared) {
+  extern __shared__ float4 smem[];
+  const int warps = blockDim.x >> 5;
+  const int b = blockIdx.z, c = blockIdx.x, c0 = c * CHUNK;
+  const int P = ts * ts;
+  // per-env: blockIdx.y is the row; shared: the slot, naming the row
+  const int tile = shared ? ids[(size_t)b * TT + blockIdx.y] : blockIdx.y;
+  const size_t row = (size_t)b * T1 + tile;
+  const size_t lrow = shared ? (size_t)tile : row;
+  const int count = counts[lrow];
+  float* gt = grad + lrow * ROWS * K;
   // the forward's applied-chunk count, the same at every pixel
-  const int applied = min((int)out[row * 8 * P + 5 * P],
-                          (count + CHUNK - 1) / CHUNK);
+  const bool on_row = shared || named[row] != 0;
+  const int napp = on_row ? (int)out[row * 8 * P + 5 * P] : 0;
 
-  BwdPixel st;
-  init_bwd_pixel(st, (float)(p % ts) + 0.5f + (float)((t % tx) * ts),
-                 (float)(p / ts) + 0.5f + (float)((t / tx) * ts),
-                 ct + row * 8 * P + p, out + row * 8 * P + p, P);
+  if (c >= napp || c0 >= count) {              // uniform across the block
+    if (!shared) zero_cols(gt, K, c0, c0 + CHUNK);
+    return;
+  }
+  const int n = min(CHUNK, count - c0);
+  const bool pm = has_pmin != 0;
+  const sel::Smem s = sel::carve(smem, 0, warps);
+  const stat::Pixel pix(ts, tx, tile);
+  const float* list = spay + lrow * ROWS * K;
+  const int p = pix.on ? pix.p : 0;
 
-  for (int c = 0; c < applied; ++c) {
-    const int c0 = c * CHUNK;
-    __syncthreads();                 // previous chunk's partials fully read
-    stage_chunk(s, list, K, c0);
+  // the chunk-start state, recomputed: chunks 0 .. c-1 composited and
+  // combined with K3f's very operations (bit for bit its state)
+  stat::BwdPixel st;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) st.acc0[j] = 0.0f;
+  st.tc = 1.0f;
+  for (int j = 0; j < c; ++j) {
+    stat::stage_chunk(s, list, K, j * CHUNK, CHUNK, power_min, pm);
     __syncthreads();
-    const int n = min(CHUNK, count - c0);
-    for (int e = 0; e < n; ++e) {
-      float g[ROWS];
-      const bool hit = entry_grad(s, CHUNK, e, power_min, pm, st, g);
-      warp_sum_rows(g, hit, my_part, CHUNK, e);
+    float local[4], tl;
+    stat::composite_chunk(s, pix, CHUNK, power_min, pm, local, tl);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      st.acc0[k] = fmaf(st.tc, local[k], st.acc0[k]);
+    st.tc = st.tc * tl;
+    __syncthreads();                           // the chunk fully read
+  }
+  stat::stage_chunk(s, list, K, c0, n, power_min, pm);
+  {
+    const float* ctp = ct + row * 8 * P + p;
+    const float* op = out + row * 8 * P + p;
+    st.px = pix.px;
+    st.py = pix.py;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      st.ct[j] = ctp[j * P];
+      st.out[j] = op[j * P];
+      st.L[j] = 0.0f;
     }
-    __syncthreads();
-    block_sum_rows(part, warps, CHUNK, n, CHUNK, gt + c0, K);
+    st.trans_term = ctp[4 * P] * op[4 * P];
+    st.Tl = 1.0f;
+  }
+  __syncthreads();
+
+  stat::grad_chunk(s, pix, n, power_min, pm, st);
+  __syncthreads();
+  if (shared) {
+    stat::column_sums(s, warps, n, [&](int r, int e, float v) {
+      if (v != 0.0f) atomicAdd(gt + r * K + c0 + e, v);
+    });
+  } else {
+    stat::column_sums(s, warps, n, [&](int r, int e, float v) {
+      gt[r * K + c0 + e] = v;
+    });
   }
 }
 
 }  // namespace
 
+// The caller checks the layout (ts <= 32, K % 128 == 0) and, in shared
+// mode, zeroes grad.
 extern "C" int composite_sel_single_bwd_launch(
-    const void* spay, const void* ids, const void* counts, const void* ct,
-    const void* out, void* grad, int B, int TT, int T1, int K, int ts, int tx,
-    float power_min, int has_pmin, void* stream) {
-  if (B > 0 && TT > 0) {
-    const int threads = ts * ts;
-    const size_t smem = sizeof(float) * ROWS * CHUNK * (1 + threads / 32);
-    cudaError_t err = cudaFuncSetAttribute(
-        composite_single_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    composite_single_bwd<<<dim3(TT, B), threads, smem,
+    const void* spay, const void* ids, const void* counts, const void* named,
+    const void* ct, const void* out, void* grad, int B, int TT, int T1, int K,
+    int ts, int tx, float power_min, int has_pmin, int shared, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  const int threads = stat::block_threads(ts);
+  const size_t smem = stat::smem_bytes(threads / 32, true);
+  cudaError_t err = cudaFuncSetAttribute(
+      composite_single_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = shared ? TT : T1;
+  if (rows > 0)
+    composite_single_bwd<<<dim3(K / CHUNK, rows, B), threads, smem,
                            (cudaStream_t)stream>>>(
         (const float*)spay, (const int*)ids, (const int*)counts,
-        (const float*)ct, (const float*)out, (float*)grad, TT, T1, K, ts, tx,
-        power_min, has_pmin);
-  }
+        (const int*)named, (const float*)ct, (const float*)out,
+        (float*)grad, TT, T1, K, ts, tx, power_min, has_pmin, shared);
   return (int)cudaGetLastError();
 }

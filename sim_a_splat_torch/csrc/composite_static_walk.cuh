@@ -1,7 +1,8 @@
-// The chunk walk of kernels K1f (composite.cu) and K1b (composite_bwd.cu):
-// one 128-entry chunk of one tile's depth-sorted static list, composited by
-// one block from transmittance 1, with K2's warp-level footprint cull and
-// entry-major staging (composite_sel_walk.cuh).
+// The chunk walk of kernels K1f (composite.cu) and K1b (composite_bwd.cu),
+// and of K3f (composite_single.cu) and K3b (composite_single_bwd.cu): one
+// 128-entry chunk of one tile's depth-sorted list, composited by one block
+// from transmittance 1, with K2's warp-level footprint cull and entry-major
+// staging (composite_sel_walk.cuh).
 //
 // Work split.  The reference composites a tile's chunks in order, but its
 // algebra does not need the order: each chunk's transmittances are taken
@@ -25,6 +26,9 @@
 // walk's former pixels-per-thread constant).  A chunk block walks 128
 // entries at most, so the smaller rectangle's finer cull and the doubled
 // warps count for more than sharing an entry's loads between two pixels.
+//
+// K3f (composite_single.cu) applies the same combine in a block that walks
+// one slot's chunks in order, and K3b restarts as K1b does.
 //
 // Cancellation rule of the backward.  K1b restarts chunk c from the
 // forward's saved tc and acc at the chunk's start and keeps the chunk's
@@ -114,6 +118,36 @@ __device__ __forceinline__ void chunk_walk(const sel::Smem& s, int n,
   }
 }
 
+// Composite staged entries [0, n) at this thread's pixel from T = 1 into
+// the chunk's local sums acc (r, g, b, depth) and local transmittance T,
+// with the reference's front-to-back steps: w = alpha T, acc += w c,
+// T *= 1 - alpha.  A pixel outside the tile composites nothing.
+__device__ __forceinline__ void composite_chunk(const sel::Smem& s,
+                                                const Pixel& pix, int n,
+                                                float power_min, bool pm,
+                                                float acc[4], float& T) {
+  T = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = 0.0f;
+  auto visit = [&](int i) {
+    const float4 g0 = s.g0[i];
+    const float2 g1 = s.g1[i];
+    const float a = pix.on ? geom_at(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y,
+                                     pix.px, pix.py, power_min, pm).alpha
+                           : 0.0f;
+    if (a > 0.0f) {
+      const float4 col = s.col[i];
+      const float w = a * T;
+      acc[0] = fmaf(w, col.x, acc[0]);
+      acc[1] = fmaf(w, col.y, acc[1]);
+      acc[2] = fmaf(w, col.z, acc[2]);
+      acc[3] = fmaf(w, col.w, acc[3]);
+      T = T * (1.0f - a);
+    }
+  };
+  chunk_walk(s, n, pix.rect, visit);
+}
+
 // The warps (a bit mask) that visited staged entry e < n, from their hit
 // words.
 __device__ __forceinline__ unsigned visitors(const sel::Smem& s, int warps,
@@ -122,6 +156,25 @@ __device__ __forceinline__ unsigned visitors(const sel::Smem& s, int warps,
   for (int w = 0; w < warps; ++w)
     m |= ((s.shit[w * (CHUNK / 32) + (e >> 5)] >> (e & 31)) & 1u) << w;
   return m;
+}
+
+// store(r, e, v) for every row r and column e < CHUNK of the staged chunk:
+// v the sum of the per-warp partials (s.part) of the warps that visited
+// entry e < n, added in warp order (deterministic); 0 past n.  All threads,
+// after a barrier that follows the walk.
+template <class Store>
+__device__ __forceinline__ void column_sums(const sel::Smem& s, int warps,
+                                            int n, Store store) {
+  for (int e = threadIdx.x; e < CHUNK; e += blockDim.x) {
+    const unsigned m = e < n ? visitors(s, warps, e) : 0u;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float v = 0.0f;
+      for (unsigned mm = m; mm; mm &= mm - 1u)
+        v += s.part[((__ffs(mm) - 1) * ROWS + r) * CHUNK + e];
+      store(r, e, v);
+    }
+  }
 }
 
 // Per-pixel state of K1b's walk of one chunk.
@@ -168,6 +221,39 @@ __device__ __forceinline__ void chunk_grad(const Geom& G, float ca, float cb,
   g[ROW_CC] = dpower * (-0.5f * G.dy * G.dy);
   g[ROW_OP] = G.active ? dalpha * G.expp : 0.0f;
   st.Tl = st.Tl * (1.0f - a);
+}
+
+// The gradient walk of staged entries [0, n) from the restart state st
+// (st.tc, st.acc0, st.L = 0, st.Tl = 1): each warp's per-entry sums of its
+// pixels' 10 rows (K2b's 12-shuffle exchange, sel::warp_sum_store) into its
+// partials s.part, for the entries it does not cull; column_sums adds them.
+__device__ __forceinline__ void grad_chunk(const sel::Smem& s,
+                                           const Pixel& pix, int n,
+                                           float power_min, bool pm,
+                                           BwdPixel& st) {
+  float* part = s.part + (threadIdx.x >> 5) * ROWS * CHUNK;
+  auto visit = [&](int i) {
+    const float4 g0 = s.g0[i];
+    const float2 g1 = s.g1[i];
+    float g[ROWS];
+    bool hit = false;
+    if (pix.on) {
+      const Geom G = geom_at(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, st.px,
+                             st.py, power_min, pm);
+      hit = G.alpha > 0.0f;
+      if (hit) {
+        const float4 c4 = s.col[i];
+        const float col[4] = {c4.x, c4.y, c4.z, c4.w};
+        chunk_grad(G, g0.z, g0.w, g1.x, col, st, g);
+      }
+    }
+    if (!hit) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) g[r] = 0.0f;
+    }
+    sel::warp_sum_store(g, hit, part + i, CHUNK);
+  };
+  chunk_walk(s, n, pix.rect, visit);
 }
 
 }  // namespace stat

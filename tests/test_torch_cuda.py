@@ -14,7 +14,9 @@ they differ only in how transmittance products and colour sums are
 accumulated — sequentially per pixel in the kernel, by ``cumprod`` or in
 log space in the plain versions: atol 2e-5 for K1f, atol 5e-5 / rtol 1e-4
 for K2f and K4f (the CPU tests' bounds against the reference), atol 2e-5
-for K3f (K1's walk on per-env lists).  K2's tests also cover narrow
+for K3f (K1's walk on each slot's list; every tile size from 1 to 32,
+list capacities of 1 to 16 chunks, both payload modes, and the shared
+mode's atomic gradient sums against float64).  K2's tests also cover narrow
 footprints (the warp-level cull active) and many envs adding into one
 tile's static gradient; K2's and K4's cover every tile size from 8 to 32
 in steps of 4 (masked pixels where ts % 8 != 0), dynamic capacities that
@@ -37,7 +39,8 @@ import torch
 from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
     k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
-    k2_shared_tile_inputs, k3_inputs, k4_inputs, rows_rel_err,
+    k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
+    rows_rel_err,
     selected_cotangent, torch_raster,
 )
 
@@ -410,6 +413,77 @@ def test_k3b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     # the trash row, an empty tile and entries past a count get nothing
     assert not got[:, K_T].any() and not got[0, 2].any()
     assert not got[0, 1, :, 100:].any() and got[0, 1, :, :100].any()
+
+
+def k3_check(dev, args, ts, sigma_cutoff, term_eps, what):
+    """K3f and K3b (through the Function) on CUDA tensors against the plain
+    versions: out rows 0-4 atol 2e-5 at the named rows, row 5 exact, each
+    gradient row within GRAD_REL; returns (out, grad, ct)."""
+    spay, ids, counts = args
+    leaf = spay.clone().requires_grad_()
+    before = (composite_single.launches, composite_single.launches_bwd)
+    out = composite_single.composite_sel_single(leaf, ids, counts, ts, TX,
+                                                sigma_cutoff, term_eps)
+    ref = composite_single.composite_sel_single_plain(
+        spay, ids, counts, ts, TX, sigma_cutoff, term_eps, save_state=True)
+    bidx = torch.arange(ids.shape[0], device=dev)[:, None]
+    rows = ids.long()
+    torch.testing.assert_close(out.detach()[bidx, rows][..., :5, :],
+                               ref[bidx, rows][..., :5, :], atol=2e-5,
+                               rtol=0, msg=what)
+    assert torch.equal(out.detach()[bidx, rows][..., 5, :],
+                       ref[bidx, rows][..., 5, :]), what
+    ct = torch.zeros_like(ref)
+    ct[bidx, rows] = torch.as_tensor(np.random.default_rng(ts).normal(
+        size=(*ids.shape, 8, ts * ts)).astype(np.float32), device=dev)
+    ct[:, -1] = 0.0
+    (out * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert (composite_single.launches, composite_single.launches_bwd) == \
+        (before[0] + 1, before[1] + 1), what
+    want = composite_single.composite_sel_single_bwd_plain(
+        spay, ids, counts, ct, ts, TX, sigma_cutoff, term_eps)
+    assert_rows_close(leaf.grad[..., :-1, :, :], want[..., :-1, :, :],
+                      GRAD_REL, what)
+    assert not leaf.grad[..., -1, :, :].any(), what   # the pad row
+    return out.detach(), leaf.grad, ct
+
+
+@pytest.mark.parametrize("ts", [1, 4, 7, 8, 12, 16, 20, 28, 32])
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k3_every_tile_size(dev, ts, sigma_cutoff, term_eps):
+    """K3f and K3b at every tile size the reference renders up to 32: K1's
+    8 × 4 warp rectangles with the pixels past the tile masked."""
+    args = [torch.as_tensor(a, device=dev) for a in k3_inputs(ts=ts)]
+    _, grad, _ = k3_check(dev, args, ts, sigma_cutoff, term_eps, f"ts {ts}")
+    # an empty tile and entries past a count get nothing
+    assert not grad[0, 2].any() and not grad[0, 1, :, 100:].any()
+
+
+@pytest.mark.parametrize("Km", [128, 640, 2048])
+@pytest.mark.parametrize("shared", [False, True])
+def test_k3_list_capacities(dev, Km, shared):
+    """K3 in both payload modes at list capacities of 1, 5 and 16 chunks
+    (counts past the capacity at 128)."""
+    make = k3_shared_inputs if shared else k3_inputs
+    args = [torch.as_tensor(a, device=dev) for a in make(Km=Km)]
+    k3_check(dev, args, TS, 3.0, 1e-4, f"Km {Km}, shared {shared}")
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k3b_shared_atomics_against_float64(dev, sigma_cutoff, term_eps):
+    """The shared mode's gradient, summed over envs and slots into each
+    tile's row by atomicAdd, against the plain backward in float64, on
+    tiles named by up to 3 envs at once."""
+    args = [torch.as_tensor(a, device=dev) for a in k3_shared_inputs()]
+    out, grad, ct = k3_check(dev, args, TS, sigma_cutoff, term_eps,
+                             "shared")
+    exact = composite_single.composite_sel_single_bwd_plain(
+        *as_float64(args[:1]), *args[1:], ct.double(), TS, TX, sigma_cutoff,
+        term_eps)
+    assert_rows_close(grad[:K_T], exact[:K_T], GRAD_REL,
+                      "K3b shared vs float64")
+    assert not grad[2].any()                  # the empty tile
 
 
 def test_moving_rollout_on_card_matches_cpu(dev):

@@ -181,21 +181,37 @@ def k2_full_dyn_inputs(Kd, ts=K_TS, seed=12):
     return spay, dpay.reshape(*ids.shape, 10, Kd), ids, counts_s, counts_d
 
 
-def k3_inputs(seed=2, Km=256):
-    """K3 inputs for two envs over the 3 × 2 tile grid: per-env payloads
-    (2, T+1, 10, Km) with the zero trash row, dense ids (each env names
-    every tile once, as the moving render does), counts covering a full
-    list, lists cut mid-chunk, an empty tile and a nearly opaque tile that
-    stops early."""
+def k3_inputs(seed=2, Km=256, ts=K_TS):
+    """K3 inputs for two envs over the 3 × 2 grid of ``ts`` × ``ts`` tiles:
+    per-env payloads (2, T+1, 10, Km) with the zero trash row, dense ids
+    (each env names every tile once, as the moving render does), counts
+    covering a full list, lists cut mid-chunk, an empty tile and a nearly
+    opaque tile that stops early."""
     rng = np.random.default_rng(seed)
     counts = np.asarray([[Km, 100, 0, 200, Km, 150, 0],
                          [60, Km, 130, 0, 250, Km, 0]], np.int32)
     B = counts.shape[0]
     spay = np.zeros((B, K_T + 1, 10, Km), np.float32)
     for b in range(B):
-        spay[b, :K_T] = tile_lists(rng, range(K_T), counts[b, :K_T], Km, K_TS,
+        spay[b, :K_T] = tile_lists(rng, range(K_T), counts[b, :K_T], Km, ts,
                                    K_TX, opaque=(4,) if b == 0 else (1,))
     ids = np.tile(np.arange(K_T, dtype=np.int32), (B, 1))
+    return spay, ids, counts
+
+
+def k3_shared_inputs(seed=5, Km=256, ts=K_TS):
+    """K3 inputs in the shared mode over the 3 × 2 tile grid: one payload
+    (T+1, 10, Km) with the zero trash row, counts (T+1,), and ids (3, 5)
+    naming tiles that repeat across envs (each at most once per env) and
+    pad slots (the pad id T, count 0)."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray([Km, 100, 0, 200, Km, 150, 0], np.int32)
+    spay = np.zeros((K_T + 1, 10, Km), np.float32)
+    spay[:K_T] = tile_lists(rng, range(K_T), counts[:K_T], Km, ts, K_TX,
+                            opaque=(4,))
+    ids = np.asarray([[0, 1, 3, 4, K_T],
+                      [4, 5, 0, K_T, K_T],
+                      [3, 1, 4, 2, 0]], np.int32)
     return spay, ids, counts
 
 

@@ -410,9 +410,15 @@ def test_k3_function_on_cpu():
 
 def test_k3_wrappers_check_inputs():
     spay, ids, counts = (torch.as_tensor(a) for a in k3_inputs())
-    with pytest.raises(NotImplementedError, match="shared"):
-        composite_single.composite_sel_single(spay[0], ids, counts[0], K_TS,
+    # the shared (T+1, 10, Km) mode takes counts (T+1,), not per-env ones
+    with pytest.raises(ValueError, match="counts_pad"):
+        composite_single.composite_sel_single(spay[0], ids, counts, K_TS,
                                               K_TX)
+    with pytest.raises(ValueError, match="spay_pad"):
+        composite_single.composite_sel_single(spay[None], ids, counts, K_TS,
+                                              K_TX)
+    with pytest.raises(ValueError, match="tile size"):
+        composite_single.composite_sel_single(spay, ids, counts, 33, K_TX)
     with pytest.raises(ValueError, match="multiple"):
         composite_single.composite_sel_single(spay[..., :200], ids, counts,
                                               K_TS, K_TX)

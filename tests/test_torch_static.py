@@ -83,15 +83,17 @@ def chunk_alphas(pay, count, c, px, py, pmin):
     return rows, (alpha, *geo[1:])
 
 
-def chunked_fwd(pay, counts, skip, ts, tx, sigma_cutoff, term_eps):
+def chunked_fwd(pay, counts, skip, ts, tx, sigma_cutoff, term_eps,
+                tile_ids=None):
     """Twin of K1f: every chunk before the count composited from T = 1,
     entry by entry (a chunk block's walk), then the in-order combine →
     (out (T, P, 8), carries (T, P, nc), chunk_acc (T, nc, 4, P)) and the
-    chunks applied (T,)."""
+    chunks applied (T,).  List i covers tile ``tile_ids[i]`` (default i)."""
     T, _, K = pay.shape
     P, nc = ts * ts, K // CHUNK
     pmin = power_min_of(sigma_cutoff)
-    px, py = pixel_centers(torch.arange(T), ts, tx)
+    px, py = pixel_centers(torch.arange(T) if tile_ids is None else tile_ids,
+                           ts, tx)
     count = torch.where(skip > 0, counts, torch.zeros_like(counts)).long()
     local_acc = pay.new_zeros((T, nc, P, 4))
     local_t = pay.new_ones((T, nc, P))
@@ -127,15 +129,18 @@ def chunked_fwd(pay, counts, skip, ts, tx, sigma_cutoff, term_eps):
 
 
 def chunked_bwd(pay, counts, skip, ct, out, carries, chunk_acc, ts, tx,
-                sigma_cutoff, term_eps):
-    """Twin of K1b: each chunk the forward applied (decided from carries)
+                sigma_cutoff, term_eps, tile_ids=None, n_applied=None):
+    """Twin of K1b: each chunk the forward applied (decided from carries,
+    or the first ``n_applied`` (T,) chunks where given, as K3b decides)
     restarted from its saved carries and chunk_acc, the chunk's local sums
     kept with the forward's own steps and the prefix formed with the
-    combine's → (grad (T, 10, K), prefix after each entry (T, K, P, 4))."""
+    combine's → (grad (T, 10, K), prefix after each entry (T, K, P, 4)).
+    List i covers tile ``tile_ids[i]`` (default i)."""
     T, _, K = pay.shape
     nc = K // CHUNK
     pmin = power_min_of(sigma_cutoff)
-    px, py = pixel_centers(torch.arange(T), ts, tx)
+    px, py = pixel_centers(torch.arange(T) if tile_ids is None else tile_ids,
+                           ts, tx)
     count = torch.where(skip > 0, counts, torch.zeros_like(counts)).long()
     ct_c, out_c = ct[..., :4], out[..., :4]
     trans_term = ct[..., 4] * out[..., 4]
@@ -144,7 +149,9 @@ def chunked_bwd(pay, counts, skip, ct, out, carries, chunk_acc, ts, tx,
     for c in range(nc):
         c0 = c * CHUNK
         applied = c0 < count
-        if term_eps is not None and c > 0:
+        if n_applied is not None:
+            applied &= c < n_applied
+        elif term_eps is not None and c > 0:
             applied &= carries[:, :, c].amax(dim=-1) >= term_eps
         rows, (alpha, active, expp, dx, dy) = chunk_alphas(pay, count, c, px,
                                                            py, pmin)
