@@ -419,7 +419,7 @@ def levers(dev) -> None:
     T1, _, K1 = pay.shape
     P1, nc1 = ts1 * ts1, K1 // k1.CHUNK
     pmin1 = k1.power_min_of(sigma1)
-    tail1 = (T1, K1, ts1, tx1, 0.0 if pmin1 is None else pmin1,
+    tail1 = (T1, T1, K1, ts1, tx1, 0.0 if pmin1 is None else pmin1,
              int(pmin1 is not None), 0.0 if term1 is None else term1,
              int(term1 is not None), stream)
 

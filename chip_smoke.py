@@ -36,7 +36,13 @@ training, at N=100k gaussians, SH degree 3, 256×256:
   with its peak device memory), and one frame against the full per-frame
   rebin (``entry.make_step_moving``); and K3 in its shared-payload mode
   (one env's lists shared by the B=16 envs of a frame), which no caller
-  runs, against its plain versions.
+  runs, against its plain versions;
+- the uncached step (``entry.make_step``, the reference's ``_make_step``
+  that its ``entry()`` returns; K1f, K1b with a leading env axis), B=128,
+  forward and in training (``entry.loss_and_grads(None, step, ...)``):
+  every env poses all N gaussians and renders all 256 tiles, one K1 launch
+  over the B·T tiles; batched K1f/K1b against their plain versions and
+  each env's rows against K1 run on that env alone, bit for bit.
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -79,6 +85,9 @@ FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
                    "composite_pair": 1.3624, "composite_pair_bwd": 4.2581,
                    "composite_static": 0.1340,
                    "composite_static_bwd": 0.5092}
+# the uncached step (bench.py's BENCH_CACHE=0 branch): timed steps, and the
+# envs its plain-version checks take at a time
+UC_ITERS, UC_PLAIN_ENVS, UC_GRAD_ENVS = 3, 4, 2
 # the moving camera (bench.py's moving_camera / moving_fwd variants)
 B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
@@ -831,6 +840,12 @@ def main() -> int:
                              rasterize_moving, pusht, graph, scene, P, gen,
                              reset_counts, counts_now, profiled, parent,
                              parent_k3, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 16-18. the uncached step (K1 over B images' tiles) -----------------------
+    torch.cuda.empty_cache()
+    kernels += uncached_step(entry, composite, pusht, graph, scene, P, raster,
+                             reset_counts, counts_now, profiled, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -1609,6 +1624,292 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         f"vs {float(loss_p)}, flags {flags_k.tolist()}")
     check_fields("train-rollout", g_k, g_p, fields)
     return [k3, k3b]
+
+
+def uncached_step(entry, composite, pusht, graph, scene, P, raster,
+                  reset_counts, counts_now, profiled, dev):
+    """The uncached step (``entry.make_step``, B=128): batched K1f/K1b
+    against their plain versions on the step's own inputs and, env by env,
+    against K1 run on that env alone (bit for bit); the forward step and
+    the train step timed, profiled and checked (launches, images and
+    gradients against the plain path on a few envs).  Returns the batched
+    K1f and K1b entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    step, _ = entry.make_step(graph, RES, RES, raster, device=dev)
+    states0 = pusht.reset(P, torch.Generator(device=dev).manual_seed(1), B)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    log(f"uncached step (make_step): B={B}, N={N}, sh{SH_DEGREE} scene "
+        f"(DC colours, as the reference's _make_step), {RES}², "
+        f"tile_capacity {raster.tile_capacity}, term_eps {raster.term_eps}")
+
+    # 16. batched K1f and K1b on the step's own inputs ------------------------
+    seen = {}
+    real_k1 = composite.composite_static
+
+    def capture(*args):
+        seen["k1"] = args
+        return real_k1(*args)
+
+    with torch.no_grad(), replaced(composite, "composite_static", capture):
+        _, imgs0 = step(scene, states0, actions)              # also warm-up
+    torch.cuda.synchronize()
+    a1 = seen.pop("k1")
+    pay, counts, skip = a1[:3]
+    Bk, T, _, K = pay.shape
+    P_, nc = a1[3] ** 2, K // composite.CHUNK
+    tail = a1[3:]
+    log(f"K1 composite_static with an env axis vs composite_static_plain "
+        f"(payload {tuple(pay.shape)}; the plain version {UC_PLAIN_ENVS} "
+        f"envs at a time):")
+    out_k, car_k, acc_k = composite.composite_static_fwd(*a1)
+    rows = [0, 1, 2, 4]
+    applied = torch.empty((Bk, T), dtype=torch.long, device=dev)
+    hits = torch.empty_like(applied)
+    e1 = 0.0
+    dscale = max(1.0, float(pay[:, :, 8].abs().max()))
+    for b0 in range(0, Bk, UC_PLAIN_ENVS):
+        sl = slice(b0, b0 + UC_PLAIN_ENVS)
+        out_p, car_p, applied[sl], hits[sl] = composite.composite_static_plain(
+            pay[sl], counts[sl], skip[sl], *tail, return_work=True)
+        for got, want, what in (
+                (out_k[sl][..., rows], out_p[..., rows], "rgb+trans"),
+                (car_k[sl], car_p, "carries"),
+                (out_k[sl][..., 3] / dscale, out_p[..., 3] / dscale,
+                 "depth_acc / max depth")):
+            err = float((got - want).abs().max())
+            if not err <= TOL:
+                raise AssertionError(f"batched K1 {what} disagrees with its "
+                                     f"plain version (envs {b0}+): {err}")
+            e1 = max(e1, err)
+        del out_p, car_p
+    log(f"  batched K1 rgb+trans, carries, depth_acc / max depth: max|Δ| = "
+        f"{e1:.3e} (tolerance {TOL:.1e})")
+    for b in range(Bk):                      # env b alone: the same bits
+        o, c, a = composite.composite_static_fwd(pay[b], counts[b], skip[b],
+                                                 *tail)
+        if not (torch.equal(o, out_k[b]) and torch.equal(c, car_k[b])
+                and torch.equal(a, acc_k[b])):
+            raise AssertionError(f"batched K1f: env {b}'s rows differ from "
+                                 "K1f run on env b alone")
+    log(f"  each of the {Bk} envs' out, carries and chunk_acc equal K1f run "
+        "on that env alone, bit for bit")
+    cnt = torch.where(skip > 0, counts, 0).long()
+    c0 = torch.arange(nc, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(cnt[..., None] - c0, 0, composite.CHUNK)
+    used = torch.arange(nc, device=dev) < applied[..., None]
+    entries = int((per_chunk * used).sum())
+    blended = int(hits.sum())
+    tiles_ = Bk * T
+    b_ms, b_by = bound(entries * 40 + tiles_ * 8 + tiles_ * P_ * (8 + nc) * 4,
+                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+
+    def plain_all():
+        for b0 in range(0, Bk, UC_PLAIN_ENVS):
+            sl = slice(b0, b0 + UC_PLAIN_ENVS)
+            composite.composite_static_plain(pay[sl], counts[sl], skip[sl],
+                                             *tail)
+
+    k1 = dict(name="composite_static_envs", route="cuda",
+              source="sim_a_splat_torch/csrc/composite.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite.py:238",
+              max_abs_err=e1,
+              ms=cuda_ms(lambda: composite.composite_static(*a1), 10),
+              plain_ms=cuda_ms(plain_all, 1, warmup=0),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # (a launch lasts milliseconds here, far past its Python dispatch, so
+    # CUDA events time the kernels themselves)
+    log(f"  applied entries {entries} of {int(cnt.clamp(max=K).sum())} "
+        f"active over {tiles_} tiles; (pixel, entry) pairs: {P_ * entries} "
+        f"alpha, {blended} blended (α > 0); kernel {k1['ms']:.4f} ms, "
+        f"plain {k1['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the profiler's reading of 3 such calls, launch by launch (the chunk
+    # blocks and the combine), beside the events' time above
+    _, avg = device_profile(lambda: [composite.composite_static(*a1)
+                                     for _ in range(3)])
+    rows_k = [e for e in avg if str(e.device_type).endswith("CUDA")
+              and "composite_static" in e.key]
+    for e in rows_k:
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        log(f"  profiler, 3 calls: {e.key[:60]} × {e.count}, "
+            f"{dev_us / 1e3 / max(e.count, 1):.4f} ms a launch")
+    if not rows_k:
+        log("  profiler, 3 calls: no K1f kernel recorded")
+
+    log("K1b composite_static_bwd with an env axis vs "
+        f"composite_static_bwd_plain ({UC_PLAIN_ENVS} envs at a time):")
+    ct1 = torch.as_tensor(np.random.default_rng(5).normal(
+        size=tuple(out_k.shape)).astype(np.float32), device=dev)
+    a1b = (pay, counts, skip, ct1, out_k, car_k, *tail)
+    g_k = composite.composite_static_bwd(*a1b, chunk_acc=acc_k)
+
+    def bwd_plain():
+        g = torch.empty_like(pay)
+        for b0 in range(0, Bk, UC_PLAIN_ENVS):
+            sl = slice(b0, b0 + UC_PLAIN_ENVS)
+            g[sl] = composite.composite_static_bwd_plain(
+                pay[sl], counts[sl], skip[sl], ct1[sl], *tail)
+        return g
+
+    g_p = bwd_plain()
+    e1b = check_rows("batched K1b", g_k, g_p, "payload grad")
+    if not bool(torch.isfinite(g_k).all()):
+        raise AssertionError("batched K1b: gradient not finite")
+    del g_p
+    for b in range(Bk):
+        g = composite.composite_static_bwd(pay[b], counts[b], skip[b], ct1[b],
+                                           out_k[b], car_k[b], *tail,
+                                           chunk_acc=acc_k[b])
+        if not torch.equal(g, g_k[b]):
+            raise AssertionError(f"batched K1b: env {b}'s gradient differs "
+                                 "from K1b run on env b alone")
+    log(f"  each of the {Bk} envs' gradient equals K1b run on that env "
+        "alone, bit for bit")
+    b_ms, b_by = bound(entries * 40 + tiles_ * 8
+                       + tiles_ * P_ * (2 * 5 + nc) * 4 + pay.numel() * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k1b = dict(name="composite_static_bwd_envs", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite.py:277",
+               max_abs_err=e1b,
+               ms=cuda_ms(lambda: composite.composite_static_bwd(
+                   *a1b, chunk_acc=acc_k), 5),
+               plain_ms=cuda_ms(bwd_plain, 1, warmup=0),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms, "
+        f"plain {k1b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del a1, a1b, pay, counts, skip, out_k, car_k, acc_k, ct1, g_k, g, o, c, a
+    torch.cuda.empty_cache()
+
+    # 17. the uncached step forward and in training, timed ---------------------
+    others = ("composite_pair_sel", "composite_pair_sel_bwd",
+              "composite_sel_single", "composite_sel_single_bwd",
+              "composite_pair", "composite_pair_bwd")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_host = time.perf_counter()
+    start.record()
+    states = states0
+    with torch.no_grad():
+        for _ in range(UC_ITERS):
+            states, imgs = step(scene, states, actions)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    step_ms = start.elapsed_time(end) / UC_ITERS
+    log(f"uncached step, forward: {UC_ITERS} × step, B={B}: {step_ms:.2f} "
+        f"ms/step (events), {wall / UC_ITERS * 1e3:.2f} ms/step (host "
+        f"clock), {B * 1e3 / step_ms:.1f} frames/s; launches {launches}, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["composite_static"] != UC_ITERS or \
+            launches["composite_static_bwd"] or \
+            any(launches[n] for n in others):
+        raise AssertionError(f"the uncached forward step launched {launches}")
+    if imgs.shape != (B, 3, RES, RES) or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"bad images {tuple(imgs.shape)}")
+    s_next = pusht.control_step(P, states0, actions)
+    with torch.no_grad(), replaced(pusht, "control_step", lambda *_: s_next):
+        rend_ms = cuda_ms(lambda: step(scene, states0, actions), 3)
+        rend_dev_ms = device_profile(lambda: step(scene, states0, actions))[0]
+    log(f"  breakdown (events): step without control_step {rend_ms:.2f} ms "
+        f"(its device time {rend_dev_ms:.2f} ms)")
+    with torch.no_grad():
+        profiled("uncached step", lambda: step(scene, states0, actions),
+                 step_ms)
+
+    # the image against the port's plain path on the first envs
+    sub = pusht.PushTState(*(f[:UC_PLAIN_ENVS] for f in states0))
+    with torch.no_grad():
+        _, imgs_k = step(scene, sub, actions[:UC_PLAIN_ENVS])
+        with replaced(composite, "composite_static",
+                      composite.composite_static_plain):
+            _, imgs_p = step(scene, sub, actions[:UC_PLAIN_ENVS])
+    e_img = check("uncached step", imgs_k, imgs_p, TOL,
+                  f"image vs the plain path (first {UC_PLAIN_ENVS} envs)")
+    del imgs, imgs0, imgs_k, imgs_p
+
+    fields = [n for n, f in zip(scene._fields, scene) if f is not None]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_host = time.perf_counter()
+    start.record()
+    states = states0
+    for _ in range(UC_ITERS):
+        states, loss, _, grads = entry.loss_and_grads(None, step, scene,
+                                                      states, actions)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    train_ms = start.elapsed_time(end) / UC_ITERS
+    finite = all(bool(torch.isfinite(getattr(grads, n)).all())
+                 for n in fields)
+    log(f"uncached step, train: {UC_ITERS} × loss_and_grads(None, step, ...) "
+        f"(mean(imgs²) and its gradient to {', '.join(fields)}): "
+        f"{train_ms:.2f} ms/step (events), {wall / UC_ITERS * 1e3:.2f} "
+        f"ms/step (host clock), {B * 1e3 / train_ms:.1f} frames/s; grads "
+        f"finite={finite}, loss {float(loss):.6f}, launches {launches}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not finite:
+        raise AssertionError("a gradient of the uncached train step is not "
+                             "finite")
+    for name in ("composite_static", "composite_static_bwd"):
+        if launches[name] != UC_ITERS:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times in {UC_ITERS} uncached train steps")
+    if any(launches[n] for n in others):
+        raise AssertionError(f"the uncached train step launched {launches}")
+    k1["launches"] = launches["composite_static"]
+    k1b["launches"] = launches["composite_static_bwd"]
+    del grads
+    leaves = type(scene)(*(None if f is None else f.detach().requires_grad_()
+                           for f in scene))
+    leaf_list = [f for f in leaves if f is not None]
+
+    def forward():
+        return torch.mean(step(leaves, states0, actions)[1] ** 2)
+
+    fwd_ms = cuda_ms(forward, 2)
+    loss0 = forward()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        loss0, leaf_list, retain_graph=True, allow_unused=True), 2)
+    bwd_dev_ms, avg = device_profile(lambda: torch.autograd.grad(
+        loss0, leaf_list, retain_graph=True, allow_unused=True))
+    del loss0
+    log(f"  breakdown (events, each phase alone): forward with the graph "
+        f"kept {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (its device time "
+        f"{bwd_dev_ms:.2f} ms); sum {fwd_ms + bwd_ms:.2f} ms vs "
+        f"{train_ms:.2f} ms/step")
+    for line in avg.table(sort_by="self_cuda_time_total",
+                          row_limit=6).splitlines()[:9]:
+        log("    " + line)
+    profiled("uncached train step", lambda: entry.loss_and_grads(
+        None, step, scene, states0, actions), train_ms)
+
+    # 18. the train step's gradients against the port's plain path -----------
+    sub = pusht.PushTState(*(f[:UC_GRAD_ENVS] for f in states0))
+    _, loss_k, _, g_k = entry.loss_and_grads(None, step, scene, sub,
+                                             actions[:UC_GRAD_ENVS])
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain):
+        _, loss_p, _, g_p = entry.loss_and_grads(None, step, scene, sub,
+                                                 actions[:UC_GRAD_ENVS])
+    log(f"uncached train step vs the plain path (first {UC_GRAD_ENVS} envs): "
+        f"loss {float(loss_k)} vs {float(loss_p)}")
+    read = [n for n in fields if n != "sh_rest"]   # DC colours: no sh_rest
+    e_grad = check_fields("uncached train-step", g_k, g_p, read)
+    if g_k.sh_rest is not None and bool(g_k.sh_rest.any()):
+        raise AssertionError("the uncached step reads no sh_rest, yet its "
+                             "gradient is nonzero")
+    log(f"uncached step: image max|Δ| vs plain {e_img:.3e}; train-step "
+        f"gradients max|Δ| / max|g| {e_grad:.3e}")
+    return [k1, k1b]
 
 
 if __name__ == "__main__":

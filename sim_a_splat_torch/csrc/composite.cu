@@ -10,7 +10,10 @@
 // out (T, P, 8) [r, g, b, depth_acc, trans, 0, 0, 0] and carries (T, P, nc),
 // the transmittance at the start of every 128-entry chunk, P = ts * ts; and
 // the state K1b restarts from, chunk_acc (T, nc, 4, P): the r, g, b,
-// depth_acc accumulators at the start of every chunk.
+// depth_acc accumulators at the start of every chunk.  T may be B images of
+// T_img tiles each, (B, T_img, ...) flattened (what jax.vmap of the
+// reference's kernel over envs computes): list t covers tile t % T_img of
+// its image, so a block takes its pixels from that tile.
 //
 // Design: two launches on one stream (composite_static_launch).
 // 1. One block per (tile, chunk) composites its chunk from T = 1
@@ -48,8 +51,8 @@ composite_static_chunks(const float* __restrict__ payload,
                         const int* __restrict__ counts,
                         const int* __restrict__ skip,
                         float* __restrict__ carries,
-                        float* __restrict__ chunk_acc, int K, int ts, int tx,
-                        float power_min, int has_pmin) {
+                        float* __restrict__ chunk_acc, int T_img, int K,
+                        int ts, int tx, float power_min, int has_pmin) {
   extern __shared__ float4 smem[];
   const int t = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
   const int count = skip[t] > 0 ? counts[t] : 0;
@@ -58,7 +61,7 @@ composite_static_chunks(const float* __restrict__ payload,
   const int n = min(CHUNK, count - c0);
   const bool pm = has_pmin != 0;
   const sel::Smem s = sel::carve(smem, 0, blockDim.x >> 5);
-  const stat::Pixel pix(ts, tx, t);
+  const stat::Pixel pix(ts, tx, t % T_img);
 
   stat::stage_chunk(s, payload + (size_t)t * ROWS * K, K, c0, n, power_min,
                     pm);
@@ -112,13 +115,14 @@ composite_static_combine(const int* __restrict__ counts,
 
 }  // namespace
 
-// The caller checks the layout (ts <= 32, K % 128 == 0).
+// The caller checks the layout (ts <= 32, K % 128 == 0, T_img divides T).
 extern "C" int composite_static_launch(const void* payload, const void* counts,
                                        const void* skip, void* out,
                                        void* carries, void* chunk_acc, int T,
-                                       int K, int ts, int tx, float power_min,
-                                       int has_pmin, float term_eps,
-                                       int has_term, void* stream) {
+                                       int T_img, int K, int ts, int tx,
+                                       float power_min, int has_pmin,
+                                       float term_eps, int has_term,
+                                       void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
   const int nc = K / CHUNK;
   const int threads = stat::block_threads(ts);
@@ -126,7 +130,8 @@ extern "C" int composite_static_launch(const void* payload, const void* counts,
   composite_static_chunks<<<dim3(T, nc), threads, smem,
                             (cudaStream_t)stream>>>(
       (const float*)payload, (const int*)counts, (const int*)skip,
-      (float*)carries, (float*)chunk_acc, K, ts, tx, power_min, has_pmin);
+      (float*)carries, (float*)chunk_acc, T_img, K, ts, tx, power_min,
+      has_pmin);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   composite_static_combine<<<T, ts * ts, 0, (cudaStream_t)stream>>>(

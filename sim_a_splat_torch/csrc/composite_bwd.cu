@@ -6,9 +6,9 @@
 // composite_pallas).
 //
 // Layout: payload (T, 10, K), counts (T,), skip (T,) as in K1f
-// (composite.cu); ct (T, P, 8) the cotangent of out, out (T, P, 8),
-// carries (T, P, nc) and chunk_acc (T, nc, 4, P) the forward's outputs and
-// saved state.  Output grad (T, 10, K): every column written once, zero for
+// (composite.cu), T possibly B images of T_img tiles each; ct (T, P, 8)
+// the cotangent of out, out (T, P, 8), carries (T, P, nc) and chunk_acc
+// (T, nc, 4, P) the forward's outputs and saved state.  Output grad (T, 10, K): every column written once, zero for
 // entries the forward never applied (past counts, skipped tiles, chunks
 // after the early stop).
 //
@@ -52,8 +52,8 @@ composite_static_bwd(const float* __restrict__ payload,
                      const float* __restrict__ out,
                      const float* __restrict__ carries,
                      const float* __restrict__ chunk_acc,
-                     float* __restrict__ grad, int K, int ts, int tx,
-                     float power_min, int has_pmin, float term_eps,
+                     float* __restrict__ grad, int T_img, int K, int ts,
+                     int tx, float power_min, int has_pmin, float term_eps,
                      int has_term) {
   extern __shared__ float4 smem[];
   const int warps = blockDim.x >> 5;
@@ -61,7 +61,7 @@ composite_static_bwd(const float* __restrict__ payload,
   const int P = ts * ts;
   const int c0 = c * CHUNK;
   const int count = skip[t] > 0 ? counts[t] : 0;
-  const stat::Pixel pix(ts, tx, t);
+  const stat::Pixel pix(ts, tx, t % T_img);
   float* gt = grad + (size_t)t * ROWS * K;
 
   bool applied = c0 < count;                   // uniform across the block
@@ -111,12 +111,12 @@ composite_static_bwd(const float* __restrict__ payload,
 
 }  // namespace
 
-// The caller checks the layout (ts <= 32, K % 128 == 0) and the shared
-// memory (stat::smem_bytes).
+// The caller checks the layout (ts <= 32, K % 128 == 0, T_img divides T)
+// and the shared memory (stat::smem_bytes).
 extern "C" int composite_static_bwd_launch(
     const void* payload, const void* counts, const void* skip, const void* ct,
     const void* out, const void* carries, const void* chunk_acc, void* grad,
-    int T, int K, int ts, int tx, float power_min, int has_pmin,
+    int T, int T_img, int K, int ts, int tx, float power_min, int has_pmin,
     float term_eps, int has_term, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
   const int threads = stat::block_threads(ts);
@@ -129,7 +129,7 @@ extern "C" int composite_static_bwd_launch(
                          (cudaStream_t)stream>>>(
       (const float*)payload, (const int*)counts, (const int*)skip,
       (const float*)ct, (const float*)out, (const float*)carries,
-      (const float*)chunk_acc, (float*)grad, K, ts, tx, power_min, has_pmin,
-      term_eps, has_term);
+      (const float*)chunk_acc, (float*)grad, T_img, K, ts, tx, power_min,
+      has_pmin, term_eps, has_term);
   return (int)cudaGetLastError();
 }

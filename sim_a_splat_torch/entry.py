@@ -1,10 +1,11 @@
 """Entry points of the port: the pushT splat scene, the batched env step
-and its train step, the per-env fixed-camera step, and the moving-camera
-rollout.
+and its train step, the per-env fixed-camera step, the uncached step, and
+the moving-camera rollout.
 
 Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
-``_make_step_moving`` and ``_make_step_moving_cached`` of the reference's
-entry module (``__graft_entry__.py``):
+``_make_step``, ``entry``, ``_make_step_moving`` and
+``_make_step_moving_cached`` of the reference's entry module
+(``__graft_entry__.py``):
 
 - a batch of pushT envs under one fixed camera, the static background
   binned and composited once per step (kernel K1) and each env's touched
@@ -15,6 +16,10 @@ entry module (``__graft_entry__.py``):
 - the same envs through the reference's per-env step (its vmapped
   ``_make_step_cached``, batched here): every tile of every env composited
   against the static lists without a merge (kernel K4, K4b in training);
+- the uncached step (the reference's vmapped ``_make_step``, batched here,
+  which its ``entry()`` returns): every env poses all N gaussians and
+  renders them through the full-grid rasterizer, kernel K1 over the B·T
+  tiles (K1b in training);
 - a camera attached to each env's agent: the R-frame rollout over per-env
   candidate caches (kernel K3, ``rollout_loss_and_grads`` its train step
   through K3b), and the full per-frame rebin (kernel K1) that is its
@@ -40,7 +45,9 @@ from sim_a_splat_torch.ops.rasterize_cached import (
     build_static_composite, build_tile_cache_raw, build_tile_cache_raw_sh,
     rasterize_cache_sel_batch, rasterize_with_cache, rasterize_with_cache_sh,
 )
-from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig, render_binned
+from sim_a_splat_torch.ops.rasterize_tiles import (
+    RasterConfig, rasterize_raw, render_binned,
+)
 from sim_a_splat_torch.ops.transforms import SE3
 from sim_a_splat_torch.physics import pusht
 from sim_a_splat_torch.physics.pusht import PushTParams
@@ -138,20 +145,24 @@ class _Bodies:
         self.z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev)
         self.q_identity = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
 
-    def pose(self, dyn: GaussianScene, states):
-        """World means and quats (B, Nd, ·) of the dynamic gaussians."""
+    def body_poses(self, states) -> SE3:
+        """(B, 3) world poses of the bodies: static (identity), T-block,
+        agent."""
         B = states.block_angle.shape[0]
         zeros1 = states.block_angle.new_zeros((B, 1))
         qb = quat.from_axis_angle(self.z_axis, states.block_angle)
         qa = quat.from_axis_angle(self.z_axis,
                                   torch.zeros_like(states.block_angle))
-        body_poses = SE3(
+        return SE3(
             torch.stack([self.q_identity.expand(B, 4), qb, qa], dim=1),
             torch.stack([zeros1.new_zeros((B, 3)),
                          torch.cat([states.block_pos, zeros1], -1),
                          torch.cat([states.agent_pos, zeros1], -1)],
-                        dim=1))                              # (B, 3)
-        rel = body_poses.compose(self.graph.rest_inv)
+                        dim=1))
+
+    def pose(self, dyn: GaussianScene, states):
+        """World means and quats (B, Nd, ·) of the dynamic gaussians."""
+        rel = self.body_poses(states).compose(self.graph.rest_inv)
         q_g = rel.q[:, self.dyn_ids]                         # (B, Nd, 4)
         t_g = rel.t[:, self.dyn_ids]
         return quat.rotate(q_g, dyn.means) + t_g, quat.multiply(q_g,
@@ -303,16 +314,69 @@ def make_step_cached(graph: SceneGraph, width: int, height: int,
     return prepare, step, params
 
 
-def _value_and_grads(scene: GaussianScene, fn):
+def make_step(graph: SceneGraph, width: int, height: int,
+              raster: RasterConfig, device="cuda"):
+    """The reference's uncached per-env pushT step under the fixed camera
+    (``_make_step``, which its ``entry()`` returns and its bench vmaps over
+    envs with ``BENCH_CACHE=0``), batched, differentiable in the scene
+    (``loss_and_grads(None, step, ...)`` takes its gradient).
+
+    Returns ``(step, params)``, ``step(scene, states (B, …), actions
+    (B, 2)) → (new_states, imgs (B, 3, H, W))``: control step, posing of
+    all N gaussians per env (the static body by the identity, as the
+    reference poses it), ``rasterize_raw`` of the (B, N) posed gaussians
+    with their DC colours (binning per env, kernel K1 over the B·T tiles,
+    untile) on a white background."""
+    dev = resolve_device(device)
+    graph = _on(graph, dev)
+    params = PushTParams()
+    cam = _fixed_camera(width, height, dev)
+    bodies = _Bodies(graph, dev)
+    white = torch.ones(3, device=dev)
+
+    def step(scene, states, actions):
+        new_states = pusht.control_step(params, states, actions)
+        posed = graph._replace(scene=scene).posed(
+            bodies.body_poses(new_states))               # means (B, N, 3)
+        imgs, _ = rasterize_raw(posed.means, posed.quats, posed.log_scales,
+                                posed.colors_dc(), posed.opacities(), cam,
+                                raster, background=white)
+        return new_states, imgs.permute(0, 3, 1, 2)
+
+    return step, params
+
+
+def entry(device="cuda"):
+    """``(step, (scene, states, actions))``: the reference's ``entry()``
+    example on the port, one env through :func:`make_step` (the default
+    scene, 128², ``RasterConfig(tile_capacity=512, chunk=64,
+    sigma_cutoff=3.0)``, state [80, 310, 149, 256, 0], action
+    [150, 300])."""
+    graph = build_scene(device=device)
+    dev = graph.scene.means.device
+    raster = RasterConfig(tile_capacity=512, chunk=64, sigma_cutoff=3.0)
+    step, params = make_step(graph, 128, 128, raster, device=dev)
+    states = pusht.set_state(params, torch.tensor(
+        [[80.0, 310.0, 149.0, 256.0, 0.0]], device=dev))
+    actions = torch.tensor([[150.0, 300.0]], device=dev)
+    return step, (graph.scene, states, actions)
+
+
+def _value_and_grads(scene: GaussianScene, fn, unread=()):
     """``fn(leaves) → (loss, *aux)`` on the scene's tensors made leaves that
     require grad → ``(loss, aux, grads)``, ``grads`` a GaussianScene of the
-    loss's gradients (None where the scene has no ``sh_rest``)."""
+    loss's gradients (None where the scene has no ``sh_rest``; zeros for
+    the fields named in ``unread``, which ``fn`` does not read, as
+    ``jax.grad`` gives).  Every other field must reach the loss."""
     leaves = GaussianScene(*(None if f is None else
                              f.detach().requires_grad_() for f in scene))
     loss, *aux = fn(leaves)
-    fields = [f for f in leaves if f is not None]
-    got = iter(torch.autograd.grad(loss, fields))
-    grads = GaussianScene(*(None if f is None else next(got) for f in leaves))
+    read = [f for name, f in zip(leaves._fields, leaves)
+            if f is not None and name not in unread]
+    got = iter(torch.autograd.grad(loss, read))
+    grads = GaussianScene(*(
+        None if f is None else torch.zeros_like(f) if name in unread
+        else next(got) for name, f in zip(leaves._fields, leaves)))
     return loss.detach(), aux, grads
 
 
@@ -321,20 +385,27 @@ def loss_and_grads(prepare, step_batch, scene: GaussianScene, states,
     """One train step of the batched env, as the reference's bench takes it
     (``jax.value_and_grad`` of ``mean(imgs ** 2)`` over the scene):
     ``prepare`` and ``step_batch`` from :func:`make_step_cached_batch` or
-    :func:`make_step_cached`.
+    :func:`make_step_cached`, or ``prepare=None`` and the uncached step of
+    :func:`make_step` as ``step_batch``.
 
-    The forward is ``prepare`` + ``step_batch``, and the backward runs
-    through the step's backward kernels on the card (K2b or K4b, and K1b;
-    their plain versions on the CPU).  Returns ``(new_states, loss, n_drop,
-    grads)``: ``n_drop`` is the step's third output (its truncation
-    counters) and ``grads`` a GaussianScene of the loss's gradients to
-    every scene field."""
+    The forward is ``prepare`` + ``step_batch`` (``step_batch`` alone
+    without ``prepare``), and the backward runs through the step's
+    backward kernels on the card (K2b or K4b, and K1b; their plain versions
+    on the CPU).  Returns ``(new_states, loss, n_drop, grads)``: ``n_drop``
+    is the step's third output (its truncation counters; None for the
+    uncached step, which has none) and ``grads`` a GaussianScene of the
+    loss's gradients to every scene field."""
     def fn(leaves):
-        new_states, imgs, n_drop = step_batch(prepare(leaves), leaves,
-                                              states, actions)
-        return torch.mean(imgs ** 2), new_states, n_drop
+        if prepare is None:
+            new_states, imgs, *rest = step_batch(leaves, states, actions)
+        else:
+            new_states, imgs, *rest = step_batch(prepare(leaves), leaves,
+                                                 states, actions)
+        return torch.mean(imgs ** 2), new_states, (rest[0] if rest else None)
 
-    loss, (new_states, n_drop), grads = _value_and_grads(scene, fn)
+    # the uncached step colours by the DC term alone, as the reference does
+    unread = ("sh_rest",) if prepare is None else ()
+    loss, (new_states, n_drop), grads = _value_and_grads(scene, fn, unread)
     return new_states, loss, n_drop, grads
 
 

@@ -25,7 +25,11 @@ r, g, b, depth, opacity], depth-sorted per tile, active entries first;
 chunks of 128 entries at or past ``counts`` are skipped, tiles with
 ``skip`` == 0 emit rgb 0 / trans 1, and a tile stops once every pixel's
 transmittance is below ``term_eps``, checked after each applied chunk.
-Entries the forward never applied get a zero gradient.
+Entries the forward never applied get a zero gradient.  Every function
+also takes a leading env axis, payload (B, T, 10, K) with (B, T) counts
+and skip, as ``jax.vmap`` of the reference's kernel over envs: the
+kernels run over the B·T lists and each list covers tile ``t % T`` of its
+image.
 """
 
 from __future__ import annotations
@@ -86,11 +90,21 @@ def composite_static_plain(payload: torch.Tensor, counts: torch.Tensor,
                            tile_ids: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K1, vectorised over tiles and pixels with a
     loop over chunks (the chunk-granular early stop of the kernel).  List i
-    covers tile ``tile_ids[i]`` (default: tile i).
+    covers tile ``tile_ids[i]`` (default: tile i); with a leading env axis
+    (payload (B, T, 10, K)) every env's list i does.
 
     Returns (out (T, P, 8), carries (T, P, nc)) and, with ``return_work``,
     the work these inputs need per tile: chunks applied (T,) and
-    (pixel, entry) pairs with alpha > 0, the ones composited (T,)."""
+    (pixel, entry) pairs with alpha > 0, the ones composited (T,); each
+    with the env axis in front where the payload has one."""
+    if payload.dim() == 4:
+        B, T = payload.shape[:2]
+        if tile_ids is None:
+            tile_ids = torch.arange(T, device=payload.device)
+        res = composite_static_plain(
+            payload.flatten(0, 1), counts.flatten(), skip.flatten(), ts, tx,
+            sigma_cutoff, term_eps, return_work, tile_ids.repeat(B))
+        return tuple(a.reshape(B, T, *a.shape[1:]) for a in res)
     T, _, K = payload.shape
     P = ts * ts
     nc = K // CHUNK
@@ -139,7 +153,8 @@ def composite_static_bwd_plain(payload: torch.Tensor, counts: torch.Tensor,
                                tx: int, sigma_cutoff: Optional[float] = None,
                                term_eps: Optional[float] = None):
     """Plain PyTorch version of K1b: the gradient of the payload (T, 10, K)
-    for the cotangent ``ct`` of ``out`` (T, P, 8), by autograd through
+    (or (B, T, 10, K)) for the cotangent ``ct`` of ``out`` (T, P, 8) (or
+    (B, T, P, 8)), by autograd through
     :func:`composite_static_plain` recomputed here.  It shares no algebra
     with the kernel's suffix sums, so it is an independent check."""
     with torch.enable_grad():
@@ -151,16 +166,17 @@ def composite_static_bwd_plain(payload: torch.Tensor, counts: torch.Tensor,
 
 
 def _check_inputs(payload, counts, skip, ts):
-    if payload.dtype != torch.float32 or payload.dim() != 3 \
-            or payload.shape[1] != 10:
-        raise ValueError("payload must be float32 (T, 10, K), got "
-                         f"{payload.dtype} {tuple(payload.shape)}")
-    T, _, K = payload.shape
+    if payload.dtype != torch.float32 or payload.dim() not in (3, 4) \
+            or payload.shape[-2] != 10:
+        raise ValueError("payload must be float32 (T, 10, K) or "
+                         f"(B, T, 10, K), got {payload.dtype} "
+                         f"{tuple(payload.shape)}")
+    lead, K = tuple(payload.shape[:-2]), payload.shape[-1]
     if K % CHUNK:
         raise ValueError(f"list capacity K={K} must be a multiple of {CHUNK}")
     for name, a in (("counts", counts), ("skip", skip)):
-        if a.dtype != torch.int32 or tuple(a.shape) != (T,):
-            raise ValueError(f"{name} must be int32 ({T},), got "
+        if a.dtype != torch.int32 or tuple(a.shape) != lead:
+            raise ValueError(f"{name} must be int32 {lead}, got "
                              f"{a.dtype} {tuple(a.shape)}")
         if a.device != payload.device:
             raise ValueError(f"{name} is on {a.device}, payload on "
@@ -208,10 +224,11 @@ def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
                          term_eps: Optional[float] = None):
     """K1f with the state K1b restarts from: (out (T, P, 8), carries
     (T, P, nc), chunk_acc (T, nc, 4, P), the r, g, b, depth_acc
-    accumulators at the start of every chunk).  CUDA tensors launch K1f
-    (one chunk-block launch and its combine, counted once in ``launches``);
-    CPU tensors run the plain version, whose backward needs no saved state
-    (chunk_acc None)."""
+    accumulators at the start of every chunk), each with the payload's env
+    axis in front where it has one.  CUDA tensors launch K1f (one
+    chunk-block launch and its combine over all B·T lists, counted once in
+    ``launches``); CPU tensors run the plain version, whose backward needs
+    no saved state (chunk_acc None)."""
     global launches
     _check_inputs(payload, counts, skip, ts)
     if payload.device.type == "cpu":
@@ -219,12 +236,12 @@ def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
                                               sigma_cutoff, term_eps)
         return out, carries, None
     payload, counts, skip = (a.contiguous() for a in (payload, counts, skip))
-    T, _, K = payload.shape
+    lead, K = tuple(payload.shape[:-2]), payload.shape[-1]
     P = ts * ts
     nc = K // CHUNK
-    out = payload.new_empty((T, P, 8))
-    carries = payload.new_empty((T, P, nc))
-    chunk_acc = payload.new_empty((T, nc, 4, P))
+    out = payload.new_empty(lead + (P, 8))
+    carries = payload.new_empty(lead + (P, nc))
+    chunk_acc = payload.new_empty(lead + (nc, 4, P))
     pmin = power_min_of(sigma_cutoff)
     launch = _kernels.function("composite", "composite_static_launch",
                                _FWD_ARGS)
@@ -232,8 +249,9 @@ def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
         stream = torch.cuda.current_stream(payload.device).cuda_stream
         rc = launch(
             payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
-            out.data_ptr(), carries.data_ptr(), chunk_acc.data_ptr(), T, K,
-            ts, tx, 0.0 if pmin is None else pmin, int(pmin is not None),
+            out.data_ptr(), carries.data_ptr(), chunk_acc.data_ptr(),
+            counts.numel(), lead[-1], K, ts, tx,
+            0.0 if pmin is None else pmin, int(pmin is not None),
             0.0 if term_eps is None else term_eps, int(term_eps is not None),
             stream)
     _kernels.check(rc, "composite_static")
@@ -251,16 +269,18 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
     """K1 backward: the gradient of the payload (T, 10, K) for the
     cotangent ``ct`` (T, P, 8) of the forward's ``out``, given that
     forward's ``out``, ``carries`` and ``chunk_acc``
-    (:func:`composite_static_fwd`).  CPU tensors run the plain version;
-    CUDA tensors launch K1b, which restarts every applied chunk from its
-    saved chunk-start transmittance and accumulators."""
+    (:func:`composite_static_fwd`), each with the payload's env axis in
+    front where it has one.  CPU tensors run the plain version; CUDA
+    tensors launch K1b, which restarts every applied chunk from its saved
+    chunk-start transmittance and accumulators."""
     global launches_bwd
     _check_inputs(payload, counts, skip, ts)
-    T, _, K = payload.shape
+    lead, K = tuple(payload.shape[:-2]), payload.shape[-1]
     P = ts * ts
     nc = K // CHUNK
-    for name, a, shape in (("ct", ct, (T, P, 8)), ("out", out, (T, P, 8)),
-                           ("carries", carries, (T, P, nc))):
+    for name, a, shape in (("ct", ct, lead + (P, 8)),
+                           ("out", out, lead + (P, 8)),
+                           ("carries", carries, lead + (P, nc))):
         if a.dtype != torch.float32 or tuple(a.shape) != shape \
                 or a.device != payload.device:
             raise ValueError(f"{name} must be float32 {shape} on "
@@ -269,7 +289,7 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
     if payload.device.type == "cpu":
         return composite_static_bwd_plain(payload, counts, skip, ct, ts, tx,
                                           sigma_cutoff, term_eps)
-    shape = (T, nc, 4, P)
+    shape = lead + (nc, 4, P)
     if chunk_acc is None or chunk_acc.dtype != torch.float32 \
             or tuple(chunk_acc.shape) != shape \
             or chunk_acc.device != payload.device:
@@ -291,7 +311,8 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
         rc = launch(
             payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
             ct.data_ptr(), out.data_ptr(), carries.data_ptr(),
-            chunk_acc.data_ptr(), grad.data_ptr(), T, K, ts, tx,
+            chunk_acc.data_ptr(), grad.data_ptr(), counts.numel(), lead[-1],
+            K, ts, tx,
             0.0 if pmin is None else pmin, int(pmin is not None),
             0.0 if term_eps is None else term_eps, int(term_eps is not None),
             stream)
@@ -328,16 +349,19 @@ def composite_static(payload: torch.Tensor, counts: torch.Tensor,
                      term_eps: Optional[float] = None):
     """K1: payload (T, 10, K) float32, counts/skip (T,) int32 →
     (out (T, P, 8) [r, g, b, depth_acc, trans, 0, 0, 0], carries (T, P, nc)),
-    differentiable in the payload.  CPU tensors run the plain versions;
-    CUDA tensors launch K1f, and K1b when the gradient is taken."""
+    differentiable in the payload; or B envs' (B, T, 10, K) and (B, T) →
+    (B, T, P, 8), (B, T, P, nc) in one launch.  CPU tensors run the plain
+    versions; CUDA tensors launch K1f, and K1b when the gradient is
+    taken."""
     _check_inputs(payload, counts, skip, ts)
     return CompositeStatic.apply(payload, counts, skip, ts, tx, sigma_cutoff,
                                  term_eps)
 
 
-# ctypes signatures of the launch functions: pointers, then
-# T, K, ts, tx, power_min, has_pmin, term_eps, has_term, stream
+# ctypes signatures of the launch functions: pointers, then the lists
+# T (B·T_img), the tiles of an image T_img, K, ts, tx, power_min, has_pmin,
+# term_eps, has_term, stream
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TAIL = [_I, _I, _I, _I, _F, _I, _F, _I, _VP]
+_TAIL = [_I, _I, _I, _I, _I, _F, _I, _F, _I, _VP]
 _FWD_ARGS = [_VP] * 6 + _TAIL
 _BWD_ARGS = [_VP] * 8 + _TAIL

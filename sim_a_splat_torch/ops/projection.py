@@ -1,10 +1,10 @@
 """Perspective camera model and EWA splat projection (float32 throughout).
 
 Port of ``sim_a_splat_tpu/ops/projection.py``: ``Camera.from_fov``,
-``Projected``, ``project_raw`` (with ``_rotation_rows`` and
-``_finish_projection``, and their ``dilate`` option) and
-``view_directions``.  Conventions follow gsplat "classic" mode: OpenCV
-camera-to-world pose, pinhole intrinsics, 2-D covariance
+``Projected``, ``project`` (from world covariances), ``project_raw`` (with
+``_rotation_rows`` and ``_finish_projection``, and their ``dilate``
+option) and ``view_directions``.  Conventions follow gsplat "classic"
+mode: OpenCV camera-to-world pose, pinhole intrinsics, 2-D covariance
 J W Σ Wᵀ Jᵀ + 0.3·I, radius = ceil(3·sqrt(λmax)).
 
 A camera holds one pose, or a batch of poses: pose leaves (B, 4) / (B, 3)
@@ -83,11 +83,14 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _finish_projection(p_cam, m0, m1, m2, camera: Camera, near: float,
-                       eps2d: float, dilate: float = 0.0) -> Projected:
+                       eps2d: float, dilate: float = 0.0,
+                       cov_cam=None) -> Projected:
     """Perspective Jacobian, 2-D conic, radius and culling from camera-frame
-    means and the rows of M = R_cam·S (Σ_cam = M Mᵀ).  ``dilate`` (pixels)
-    pads the 3σ radius and the image-bounds cull: the superset projection
-    the moving camera's candidate cache bins with."""
+    means and the rows of M = R_cam·S (Σ_cam = M Mᵀ), or from the
+    camera-frame covariances ``cov_cam`` (..., 3, 3) themselves (then
+    ``m0``-``m2`` are unused), each with the reference's expression.
+    ``dilate`` (pixels) pads the 3σ radius and the image-bounds cull: the
+    superset projection the moving camera's candidate cache bins with."""
     x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
     zc = torch.clamp(z, min=near)
     u = camera.fx * x / zc + camera.cx
@@ -101,11 +104,21 @@ def _finish_projection(p_cam, m0, m1, m2, camera: Camera, near: float,
     j11 = camera.fy * inv_z
     j12 = -camera.fy * y * inv_z2
 
-    a0 = j00[..., None] * m0 + j02[..., None] * m2
-    a1 = j11[..., None] * m1 + j12[..., None] * m2
-    a = _dot3(a0, a0) + eps2d
-    b = _dot3(a0, a1)
-    c = _dot3(a1, a1) + eps2d
+    if cov_cam is None:
+        a0 = j00[..., None] * m0 + j02[..., None] * m2
+        a1 = j11[..., None] * m1 + j12[..., None] * m2
+        a = _dot3(a0, a0) + eps2d
+        b = _dot3(a0, a1)
+        c = _dot3(a1, a1) + eps2d
+    else:           # Σ₂ = J Σc Jᵀ expanded (J has two zeros)
+        c00, c01, c02 = (cov_cam[..., 0, k] for k in range(3))
+        c11, c12, c22 = (cov_cam[..., 1, 1], cov_cam[..., 1, 2],
+                         cov_cam[..., 2, 2])
+        a = (j00 * (j00 * c00 + j02 * c02) + j02 * (j00 * c02 + j02 * c22)
+             + eps2d)
+        b = j00 * (j11 * c01 + j12 * c02) + j02 * (j11 * c12 + j12 * c22)
+        c = (j11 * (j11 * c11 + j12 * c12) + j12 * (j11 * c12 + j12 * c22)
+             + eps2d)
 
     det = a * c - b * b
     det_safe = torch.clamp(det, min=1e-12)
@@ -135,6 +148,20 @@ def _rotation_rows(q: torch.Tensor):
     r2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                       1 - 2 * (x * x + y * y)], dim=-1)
     return r0, r1, r2
+
+
+def project(means: torch.Tensor, covs: torch.Tensor, camera: Camera,
+            near: float = 0.01, eps2d: float = BLUR_2D) -> Projected:
+    """EWA projection of world-space gaussians: means (..., N, 3) and
+    covariances (..., N, 3, 3); Σ_cam = W Σ Wᵀ with W the world-to-camera
+    rotation, then :func:`_finish_projection`."""
+    w2c = camera.pose.inverse()
+    R = w2c.rotation_matrix()
+    p_cam = _apply_rotation(R, means) + w2c.t.unsqueeze(-2)
+    Rn = R.unsqueeze(-3)                 # one rotation for all N gaussians
+    cov_cam = Rn @ covs @ Rn.transpose(-1, -2)
+    return _finish_projection(p_cam, None, None, None, camera, near, eps2d,
+                              cov_cam=cov_cam)
 
 
 def project_raw(means: torch.Tensor, quats: torch.Tensor,

@@ -1,9 +1,9 @@
 """Batched quaternion math (wxyz convention) on torch tensors.
 
 Port of ``sim_a_splat_tpu/ops/quaternion.py`` (the functions the pushT step
-needs).  Every function takes arbitrary leading batch dimensions.  The
-expressions keep the reference's operation order so float32 rounding
-matches it term by term.
+and the transforms need).  Every function takes arbitrary leading batch
+dimensions.  The expressions keep the reference's operation order so
+float32 rounding matches it term by term.
 """
 
 from __future__ import annotations
@@ -39,6 +39,40 @@ def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_rotation_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → unit quaternion (..., 4) wxyz, w ≥ 0:
+    the four Shepperd candidates, each taken where its seed (the largest
+    diagonal combination) is largest, as the reference selects them."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def seeded(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS)) * 2.0
+
+    sw = seeded(1.0 + tr)
+    qw = torch.stack([0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw,
+                      (m10 - m01) / sw], dim=-1)
+    sx = seeded(1.0 + m00 - m11 - m22)
+    qx = torch.stack([(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx,
+                      (m02 + m20) / sx], dim=-1)
+    sy = seeded(1.0 - m00 + m11 - m22)
+    qy = torch.stack([(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy,
+                      (m12 + m21) / sy], dim=-1)
+    sz = seeded(1.0 - m00 - m11 + m22)
+    qz = torch.stack([(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz,
+                      0.25 * sz], dim=-1)
+    seeds = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                         m22 - m00 - m11], dim=-1)
+    choice = torch.argmax(seeds, dim=-1)          # first of equal seeds
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4, 4)
+    q = torch.gather(cands, -2, choice[..., None, None].expand(
+        *choice.shape, 1, 4))[..., 0, :]
+    q = torch.where(q[..., :1] < 0.0, -q, q)       # canonical sign: w ≥ 0
+    return normalize(q)
 
 
 def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

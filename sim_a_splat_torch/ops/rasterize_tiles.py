@@ -1,18 +1,27 @@
-"""Tile binning and the per-tile compositing dispatch.
+"""The tile rasterizer: binning, the per-tile gather and compositing.
 
 Port of ``sim_a_splat_tpu/ops/rasterize_tiles.py``: ``RasterConfig``,
 ``RasterAux``, ``_emit_tiles``, ``_bin_gaussians`` (footprint buckets, fused
 exact key tile·N + depth rank), ``gather_tile_lists``, ``untile_image``,
-``composite_dispatch`` with the Pallas backend's semantics (per-tile counts,
-chunk-granular early stop), which here is kernel K1 (``ops/composite.py``),
-and ``render_binned``.
+``composite_tiles`` (the reference's chunked cumulative-product scan, plain
+torch), ``composite_dispatch`` with the Pallas backend's semantics
+(per-tile counts, chunk-granular early stop), which here is kernel K1
+(``ops/composite.py``), ``render_binned`` and the entry points
+``rasterize``, ``rasterize_sh``, ``rasterize_raw`` and ``rasterize_raw_sh``.
 
-Binning takes an explicit leading batch axis: the per-env binning of the
-batched step is one sort over (B, E) keys instead of a loop over envs, and
-gives each env the same lists as binning it alone.  Every sort is
-``stable=True``: this scene has whole groups of gaussians at one depth, so
-their order comes from the tie-break alone, and the reference's sorts keep
-index order on ties.
+Binning, the gather, ``render_binned`` and the ``rasterize*`` functions
+take an optional leading env axis: (B, N, ...) gaussians under one camera
+give (B, ...) images, binned by one sort over (B, E) keys with each env's
+list starts offset into its own row, and composited by one K1 launch over
+the B·T tiles.  Each env gets the lists and the image of rendering it
+alone.  Every sort is ``stable=True``: this scene has whole groups of
+gaussians at one depth, so their order comes from the tie-break alone, and
+the reference's sorts keep index order on ties.
+
+Where the list capacity K is not a multiple of K1's 128-entry chunk, the
+reference composites with ``composite_tiles``, which ignores ``term_eps``;
+the port pads the lists with zero-opacity entries to the next multiple of
+128 and runs K1 without the early stop, which computes the same.
 """
 
 from __future__ import annotations
@@ -22,14 +31,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from sim_a_splat_torch.ops import composite
-from sim_a_splat_torch.ops.projection import Projected
+from sim_a_splat_torch.ops import sh as sh_ops
+from sim_a_splat_torch.ops.projection import (
+    Projected, project, project_raw, view_directions,
+)
 
 
 class RasterConfig(NamedTuple):
     """Static rasterizer configuration: the reference's fields that the
-    port's path reads.  Its ``chunk`` (the XLA scan's step), backend choice
-    and MXU precision have no counterpart: the kernels' chunk is fixed at
-    128 entries, as in the reference's Pallas kernels."""
+    port reads.  Its backend choice and MXU precision have no counterpart:
+    the port always composites with the kernels, whose chunk is fixed at
+    128 entries as in the reference's Pallas kernels; ``chunk`` is the step
+    of ``composite_tiles`` alone."""
 
     tile_size: int = 16            # pixels per tile side
     tile_capacity: int = 256       # K: max gaussians composited per tile
@@ -42,19 +55,22 @@ class RasterConfig(NamedTuple):
     # the per-env cached render: the merge-free pair kernel K4 (else merge
     # the lists with ``merge_sorted_lists`` and composite them with K1)
     fused_pair: bool = True
+    chunk: int = 64                # composite_tiles' scan step
 
 
 class RasterAux(NamedTuple):
     """Truncation accounting (see the reference's ``RasterAux``): bounded
     classes ``n_overflowed_tiles`` / ``n_slot_truncated``, severe class
-    ``n_sel_dropped_tiles``, and the per-tile list lengths ``tile_counts``
-    where the render has them.  The reference's ``alpha`` and ``depth``
-    fields are left out: nothing on the port's path reads them."""
+    ``n_sel_dropped_tiles``, the per-tile list lengths ``tile_counts``, and
+    the final opacity ``alpha`` and alpha-weighted mean depth ``depth``
+    (H, W) where the render has them (the full-grid ``render_binned``)."""
 
     n_overflowed_tiles: torch.Tensor
     n_slot_truncated: torch.Tensor
     n_sel_dropped_tiles: torch.Tensor
     tile_counts: Optional[torch.Tensor] = None
+    alpha: Optional[torch.Tensor] = None
+    depth: Optional[torch.Tensor] = None
 
 
 def _emit_tiles(tx0, ty0, bw, nt, rank, gid, M, tx, T, N):
@@ -155,28 +171,74 @@ def untile_image(a: torch.Tensor, tx: int, ty: int, ts: int, H: int, W: int):
     return a.reshape(lead + (ty * ts, tx * ts))[..., :H, :W]
 
 
+def composite_tiles(gxy: torch.Tensor, gconic: torch.Tensor,
+                    gcol: torch.Tensor, gop: torch.Tensor,
+                    gdepth: torch.Tensor, tile_ids: torch.Tensor,
+                    config: RasterConfig, tx: int):
+    """Chunked front-to-back compositing of per-tile gathered gaussians, the
+    reference's XLA path: (T', K, ·) depth-sorted lists with inactive
+    entries at opacity 0, ``tile_ids`` (T',) their global tile indices (a
+    device owning a tile subset composites its rows alone).  Every chunk
+    of ``config.chunk`` entries is composited by the closed form
+    w = α·cumprod(1−α)·T_carry; counts and ``term_eps`` play no part.
+
+    Returns (rgb (T', P, 3), depth_acc (T', P), trans (T', P))."""
+    ts = config.tile_size
+    Tloc, K = gop.shape
+    chunk = min(config.chunk, K)
+    if K % chunk:
+        raise ValueError(f"tile capacity {K} must be a multiple of chunk "
+                         f"{chunk}")
+    px, py = composite.pixel_centers(tile_ids, ts, tx)      # (T', P)
+    pmin = composite.power_min_of(config.sigma_cutoff)
+    payload = pack_payload(gxy, gconic, gcol, gop, gdepth)  # (T', 10, K)
+    P = ts * ts
+    rgb = gxy.new_zeros((Tloc, P, 3))
+    depth_acc = gxy.new_zeros((Tloc, P))
+    trans = gxy.new_ones((Tloc, P))
+    for c0 in range(0, K, chunk):
+        sl = slice(c0, c0 + chunk)
+        alpha = composite.entry_alpha(payload[:, :, sl], px, py, pmin)
+        cp = torch.cumprod(1.0 - alpha, dim=-1)
+        excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+        w = alpha * excl * trans[..., None]
+        rgb = rgb + torch.einsum("tpk,tkc->tpc", w, gcol[:, sl])
+        depth_acc = depth_acc + torch.einsum("tpk,tk->tp", w, gdepth[:, sl])
+        trans = trans * cp[..., -1]
+    return rgb, depth_acc, trans
+
+
 def gather_tile_lists(proj: Projected, colors: torch.Tensor,
                       opacities: torch.Tensor, config: RasterConfig, tx: int,
                       ty: int):
     """Bin + fixed-capacity per-tile gather.  Returns ((T, K, ·) lists with
-    inactive entries zero-opacity, counts, n_slot_truncated)."""
+    inactive entries zero-opacity, counts (T,), n_slot_truncated); with
+    batched ``proj`` (B, N, ...) the lists are (B, T, K, ·), each env's
+    gathered from its own row of the sorted keys, and ``colors`` /
+    ``opacities`` may be (N, ·) shared by the envs or (B, N, ·)."""
     K = config.tile_capacity
     (_, sorted_gidx, starts, counts,
      n_slot_trunc) = _bin_gaussians(proj, config, tx, ty)
     k = torch.arange(K, device=starts.device)
-    sel = torch.clamp(starts[:, None] + k, 0, sorted_gidx.shape[0] - 1)
-    entry_valid = k[None, :] < torch.clamp(counts, max=K)[:, None]
-    g = sorted_gidx[sel]                                   # (T, K)
-
+    sel = torch.clamp(starts[..., None] + k, 0, sorted_gidx.shape[-1] - 1)
+    entry_valid = k < torch.clamp(counts, max=K)[..., None]  # (·, T, K)
+    lead = tuple(proj.depth.shape[:-1])
+    N = proj.depth.shape[-1]
     payload = torch.cat([
         proj.xy,                                           # 0:2
         proj.conic,                                        # 2:5
-        colors,                                            # 5:8
-        torch.clamp(opacities, 0.0, 1.0)[:, None],         # 8
-        proj.depth[:, None],                               # 9
-    ], dim=1)
-    lists = payload[g]
-    gop = torch.where(entry_valid, lists[..., 8], torch.zeros_like(lists[..., 8]))
+        colors.expand(lead + (N, 3)),                      # 5:8
+        torch.clamp(opacities, 0.0, 1.0).expand(lead + (N,))[..., None],  # 8
+        proj.depth[..., None],                             # 9
+    ], dim=-1)
+    if lead:            # env b's starts index row b of the sorted ids
+        B = lead[0]
+        g = torch.gather(sorted_gidx, 1, sel.reshape(B, -1)).view(sel.shape)
+        lists = payload[torch.arange(B, device=g.device)[:, None, None], g]
+    else:
+        lists = payload[sorted_gidx[sel]]                  # (T, K, 10)
+    gop = torch.where(entry_valid, lists[..., 8],
+                      torch.zeros_like(lists[..., 8]))
     return ((lists[..., 0:2], lists[..., 2:5], lists[..., 5:8], gop,
              lists[..., 9]), counts, n_slot_trunc)
 
@@ -187,6 +249,8 @@ def pack_payload(gxy, gconic, gcol, gop, gdepth, pad_rows: int = 0):
     ``pad_rows`` zero rows are appended along the leading (tile) axis."""
     fields = torch.cat([gxy, gconic, gcol, gdepth[..., None],
                         gop[..., None]], dim=-1).transpose(-1, -2)
+    if not pad_rows:
+        return fields.contiguous()
     out = fields.new_zeros((fields.shape[0] + pad_rows, *fields.shape[1:]))
     out[:fields.shape[0]] = fields
     return out
@@ -195,15 +259,23 @@ def pack_payload(gxy, gconic, gcol, gop, gdepth, pad_rows: int = 0):
 def composite_dispatch(payload: torch.Tensor, counts: torch.Tensor,
                        config: RasterConfig, tx: int,
                        skip: Optional[torch.Tensor] = None):
-    """Composite full-grid tile lists, packed (T, 10, K) by
-    :func:`pack_payload`, with kernel K1 (``composite.composite_static``);
-    ``counts`` (T,) int32 active entries per tile, chunks past it are
-    skipped (and so are tiles without entries).  Tiles with ``skip`` (T,)
-    int32 == 0 emit rgb 0 / trans 1 and do no work (default: ``counts``).
-    Returns (rgb (T, P, 3), depth_acc (T, P), trans (T, P))."""
+    """Composite full-grid tile lists, packed (T, 10, K) or per env
+    (B, T, 10, K) by :func:`pack_payload`, with kernel K1
+    (``composite.composite_static``); ``counts`` (T,) or (B, T) int32 active
+    entries per tile, chunks past it are skipped (and so are tiles without
+    entries).  Tiles with ``skip`` int32 == 0 emit rgb 0 / trans 1 and do
+    no work (default: ``counts``).  A capacity K that is not a multiple of
+    128 is padded with zero-opacity entries and composited without the
+    early stop (the reference's ``composite_tiles`` fallback).
+    Returns (rgb (·, T, P, 3), depth_acc (·, T, P), trans (·, T, P))."""
+    term_eps = config.term_eps
+    pad = -payload.shape[-1] % composite.CHUNK
+    if pad:
+        payload = torch.nn.functional.pad(payload, (0, pad))
+        term_eps = None
     out, _ = composite.composite_static(
         payload, counts, counts if skip is None else skip, config.tile_size,
-        tx, config.sigma_cutoff, config.term_eps)
+        tx, config.sigma_cutoff, term_eps)
     return out[..., 0:3], out[..., 3], out[..., 4]
 
 
@@ -211,20 +283,74 @@ def render_binned(proj: Projected, colors: torch.Tensor,
                   opacities: torch.Tensor, camera, config: RasterConfig,
                   background: Optional[torch.Tensor] = None):
     """Tile-render already-projected gaussians (one camera) through kernel
-    K1 → ((H, W, 3) image, RasterAux)."""
+    K1 → ((H, W, 3) image, RasterAux with the (H, W) alpha and depth); with
+    batched ``proj`` (B, N, ...), B images (B, H, W, 3) in one K1 launch
+    and the aux's fields per env."""
     ts = config.tile_size
     H, W = camera.height, camera.width
     tx, ty = -(-W // ts), -(-H // ts)
     lists, counts, n_slot_trunc = gather_tile_lists(proj, colors, opacities,
                                                     config, tx, ty)
-    rgb, _, trans = composite_dispatch(pack_payload(*lists),
-                                       counts.to(torch.int32), config, tx)
+    rgb, depth_acc, trans = composite_dispatch(
+        pack_payload(*lists), counts.to(torch.int32), config, tx)
     if background is None:
         background = rgb.new_zeros(3)
     rgb = rgb + trans[..., None] * background
-    img = untile_image(rgb.permute(2, 0, 1), tx, ty, ts, H, W)
-    aux = RasterAux(n_overflowed_tiles=torch.sum(counts > config.tile_capacity),
-                    n_slot_truncated=n_slot_trunc,
-                    n_sel_dropped_tiles=torch.zeros_like(n_slot_trunc),
-                    tile_counts=counts)
-    return img.permute(1, 2, 0), aux
+
+    def untile(a):
+        return untile_image(a, tx, ty, ts, H, W)
+
+    img = untile(rgb.movedim(-1, -3)).movedim(-3, -1)
+    alpha = untile(1.0 - trans)
+    aux = RasterAux(
+        n_overflowed_tiles=torch.sum(counts > config.tile_capacity, dim=-1),
+        n_slot_truncated=n_slot_trunc,
+        n_sel_dropped_tiles=torch.zeros_like(n_slot_trunc),
+        tile_counts=counts,
+        alpha=alpha,
+        depth=untile(depth_acc) / torch.clamp(alpha, min=1e-10))
+    return img, aux
+
+
+def rasterize(means: torch.Tensor, covs: torch.Tensor, colors: torch.Tensor,
+              opacities: torch.Tensor, camera,
+              config: RasterConfig = RasterConfig(),
+              background: Optional[torch.Tensor] = None):
+    """Project + tile-render world-space gaussians → ((H, W, 3) image,
+    RasterAux): the tiled equivalent of ``render_reference``."""
+    return render_binned(project(means, covs, camera), colors, opacities,
+                         camera, config, background)
+
+
+def rasterize_sh(means: torch.Tensor, covs: torch.Tensor,
+                 sh_coeffs: torch.Tensor, opacities: torch.Tensor, camera,
+                 sh_degree: int, config: RasterConfig = RasterConfig(),
+                 background: Optional[torch.Tensor] = None):
+    """:func:`rasterize` with view-dependent SH colours (degree 0..3)."""
+    colors = sh_ops.eval_sh_color(sh_coeffs, view_directions(means, camera),
+                                  sh_degree)
+    return rasterize(means, covs, colors, opacities, camera, config,
+                     background)
+
+
+def rasterize_raw(means: torch.Tensor, quats: torch.Tensor,
+                  log_scales: torch.Tensor, colors: torch.Tensor,
+                  opacities: torch.Tensor, camera,
+                  config: RasterConfig = RasterConfig(),
+                  background: Optional[torch.Tensor] = None):
+    """Rasterize straight from raw gaussian parameters through
+    ``project_raw`` (no (N, 3, 3) covariances): the same output as
+    ``rasterize(means, compute_cov(quats, exp(log_scales)), ...)``.  With
+    (B, N, ·) gaussians, B images in one K1 launch."""
+    return render_binned(project_raw(means, quats, log_scales, camera),
+                         colors, opacities, camera, config, background)
+
+
+def rasterize_raw_sh(means, quats, log_scales, sh_coeffs, opacities, camera,
+                     sh_degree: int, config: RasterConfig = RasterConfig(),
+                     background: Optional[torch.Tensor] = None):
+    """Raw-parameter rasterization with view-dependent SH colours."""
+    colors = sh_ops.eval_sh_color(sh_coeffs, view_directions(means, camera),
+                                  sh_degree)
+    return rasterize_raw(means, quats, log_scales, colors, opacities, camera,
+                         config, background)

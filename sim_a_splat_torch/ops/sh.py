@@ -27,6 +27,10 @@ def sh_to_rgb(sh_dc: torch.Tensor) -> torch.Tensor:
     return sh_dc * C0 + 0.5
 
 
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    return (rgb - 0.5) / C0
+
+
 def _rest_bands(result, r, dirs, degree: int, off: int):
     """Add bands 1..degree; ``r[..., k + off, :]`` is basis function k."""
     if degree >= 1:

@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sim_a_splat_torch.ops import sh as sh_ops
+from sim_a_splat_torch.ops import covariance, sh as sh_ops
 
 
 class GaussianScene(NamedTuple):
@@ -27,13 +27,27 @@ class GaussianScene(NamedTuple):
     sh_rest: Optional[torch.Tensor] = None
 
     @property
+    def num_gaussians(self) -> int:
+        return self.means.shape[0]
+
+    @property
     def sh_degree(self) -> int:
         if self.sh_rest is None:
             return 0
         return int(round((1 + self.sh_rest.shape[1]) ** 0.5)) - 1
 
+    def scales(self) -> torch.Tensor:
+        return torch.exp(self.log_scales)
+
     def opacities(self) -> torch.Tensor:
         return torch.sigmoid(self.logit_opacities)
+
+    def covs(self) -> torch.Tensor:
+        """World-space 3×3 covariances Σ = R S Sᵀ Rᵀ."""
+        return covariance.compute_cov(self.quats, self.scales())
+
+    def covs_inv(self) -> torch.Tensor:
+        return covariance.compute_cov_inv(self.quats, self.scales())
 
     def colors_dc(self) -> torch.Tensor:
         return sh_ops.sh_to_rgb(self.sh_dc)
@@ -61,6 +75,10 @@ class GaussianScene(NamedTuple):
             def take(x):
                 return x[index]
         return GaussianScene(*(None if f is None else take(f) for f in self))
+
+    def astype(self, dtype) -> "GaussianScene":
+        return GaussianScene(*(None if f is None else f.to(dtype)
+                               for f in self))
 
     def to(self, device) -> "GaussianScene":
         return GaussianScene(*(None if f is None else f.to(device)

@@ -1,6 +1,6 @@
 """Kernels K1f, K1b, K2f, K2b, K3f, K3b, K4f and K4b on the card against
-their plain versions, and the port's step, train step, per-env step and
-moving-camera rollout on the card against its CPU path.
+their plain versions, and the port's step, train step, per-env step,
+uncached step and moving-camera rollout on the card against its CPU path.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import).  This file imports no
@@ -22,7 +22,10 @@ tile's static gradient; K2's and K4's cover every tile size from 8 to 32
 in steps of 4 (masked pixels where ts % 8 != 0), dynamic capacities that
 take several windows (up to 8,192), and K4 against K2 on the same (env,
 tile) pairs, bit for bit; K1's cover its edge cases (counts, skips, stops
-after chunk 0 and 1) at tile sizes 8, 12, 16 and 32.  Gradients: each
+after chunk 0 and 1) at tile sizes 8, 12, 16 and 32, alone and with a
+leading env axis (each env's rows bit for bit those of K1 run on that env
+alone), and the padded lists of a capacity that is not a multiple of 128.
+Gradients: each
 payload row within 2e-4 × that row's largest plain gradient.  The plain
 backward is autograd through the plain forward, held to the same bound
 against a float64 run on these near-opaque tiles with random cotangents
@@ -633,4 +636,117 @@ def test_per_env_step_on_card_matches_cpu(dev):
     torch.testing.assert_close(res["cuda"][2].cpu(), res["cpu"][2],
                                rtol=1e-5, atol=0)
     assert_fields_close(res["cuda"][3], res["cpu"][3],
+                        GRAD_REL)
+
+
+@pytest.mark.parametrize("ts", [8, 12, 16, 32])
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k1_env_axis(dev, ts, sigma_cutoff, term_eps):
+    """K1f and K1b over (B, T, 10, K) in one launch each: against the plain
+    versions, and each env's out, carries, chunk_acc and gradient equal to
+    K1 run on that env alone, bit for bit (block t takes tile t % T)."""
+    B = 3
+    ins = [k1_case_inputs(ts, seed=4 + b) for b in range(B)]
+    args = [torch.as_tensor(np.stack([a[i] for a in ins]), device=dev)
+            for i in range(3)]
+    before = (composite.launches, composite.launches_bwd)
+    out, car, chunk_acc = composite.composite_static_fwd(
+        *args, ts, TX, sigma_cutoff, term_eps)
+    ct = torch.as_tensor(np.random.default_rng(ts + 1).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    got = composite.composite_static_bwd(*args, ct, out, car, ts, TX,
+                                         sigma_cutoff, term_eps,
+                                         chunk_acc=chunk_acc)
+    torch.cuda.synchronize()
+    assert (composite.launches, composite.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    want, want_car = composite.composite_static_plain(*args, ts, TX,
+                                                      sigma_cutoff, term_eps)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(car, want_car, atol=2e-5, rtol=0)
+    assert_rows_close(got, composite.composite_static_bwd_plain(
+        *args, ct, ts, TX, sigma_cutoff, term_eps), GRAD_REL, "batched K1b")
+    for b in range(B):
+        one = [a[b] for a in args]
+        o, c, acc = composite.composite_static_fwd(*one, ts, TX, sigma_cutoff,
+                                                   term_eps)
+        g = composite.composite_static_bwd(*one, ct[b], o, c, ts, TX,
+                                           sigma_cutoff, term_eps,
+                                           chunk_acc=acc)
+        assert torch.equal(o, out[b]) and torch.equal(c, car[b])
+        assert torch.equal(acc, chunk_acc[b]) and torch.equal(g, got[b])
+
+
+def test_k1_padded_route_on_card(dev):
+    """A list capacity that is not a multiple of 128 (200): the lists are
+    padded to 256 with zero-opacity entries and K1 runs without the early
+    stop, on the card as on the CPU."""
+    from sim_a_splat_torch.ops import rasterize_tiles as tiles
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.transforms import SE3
+    from sim_a_splat_torch.splat import loaders
+    res = {}
+    for d in ("cpu", dev):
+        scene = loaders.synthetic_scene(300, seed=1, extent=0.8,
+                                        scale_range=(0.03, 0.12), device=d)
+        cam = Camera.from_fov(SE3(torch.tensor([1.0, 0, 0, 0], device=d),
+                                  torch.tensor([0.0, 0.0, -3.0], device=d)),
+                              0.8, 40, 28)
+        shift = torch.tensor([[[0.0, 0, 0]], [[0.1, -0.05, 0.2]]], device=d)
+        seen = []
+        real = composite.composite_static
+
+        def spy(*a):
+            seen.append((tuple(a[0].shape), a[-1]))
+            return real(*a)
+
+        composite.composite_static = spy
+        try:
+            launched = composite.launches
+            res[str(d)] = tiles.rasterize_raw(
+                scene.means + shift, scene.quats, scene.log_scales,
+                scene.colors_dc(), scene.opacities(), cam,
+                torch_raster(tile_capacity=200))
+        finally:
+            composite.composite_static = real
+        assert seen == [((2, 6, 10, 256), None)]   # padded, no early stop
+        if d == dev:
+            assert composite.launches == launched + 1
+    (img_g, aux_g), (img_c, aux_c) = res["cuda"], res["cpu"]
+    torch.testing.assert_close(img_g.cpu(), img_c, atol=5e-5, rtol=0)
+    torch.testing.assert_close(aux_g.alpha.cpu(), aux_c.alpha, atol=5e-5,
+                               rtol=0)
+    assert aux_g.tile_counts.tolist() == aux_c.tile_counts.tolist()
+
+
+def test_uncached_step_on_card_matches_cpu(dev):
+    """``entry.make_step`` forward and in training on the card (K1f, K1b
+    over the B·T tiles) against its CPU path."""
+    res = {}
+    for d in ("cpu", dev):
+        leaves = entry.build_scene_numpy(256, 64, 32, seed=0, sh_degree=3)
+        g = entry.graph_from_numpy(leaves, device=d)
+        step, P = entry.make_step(g, 64, 64, torch_raster(tile_capacity=1024),
+                                  device=d)
+        vec = np.asarray([[120, 200, 149, 256, 0.3],
+                          [60, 400, 180, 300, -1.0],
+                          [200, 100, 120, 150, 2.0]], np.float32)
+        states = pusht.set_state(P, torch.as_tensor(vec, device=d))
+        actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0],
+                                   [150.0, 150.0]], device=d)
+        launched = (composite.launches, composite.launches_bwd)
+        _, imgs = step(g.scene, states, actions)
+        _, loss, _, grads = entry.loss_and_grads(None, step, g.scene, states,
+                                                 actions)
+        res[str(d)] = (imgs, loss, grads)
+        if d == dev:
+            assert (composite.launches, composite.launches_bwd) == \
+                (launched[0] + 2, launched[1] + 1)
+    torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(res["cuda"][1].cpu(), res["cpu"][1],
+                               rtol=1e-5, atol=0)
+    got, want = res["cuda"][2], res["cpu"][2]
+    assert not bool(got.sh_rest.any()) and not bool(want.sh_rest.any())
+    assert_fields_close(got._replace(sh_rest=None), want._replace(sh_rest=None),
                         GRAD_REL)
