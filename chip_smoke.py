@@ -14,8 +14,8 @@ differs from this tree's.
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of its path, and
-drives three paths through the port's entry points, each forward and in
-training, at N=100k gaussians, SH degree 3, 256×256:
+drives the port's paths through its entry points, each forward and in
+training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
 
 - the fixed camera (K1f, K1b, K2f, K2b), B=128 envs: the batched pushT
   splat env step (``entry.make_step_cached_batch``) and its train step
@@ -42,7 +42,15 @@ training, at N=100k gaussians, SH degree 3, 256×256:
   forward and in training (``entry.loss_and_grads(None, step, ...)``):
   every env poses all N gaussians and renders all 256 tiles, one K1 launch
   over the B·T tiles; batched K1f/K1b against their plain versions and
-  each env's rows against K1 run on that env alone, bit for bit.
+  each env's rows against K1 run on that env alone, bit for bit;
+- the arm product path (``benchmarks/bench_product.py``; K1f, K1b, K2f,
+  K2b, K3f, K3b): ``entry.build_product_wrapper`` (pusharm6, a viewport
+  and an end-effector camera at 240×320, a 15 × 20 tile grid) and
+  ``entry.make_product_rollout``, B=8, R=32 frames after a 40-step settle,
+  forward and in training (``entry.product_loss_and_grads``), the kernels
+  against their plain versions at the path's inputs (the end-effector
+  camera's near set on), the B=1 teleop step with its moving-cache rebuild
+  timed apart, and the arm physics' share of the rollout.
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -88,6 +96,22 @@ FIRST_DESIGN_MS = {"composite_pair_sel": 1.2854,
 # the uncached step (bench.py's BENCH_CACHE=0 branch): timed steps, and the
 # envs its plain-version checks take at a time
 UC_ITERS, UC_PLAIN_ENVS, UC_GRAD_ENVS = 3, 4, 2
+# the arm product path (benchmarks/bench_product.py): envs, frames, settle
+# steps, timed teleop steps, and the envs and frames of its plain-path checks
+ARM_B, ARM_R, ARM_SETTLE, ARM_TELEOP_ITERS = 8, 32, 40, 10
+ARM_PLAIN_B, ARM_PLAIN_R, ARM_RES = 2, 2, (240, 320)
+# both product cameras sit inside the scene's background cloud: a gaussian
+# a centimetre in front of a lens covers thousands of pixels, and its
+# gradient (through the ill-conditioned 2-D covariance of its projection)
+# moves with the summation order of the composite: two float32 orders of the
+# same plain composite differed by 5.3e-4 of the field's largest on the CPU
+# (N=3,000, a gaussian 0.012 m from the viewport with a screen radius of
+# 8,924 px), and the kernels and the plain versions by up to 4.2e-3 (means)
+# on an H100 at N=100k, the other gaussians by 3.3e-7 of their own largest.
+# Gaussians within NEAR_LENS_M of a lens (the end-effector camera's near/far
+# split) are held to TOL_GRAD_NEAR × the field's largest gradient, the
+# others to TOL_GRAD × their own largest
+NEAR_LENS_M, TOL_GRAD_NEAR = 0.35, 1e-2
 # the moving camera (bench.py's moving_camera / moving_fwd variants)
 B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
@@ -162,6 +186,10 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+class NoDeviceTime(RuntimeError):
+    """The profiler recorded no device time for a call in every try."""
+
+
 def kernel_ms(fn, reps, tries=3):
     """Device time of one ``fn()``, its kernels' own time over ``reps``
     calls under the profiler (host gaps excluded: a call shorter than its
@@ -172,8 +200,18 @@ def kernel_ms(fn, reps, tries=3):
         ms = device_profile(lambda: [fn() for _ in range(reps)])[0] / reps
         if ms > 0:
             return ms
-    raise RuntimeError(f"the profiler recorded no device time in {tries} "
+    raise NoDeviceTime(f"the profiler recorded no device time in {tries} "
                        "tries")
+
+
+def device_ms_text(fn, reps):
+    """:func:`kernel_ms` for a log line beside a kernel's CUDA-event time
+    (the number kept): "not recorded" where three profiles held no device
+    time for the call, which happens now and then late in a whole run."""
+    try:
+        return f"{kernel_ms(fn, reps):.4f} ms"
+    except NoDeviceTime:
+        return "not recorded"
 
 
 def device_profile(fn):
@@ -333,6 +371,243 @@ def versus_parent(label, fn, parent, reps, parent_fn=None):
     return new, old
 
 
+def static_rows(a1, dev):
+    """K1f and K1b on the captured arguments ``a1`` of one
+    ``composite.composite_static`` call against their plain versions (K1b
+    for a numpy-seeded cotangent), timed by CUDA events beside their bound;
+    logs the applied chunks and the cull's skipped share.  Returns the two
+    rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops import composite, composite_sel
+    log("K1 composite_static vs composite_static_plain "
+        f"(payload {tuple(a1[0].shape)}):")
+    out_k, car_k, acc_k = composite.composite_static_fwd(*a1)
+    out_p, car_p, applied, hits = composite.composite_static_plain(
+        *a1, return_work=True)
+    pay, counts, skip = a1[:3]
+    rows = [0, 1, 2, 4]
+    e1 = max(check("K1", out_k[..., rows], out_p[..., rows], TOL, "rgb+trans"),
+             check("K1", car_k, car_p, TOL, "carries"))
+    dscale = max(1.0, float(pay[:, 8].abs().max()))
+    check("K1", out_k[..., 3] / dscale, out_p[..., 3] / dscale, TOL,
+          "depth_acc / max depth")
+    T, _, K = pay.shape
+    P_ = a1[3] ** 2
+    nc = K // composite.CHUNK
+    cnt = torch.where(skip > 0, counts, 0).long()
+    c0 = torch.arange(nc, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(cnt[:, None] - c0, 0, composite.CHUNK)
+    used = torch.arange(nc, device=dev)[None] < applied[:, None]
+    entries = int((per_chunk * used).sum())
+    blended = int(hits.sum())
+    b_ms, b_by = bound(entries * 40 + T * 8 + T * P_ * (8 + nc) * 4,
+                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+    k1 = dict(name="composite_static", route="cuda",
+              source="sim_a_splat_torch/csrc/composite.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite.py:238",
+              max_abs_err=e1,
+              ms=cuda_ms(lambda: composite.composite_static(*a1), 20),
+              plain_ms=cuda_ms(lambda: composite.composite_static_plain(*a1),
+                               3),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    chunk_blocks = int(torch.clamp((cnt + composite.CHUNK - 1)
+                                   // composite.CHUNK, max=nc).sum())
+    log(f"  applied entries {entries} of {int(cnt.clamp(max=K).sum())} "
+        f"active, chunks {int(applied.sum())} applied of {chunk_blocks} "
+        f"composited by the chunk blocks; (pixel, entry) pairs: "
+        f"{P_ * entries} alpha, {blended} blended (α > 0); kernel "
+        f"{k1['ms']:.4f} ms (its two launches' device time under the "
+        "profiler "
+        f"{device_ms_text(lambda: composite.composite_static(*a1), 20)}; "
+        f"first design {FIRST_DESIGN_MS['composite_static']} ms), plain "
+        f"{k1['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the (applied entry, warp) pairs that the cull skips, by the kernels'
+    # test's plain twin on K1's warp rectangles
+    box1 = composite_sel.cull_boxes(pay, a1[5])             # (T, 4, K)
+    cull1 = composite_sel.culled(box1, composite.warp_rects(
+        torch.arange(T, device=dev, dtype=torch.int32), a1[3], a1[4]))
+    col_used = (torch.arange(K, device=dev) < torch.minimum(
+        cnt, applied * composite.CHUNK)[:, None])           # (T, K)
+    skipped1 = int((cull1 & col_used[:, None]).sum())
+    pairs1 = int(col_used.sum()) * cull1.shape[1]
+    log(f"  cull skipped {skipped1} of {pairs1} (applied entry, warp) pairs "
+        f"({skipped1 / pairs1:.4f}); {composite.kernel_threads(a1[3])} "
+        f"threads a block")
+
+    # 3b. K1b at full size, for a numpy-seeded cotangent ----------------------
+    log("K1b composite_static_bwd vs composite_static_bwd_plain:")
+    ct1 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=tuple(out_k.shape)).astype(np.float32), device=dev)
+    a1b = (pay, counts, skip, ct1, out_k, car_k, *a1[3:])
+    g_k = composite.composite_static_bwd(*a1b, chunk_acc=acc_k)
+    g_p = composite.composite_static_bwd_plain(pay, counts, skip, ct1,
+                                               *a1[3:])
+    e1b = check_rows("K1b", g_k, g_p, "payload grad")
+    if not bool(torch.isfinite(g_k).all()):
+        raise AssertionError("K1b: gradient not finite")
+    # reads: applied payload columns, counts/skip, 5 channels each of ct and
+    # out, carries; writes every gradient column once
+    b_ms, b_by = bound(entries * 40 + T * 8 + T * P_ * (2 * 5 + nc) * 4
+                       + T * 10 * K * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k1b = dict(name="composite_static_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite.py:277",
+               max_abs_err=e1b,
+               ms=cuda_ms(lambda: composite.composite_static_bwd(
+                   *a1b, chunk_acc=acc_k), 20),
+               plain_ms=cuda_ms(lambda: composite.composite_static_bwd_plain(
+                   pay, counts, skip, ct1, *a1[3:]), 3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms "
+        "(device time under the profiler "
+        + device_ms_text(lambda: composite.composite_static_bwd(
+            *a1b, chunk_acc=acc_k), 20)
+        + f"; first design {FIRST_DESIGN_MS['composite_static_bwd']} ms), "
+        f"plain {k1b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return [k1, k1b]
+
+
+def sel_rows(a2, parent, dev, plain_envs=8):
+    """K2f and K2b on the captured arguments ``a2`` of one
+    ``composite_sel.composite_pair_sel`` call against their plain versions
+    (K2b for a numpy-seeded cotangent on the selected rows, the plain
+    version ``plain_envs`` envs at a time), timed by CUDA events beside
+    their bound (and the parent's kernels with ``parent``); logs the
+    cull's skipped share.  Returns the two rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops import composite, composite_sel
+    rows = [0, 1, 2, 4]
+    spay, dpay, ids, cs_pad, cd = a2[:5]
+    ts2, tx2, sigma2 = a2[5], a2[6], a2[7]
+    P_ = ts2 ** 2
+    log(f"K2 composite_pair_sel vs plain (spay {tuple(spay.shape)}, "
+        f"dpay {tuple(dpay.shape)}):")
+    out_k = composite_sel.composite_pair_sel(*a2)
+    out_p, applied, hits = composite_sel.composite_pair_sel_plain(
+        *a2, return_work=True)
+    bidx = torch.arange(ids.shape[0], device=dev)[:, None]
+    sel_k, sel_p = out_k[bidx, ids.long()], out_p[bidx, ids.long()]
+    e2 = check("K2", sel_k[:, :, rows], sel_p[:, :, rows], TOL,
+               "rgb+trans (selected rows)")
+    dscale = max(1.0, float(spay[:, 8].abs().max()), float(dpay[:, :, 8].abs().max()))
+    check("K2", sel_k[:, :, 3] / dscale, sel_p[:, :, 3] / dscale, TOL,
+          "depth_acc / max depth")
+    Ks, Kd = spay.shape[-1], dpay.shape[-1]
+    cs_slot = torch.clamp(cs_pad[ids.long()].long(), max=Ks)       # (B, TT)
+    c0 = torch.arange(Ks // composite.CHUNK, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(cs_slot[..., None] - c0, 0, composite.CHUNK)
+    used = torch.arange(len(c0), device=dev) < applied[..., None]
+    s_entries = (per_chunk * used).sum(-1)                          # (B, TT)
+    d_entries = torch.clamp(cd.long(), max=Kd)
+    entries = int(s_entries.sum() + d_entries.sum())
+    blended = int(hits.sum())
+    T1 = spay.shape[0]
+    tile_need = torch.zeros(T1, dtype=torch.long, device=dev).scatter_reduce(
+        0, ids.long().reshape(-1), s_entries.reshape(-1), "amax")
+    real = ids.long() < T1 - 1
+    rows_written = int(real.sum()) + int((~real).any(dim=1).sum())
+    nbytes = (int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
+              + ids.numel() * 8 + T1 * 4 + rows_written * 8 * P_ * 4)
+    b_ms, b_by = bound(nbytes,
+                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+    k2 = dict(name="composite_pair_sel", route="cuda",
+              source="sim_a_splat_torch/csrc/composite_sel.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:583",
+              max_abs_err=e2,
+              ms=cuda_ms(lambda: composite_sel.composite_pair_sel(*a2), 10),
+              plain_ms=cuda_ms(
+                  lambda: composite_sel.composite_pair_sel_plain(*a2), 1),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  slots {ids.numel()} ({int(real.sum())} real), entries "
+        f"{entries}; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
+        f"blended (α > 0); kernel {k2['ms']:.4f} ms "
+        f"({composite_sel.blocks_per_sm(False, Kd, ts2)} blocks/SM, "
+        f"{composite_sel.smem_bytes(Kd, ts2, False)} B shared; first design "
+        f"{FIRST_DESIGN_MS['composite_pair_sel']} ms), plain "
+        f"{k2['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K2f", lambda: composite_sel.composite_pair_sel(*a2),
+                  parent, 10)
+    # the (entry, warp) pairs of the applied entries that the cull skips,
+    # by the kernels' test's plain twin
+    sbox = composite_sel.cull_boxes(spay, sigma2)           # (T+1, 4, Ks)
+    dbox = composite_sel.cull_boxes(dpay, sigma2).flatten(0, 1)
+    lim_s = s_entries.reshape(-1, 1)
+    lim_d = d_entries.reshape(-1, 1)
+    flat_ids = ids.reshape(-1)
+    skipped = pairs = 0
+    for s0 in range(0, flat_ids.numel(), 512):
+        sl = slice(s0, s0 + 512)
+        rects = composite_sel.warp_rects(flat_ids[sl], ts2, tx2)
+        cs_ = composite_sel.culled(sbox[flat_ids[sl].long()], rects)
+        cd_ = composite_sel.culled(dbox[sl], rects)
+        on_s = torch.arange(Ks, device=dev) < lim_s[sl]     # (S, Ks)
+        on_d = torch.arange(Kd, device=dev) < lim_d[sl]
+        skipped += int((cs_ & on_s[:, None]).sum() + (cd_ & on_d[:, None]).sum())
+        pairs += (int(on_s.sum()) + int(on_d.sum())) * rects.shape[1]
+    log(f"  cull skipped {skipped} of {pairs} (entry, warp) pairs "
+        f"({skipped / pairs:.4f})")
+
+    # 4b. K2b at full size, for a numpy-seeded cotangent on the selected rows -
+    B_, TT = ids.shape
+    log(f"K2b composite_pair_sel_bwd vs composite_pair_sel_bwd_plain "
+        f"(all {B_ * TT} slots; the plain version {plain_envs} envs at a "
+        "time):")
+    ct2 = torch.zeros_like(out_k)
+    ct2[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(B_, TT, 5, P_)).astype(np.float32), device=dev)
+    ct2[:, T1 - 1] = 0.0                       # the trash row: pads only
+    a2b = (spay, dpay, ids, cs_pad, cd, ct2, out_k, *a2[5:])
+
+    def k2b_plain():
+        g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
+        for b0 in range(0, B_, plain_envs):
+            sl = slice(b0, b0 + plain_envs)
+            s_, d_ = composite_sel.composite_pair_sel_bwd_plain(
+                spay, dpay[sl], ids[sl], cs_pad, cd[sl], ct2[sl], *a2[5:])
+            g_s += s_
+            g_d[sl] = d_
+        return g_s, g_d
+
+    gs_p, gd_p = k2b_plain()
+    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
+    e2b = max(check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
+                         "static grad, summed per tile"),
+              check_rows("K2b", gd_k, gd_p, "dynamic grad"))
+    if not (bool(torch.isfinite(gs_k).all()) and bool(torch.isfinite(gd_k).all())):
+        raise AssertionError("K2b: gradient not finite")
+    if bool(gs_k[T1 - 1].any()) or bool(gd_k[~real].any()):
+        raise AssertionError("K2b: pad slots or the trash row got a nonzero "
+                             "gradient")
+    # reads as K2f plus 5 channels each of ct and out at every written row;
+    # writes the per-tile static gradient (atomic adds into (T+1, 10, Ks))
+    # and the per-slot dynamic gradient once
+    b_ms, b_by = bound(int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
+                       + ids.numel() * 8 + T1 * 4 + rows_written * 2 * 5 * P_ * 4
+                       + T1 * 10 * Ks * 4 + ids.numel() * 10 * Kd * 4,
+                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    k2b = dict(name="composite_pair_sel_bwd", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_sel_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:633",
+               max_abs_err=e2b,
+               # the whole gradient: the per-tile sum is in the kernel
+               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+                          10),
+               plain_ms=cuda_ms(k2b_plain, 1, warmup=0),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  gradient pairs (α > 0): {blended}; kernel {k2b['ms']:.4f} ms "
+        f"with the per-tile sum and its zero fill "
+        f"({composite_sel.blocks_per_sm(True, Kd, ts2)} blocks/SM, "
+        f"{composite_sel.smem_bytes(Kd, ts2, True)} B shared; first design "
+        f"{FIRST_DESIGN_MS['composite_pair_sel_bwd']} ms), plain "
+        f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    versus_parent("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+                  parent, 10)
+    return [k2, k2b]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -417,225 +692,10 @@ def main() -> int:
 
     kernels = []
 
-    # 3. K1 at full size --------------------------------------------------------
-    log("K1 composite_static vs composite_static_plain "
-        f"(payload {tuple(seen['k1'][0].shape)}):")
-    a1 = seen["k1"]
-    out_k, car_k, acc_k = composite.composite_static_fwd(*a1)
-    out_p, car_p, applied, hits = composite.composite_static_plain(
-        *a1, return_work=True)
-    pay, counts, skip = a1[:3]
-    rows = [0, 1, 2, 4]
-    e1 = max(check("K1", out_k[..., rows], out_p[..., rows], TOL, "rgb+trans"),
-             check("K1", car_k, car_p, TOL, "carries"))
-    dscale = max(1.0, float(pay[:, 8].abs().max()))
-    check("K1", out_k[..., 3] / dscale, out_p[..., 3] / dscale, TOL,
-          "depth_acc / max depth")
-    T, _, K = pay.shape
-    P_ = a1[3] ** 2
-    nc = K // composite.CHUNK
-    cnt = torch.where(skip > 0, counts, 0).long()
-    c0 = torch.arange(nc, device=dev) * composite.CHUNK
-    per_chunk = torch.clamp(cnt[:, None] - c0, 0, composite.CHUNK)
-    used = torch.arange(nc, device=dev)[None] < applied[:, None]
-    entries = int((per_chunk * used).sum())
-    blended = int(hits.sum())
-    b_ms, b_by = bound(entries * 40 + T * 8 + T * P_ * (8 + nc) * 4,
-                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
-    k1 = dict(name="composite_static", route="cuda",
-              source="sim_a_splat_torch/csrc/composite.cu",
-              replaces="sim_a_splat_tpu/ops/pallas_composite.py:238",
-              max_abs_err=e1,
-              ms=cuda_ms(lambda: composite.composite_static(*a1), 20),
-              plain_ms=cuda_ms(lambda: composite.composite_static_plain(*a1),
-                               3),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    chunk_blocks = int(torch.clamp((cnt + composite.CHUNK - 1)
-                                   // composite.CHUNK, max=nc).sum())
-    log(f"  applied entries {entries} of {int(cnt.clamp(max=K).sum())} "
-        f"active, chunks {int(applied.sum())} applied of {chunk_blocks} "
-        f"composited by the chunk blocks; (pixel, entry) pairs: "
-        f"{P_ * entries} alpha, {blended} blended (α > 0); kernel "
-        f"{k1['ms']:.4f} ms (its two launches' device time under the "
-        f"profiler {kernel_ms(lambda: composite.composite_static(*a1), 20):.4f}"
-        f" ms; "
-        f"first design {FIRST_DESIGN_MS['composite_static']} ms), plain "
-        f"{k1['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # the (applied entry, warp) pairs that the cull skips, by the kernels'
-    # test's plain twin on K1's warp rectangles
-    box1 = composite_sel.cull_boxes(pay, a1[5])             # (T, 4, K)
-    cull1 = composite_sel.culled(box1, composite.warp_rects(
-        torch.arange(T, device=dev, dtype=torch.int32), a1[3], a1[4]))
-    col_used = (torch.arange(K, device=dev) < torch.minimum(
-        cnt, applied * composite.CHUNK)[:, None])           # (T, K)
-    skipped1 = int((cull1 & col_used[:, None]).sum())
-    pairs1 = int(col_used.sum()) * cull1.shape[1]
-    log(f"  cull skipped {skipped1} of {pairs1} (applied entry, warp) pairs "
-        f"({skipped1 / pairs1:.4f}); {composite.kernel_threads(a1[3])} "
-        f"threads a block")
-    kernels.append(k1)
+    # 3-4. K1 and K2 at full size ---------------------------------------------
+    kernels += static_rows(seen["k1"], dev)
+    kernels += sel_rows(seen["k2"], parent, dev)
 
-    # 3b. K1b at full size, for a numpy-seeded cotangent ----------------------
-    log("K1b composite_static_bwd vs composite_static_bwd_plain:")
-    ct1 = torch.as_tensor(np.random.default_rng(0).normal(
-        size=tuple(out_k.shape)).astype(np.float32), device=dev)
-    a1b = (pay, counts, skip, ct1, out_k, car_k, *a1[3:])
-    g_k = composite.composite_static_bwd(*a1b, chunk_acc=acc_k)
-    g_p = composite.composite_static_bwd_plain(pay, counts, skip, ct1,
-                                               *a1[3:])
-    e1b = check_rows("K1b", g_k, g_p, "payload grad")
-    if not bool(torch.isfinite(g_k).all()):
-        raise AssertionError("K1b: gradient not finite")
-    # reads: applied payload columns, counts/skip, 5 channels each of ct and
-    # out, carries; writes every gradient column once
-    b_ms, b_by = bound(entries * 40 + T * 8 + T * P_ * (2 * 5 + nc) * 4
-                       + T * 10 * K * 4,
-                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
-    k1b = dict(name="composite_static_bwd", route="cuda",
-               source="sim_a_splat_torch/csrc/composite_bwd.cu",
-               replaces="sim_a_splat_tpu/ops/pallas_composite.py:277",
-               max_abs_err=e1b,
-               ms=cuda_ms(lambda: composite.composite_static_bwd(
-                   *a1b, chunk_acc=acc_k), 20),
-               plain_ms=cuda_ms(lambda: composite.composite_static_bwd_plain(
-                   pay, counts, skip, ct1, *a1[3:]), 3),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"  gradient pairs (α > 0): {blended}; kernel {k1b['ms']:.4f} ms "
-        f"(device time under the profiler "
-        f"{kernel_ms(lambda: composite.composite_static_bwd(*a1b, chunk_acc=acc_k), 20):.4f}"
-        f" ms; first design {FIRST_DESIGN_MS['composite_static_bwd']} ms), "
-        f"plain {k1b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    kernels.append(k1b)
-
-    # 4. K2 at full size --------------------------------------------------------
-    a2 = seen["k2"]
-    spay, dpay, ids, cs_pad, cd = a2[:5]
-    ts2, tx2, sigma2 = a2[5], a2[6], a2[7]
-    log(f"K2 composite_pair_sel vs plain (spay {tuple(spay.shape)}, "
-        f"dpay {tuple(dpay.shape)}):")
-    out_k = composite_sel.composite_pair_sel(*a2)
-    out_p, applied, hits = composite_sel.composite_pair_sel_plain(
-        *a2, return_work=True)
-    bidx = torch.arange(ids.shape[0], device=dev)[:, None]
-    sel_k, sel_p = out_k[bidx, ids.long()], out_p[bidx, ids.long()]
-    e2 = check("K2", sel_k[:, :, rows], sel_p[:, :, rows], TOL,
-               "rgb+trans (selected rows)")
-    dscale = max(1.0, float(spay[:, 8].abs().max()), float(dpay[:, :, 8].abs().max()))
-    check("K2", sel_k[:, :, 3] / dscale, sel_p[:, :, 3] / dscale, TOL,
-          "depth_acc / max depth")
-    Ks, Kd = spay.shape[-1], dpay.shape[-1]
-    cs_slot = torch.clamp(cs_pad[ids.long()].long(), max=Ks)       # (B, TT)
-    c0 = torch.arange(Ks // composite.CHUNK, device=dev) * composite.CHUNK
-    per_chunk = torch.clamp(cs_slot[..., None] - c0, 0, composite.CHUNK)
-    used = torch.arange(len(c0), device=dev) < applied[..., None]
-    s_entries = (per_chunk * used).sum(-1)                          # (B, TT)
-    d_entries = torch.clamp(cd.long(), max=Kd)
-    entries = int(s_entries.sum() + d_entries.sum())
-    blended = int(hits.sum())
-    T1 = spay.shape[0]
-    tile_need = torch.zeros(T1, dtype=torch.long, device=dev).scatter_reduce(
-        0, ids.long().reshape(-1), s_entries.reshape(-1), "amax")
-    real = ids.long() < T1 - 1
-    rows_written = int(real.sum()) + int((~real).any(dim=1).sum())
-    nbytes = (int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
-              + ids.numel() * 8 + T1 * 4 + rows_written * 8 * P_ * 4)
-    b_ms, b_by = bound(nbytes,
-                       ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
-    k2 = dict(name="composite_pair_sel", route="cuda",
-              source="sim_a_splat_torch/csrc/composite_sel.cu",
-              replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:583",
-              max_abs_err=e2,
-              ms=cuda_ms(lambda: composite_sel.composite_pair_sel(*a2), 10),
-              plain_ms=cuda_ms(
-                  lambda: composite_sel.composite_pair_sel_plain(*a2), 1),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"  slots {ids.numel()} ({int(real.sum())} real), entries "
-        f"{entries}; (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
-        f"blended (α > 0); kernel {k2['ms']:.4f} ms "
-        f"({composite_sel.blocks_per_sm(False, Kd, ts2)} blocks/SM, "
-        f"{composite_sel.smem_bytes(Kd, ts2, False)} B shared; first design "
-        f"{FIRST_DESIGN_MS['composite_pair_sel']} ms), plain "
-        f"{k2['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    versus_parent("K2f", lambda: composite_sel.composite_pair_sel(*a2),
-                  parent, 10)
-    # the (entry, warp) pairs of the applied entries that the cull skips,
-    # by the kernels' test's plain twin
-    sbox = composite_sel.cull_boxes(spay, sigma2)           # (T+1, 4, Ks)
-    dbox = composite_sel.cull_boxes(dpay, sigma2).flatten(0, 1)
-    lim_s = s_entries.reshape(-1, 1)
-    lim_d = d_entries.reshape(-1, 1)
-    flat_ids = ids.reshape(-1)
-    skipped = pairs = 0
-    for s0 in range(0, flat_ids.numel(), 512):
-        sl = slice(s0, s0 + 512)
-        rects = composite_sel.warp_rects(flat_ids[sl], ts2, tx2)
-        cs_ = composite_sel.culled(sbox[flat_ids[sl].long()], rects)
-        cd_ = composite_sel.culled(dbox[sl], rects)
-        on_s = torch.arange(Ks, device=dev) < lim_s[sl]     # (S, Ks)
-        on_d = torch.arange(Kd, device=dev) < lim_d[sl]
-        skipped += int((cs_ & on_s[:, None]).sum() + (cd_ & on_d[:, None]).sum())
-        pairs += (int(on_s.sum()) + int(on_d.sum())) * rects.shape[1]
-    log(f"  cull skipped {skipped} of {pairs} (entry, warp) pairs "
-        f"({skipped / pairs:.4f})")
-    kernels.append(k2)
-
-    # 4b. K2b at full size, for a numpy-seeded cotangent on the selected rows -
-    B_, TT = ids.shape
-    log(f"K2b composite_pair_sel_bwd vs composite_pair_sel_bwd_plain "
-        f"(all {B_ * TT} slots; the plain version 8 envs at a time):")
-    ct2 = torch.zeros_like(out_k)
-    ct2[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(1).normal(
-        size=(B_, TT, 5, P_)).astype(np.float32), device=dev)
-    ct2[:, T1 - 1] = 0.0                       # the trash row: pads only
-    a2b = (spay, dpay, ids, cs_pad, cd, ct2, out_k, *a2[5:])
-
-    def k2b_plain():
-        g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
-        for b0 in range(0, B_, 8):
-            sl = slice(b0, b0 + 8)
-            s_, d_ = composite_sel.composite_pair_sel_bwd_plain(
-                spay, dpay[sl], ids[sl], cs_pad, cd[sl], ct2[sl], *a2[5:])
-            g_s += s_
-            g_d[sl] = d_
-        return g_s, g_d
-
-    gs_p, gd_p = k2b_plain()
-    gs_k, gd_k = composite_sel.composite_pair_sel_bwd(*a2b)
-    e2b = max(check_rows("K2b", gs_k[:T1 - 1], gs_p[:T1 - 1],
-                         "static grad, summed per tile"),
-              check_rows("K2b", gd_k, gd_p, "dynamic grad"))
-    if not (bool(torch.isfinite(gs_k).all()) and bool(torch.isfinite(gd_k).all())):
-        raise AssertionError("K2b: gradient not finite")
-    if bool(gs_k[T1 - 1].any()) or bool(gd_k[~real].any()):
-        raise AssertionError("K2b: pad slots or the trash row got a nonzero "
-                             "gradient")
-    # reads as K2f plus 5 channels each of ct and out at every written row;
-    # writes the per-tile static gradient (atomic adds into (T+1, 10, Ks))
-    # and the per-slot dynamic gradient once
-    b_ms, b_by = bound(int(tile_need.sum()) * 40 + int(d_entries.sum()) * 40
-                       + ids.numel() * 8 + T1 * 4 + rows_written * 2 * 5 * P_ * 4
-                       + T1 * 10 * Ks * 4 + ids.numel() * 10 * Kd * 4,
-                       ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
-    k2b = dict(name="composite_pair_sel_bwd", route="cuda",
-               source="sim_a_splat_torch/csrc/composite_sel_bwd.cu",
-               replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:633",
-               max_abs_err=e2b,
-               # the whole gradient: the per-tile sum is in the kernel
-               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b),
-                          10),
-               plain_ms=cuda_ms(k2b_plain, 1, warmup=0),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"  gradient pairs (α > 0): {blended}; kernel {k2b['ms']:.4f} ms "
-        f"with the per-tile sum and its zero fill "
-        f"({composite_sel.blocks_per_sm(True, Kd, ts2)} blocks/SM, "
-        f"{composite_sel.smem_bytes(Kd, ts2, True)} B shared; first design "
-        f"{FIRST_DESIGN_MS['composite_pair_sel_bwd']} ms), plain "
-        f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    versus_parent("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b),
-                  parent, 10)
-    kernels.append(k2b)
-    # free the checks' tensors before the forward step's peak-memory reading
-    del ct1, a1b, acc_k, g_k, g_p, ct2, a2b, gs_k, gd_k, gs_p, gd_p
 
     # 5. the main path forward, timed ----------------------------------------
     def reset_counts():
@@ -846,6 +906,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += uncached_step(entry, composite, pusht, graph, scene, P, raster,
                              reset_counts, counts_now, profiled, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 19-24. the arm product path (K1, K2 and K3 at 240×320) ------------------
+    del graph, scene, prepare, step
+    torch.cuda.empty_cache()
+    kernels += arm_product(entry, composite, composite_sel, composite_single,
+                           reset_counts, counts_now, profiled, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -1302,45 +1369,16 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
             log(f"  {label} at ts 32: {cuda_ms(fn, 5):.4f} ms")
 
 
-def moving_camera(entry, composite, composite_single, rasterize_moving,
-                  pusht, graph, scene, P, gen, reset_counts, counts_now,
-                  profiled, parent, parent_k3, dev):
-    """The moving-camera path: K3f/K3b against their plain versions at full
-    size (and beside the parent's kernels with ``parent``), K3's shared
-    mode, the B=32 forward rollout (timed, profiled, one frame against the
-    full rebin), the B=16 train rollout (timed, broken down, its peak
-    memory) and its gradients against the plain path.  Returns the K3f and
-    K3b entries of the ``kernels`` line."""
+def single_rows(a3, parent, parent_k3, dev, plain_envs=4):
+    """K3f and K3b on the captured arguments ``a3`` of one
+    ``composite_single.composite_sel_single`` call against their plain
+    versions (K3b for a numpy-seeded cotangent, the plain version
+    ``plain_envs`` envs at a time), timed by CUDA events beside their bound
+    (and the parent's kernels with ``parent``).  Returns the two rows of
+    the ``kernels`` line."""
     import numpy as np
     import torch
-    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
-    raster = RasterConfig(**MV_RASTER)
-
-    def rollout_of(R):
-        return entry.make_step_moving_cached(graph, RES, RES, raster, R=R,
-                                             device=dev, **MV_KW)[0]
-
-    rollout, roll1, roll2, roll4 = (rollout_of(r) for r in (R_MV, 1, 2, 4))
-    st_fwd = pusht.reset(P, gen, B_MV_FWD)
-    st_train = pusht.PushTState(*(f[:B_MV_TRAIN] for f in st_fwd))
-    act = torch.tensor([[150.0, 250.0]], device=dev).expand(B_MV_FWD, 2)
-    act_train = act[:B_MV_TRAIN]
-    log(f"moving camera: N={N}, sh{SH_DEGREE}, {RES}², kc {MV_KW['kc']}, "
-        f"margin {MV_KW['margin']}, buckets {raster.buckets}, R={R_MV}")
-
-    # 12. K3f and K3b at full size, on one frame of a B=16 rollout ------------
-    seen = {}
-    real_k3 = composite_single.composite_sel_single
-
-    def capture(*args):
-        seen["k3"] = args
-        return real_k3(*args)
-
-    with torch.no_grad(), replaced(composite_single, "composite_sel_single",
-                                   capture):
-        roll2(scene, st_train, act_train)                    # also warm-up
-    torch.cuda.synchronize()
-    a3 = seen.pop("k3")
+    from sim_a_splat_torch.ops import composite, composite_single
     spay, ids, counts_pad = a3[:3]
     Bk, T1, _, Km = spay.shape
     T, P_ = T1 - 1, a3[3] ** 2
@@ -1383,7 +1421,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
                   parent_fn=lambda: parent_k3.composite_sel_single(*a3))
 
     log("K3b composite_sel_single_bwd vs composite_sel_single_bwd_plain "
-        "(the plain version 4 envs at a time):")
+        f"(the plain version {plain_envs} envs at a time):")
     with torch.enable_grad():        # the training forward: row 5 is filled
         out_s = composite_single.composite_sel_single(
             spay.detach().requires_grad_(), *a3[1:]).detach()
@@ -1395,8 +1433,8 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
 
     def k3b_plain():
         g = torch.empty_like(spay)
-        for b0 in range(0, Bk, 4):
-            sl = slice(b0, b0 + 4)
+        for b0 in range(0, Bk, plain_envs):
+            sl = slice(b0, b0 + plain_envs)
             g[sl] = composite_single.composite_sel_single_bwd_plain(
                 spay[sl], ids[sl], counts_pad[sl], ct3[sl], *a3[3:])
         return g
@@ -1427,7 +1465,53 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
         "K3b", lambda: composite_single.composite_sel_single_bwd(*a3b),
         parent, 10,
         parent_fn=lambda: parent_k3.composite_sel_single_bwd(*a3b))
-    del out_k, out_p, out_s, ct3, a3b, g_k, g_p
+    return [k3, k3b]
+
+
+def moving_camera(entry, composite, composite_single, rasterize_moving,
+                  pusht, graph, scene, P, gen, reset_counts, counts_now,
+                  profiled, parent, parent_k3, dev):
+    """The moving-camera path: K3f/K3b against their plain versions at full
+    size (and beside the parent's kernels with ``parent``), K3's shared
+    mode, the B=32 forward rollout (timed, profiled, one frame against the
+    full rebin), the B=16 train rollout (timed, broken down, its peak
+    memory) and its gradients against the plain path.  Returns the K3f and
+    K3b entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+    raster = RasterConfig(**MV_RASTER)
+
+    def rollout_of(R):
+        return entry.make_step_moving_cached(graph, RES, RES, raster, R=R,
+                                             device=dev, **MV_KW)[0]
+
+    rollout, roll1, roll2, roll4 = (rollout_of(r) for r in (R_MV, 1, 2, 4))
+    st_fwd = pusht.reset(P, gen, B_MV_FWD)
+    st_train = pusht.PushTState(*(f[:B_MV_TRAIN] for f in st_fwd))
+    act = torch.tensor([[150.0, 250.0]], device=dev).expand(B_MV_FWD, 2)
+    act_train = act[:B_MV_TRAIN]
+    log(f"moving camera: N={N}, sh{SH_DEGREE}, {RES}², kc {MV_KW['kc']}, "
+        f"margin {MV_KW['margin']}, buckets {raster.buckets}, R={R_MV}")
+
+    # 12. K3f and K3b at full size, on one frame of a B=16 rollout ------------
+    seen = {}
+    real_k3 = composite_single.composite_sel_single
+
+    def capture(*args):
+        seen["k3"] = args
+        return real_k3(*args)
+
+    with torch.no_grad(), replaced(composite_single, "composite_sel_single",
+                                   capture):
+        roll2(scene, st_train, act_train)                    # also warm-up
+    torch.cuda.synchronize()
+    a3 = seen.pop("k3")
+    k3, k3b = single_rows(a3, parent, parent_k3, dev)
+    spay, ids, counts_pad = a3[:3]
+    Bk, T = spay.shape[0], spay.shape[1] - 1
+    P_ = a3[3] ** 2
+    rows = [0, 1, 2, 4]
 
     # 12b. K3 in the shared-payload mode: env 0's lists shared by all envs --
     sp, cn = spay[0].contiguous(), counts_pad[0].contiguous()
@@ -1910,6 +1994,321 @@ def uncached_step(entry, composite, pusht, graph, scene, P, raster,
     log(f"uncached step: image max|Δ| vs plain {e_img:.3e}; train-step "
         f"gradients max|Δ| / max|g| {e_grad:.3e}")
     return [k1, k1b]
+
+
+def near_lens(wrapper, states_list):
+    """(N,) bool: the gaussians of ``wrapper``'s scene, as posed at any of
+    ``states_list``, that lie within NEAR_LENS_M of a camera's lens (its
+    depth in (−0.05, NEAR_LENS_M) m) for any env."""
+    import torch
+    from sim_a_splat_torch.ops.projection import project_raw
+    base = wrapper._base_env()
+    near = None
+    with torch.no_grad():
+        for states in states_list:
+            draws = base.draw_state(states)
+            posed = wrapper.graph.posed(wrapper._body_poses(draws))
+            for _, spec in wrapper.cameras:
+                pose = (wrapper._moving_pose(spec, draws)
+                        if spec.type == "moving"
+                        else spec.pose(wrapper.device))
+                d = project_raw(posed.means, posed.quats, posed.log_scales,
+                                wrapper._camera(pose, spec)).depth
+                hit = ((d > -0.05) & (d < NEAR_LENS_M)).any(0)
+                near = hit if near is None else near | hit
+    return near
+
+
+def arm_product(entry, composite, composite_sel, composite_single,
+                reset_counts, counts_now, profiled, dev):
+    """The arm product path (``benchmarks/bench_product.py``): B=8 envs of
+    ``pusharm6`` in an N=100k sh3 splat scene, a fixed viewport and an
+    end-effector camera at 240×320, R=32 frames after a 40-step settle.
+    K1f/K1b, K2f/K2b and K3f/K3b against their plain versions at the
+    path's captured inputs (a 15 × 20 tile grid, the near set on); the
+    forward rollout and the train rollout timed (launches, counters, peak
+    memory, a profile); the B=1 teleop step with its moving-cache rebuild
+    timed apart; images and gradients against the port's plain path; the
+    moving camera against its full rebin where no frame is severe.  Returns
+    the six kernels' rows (names ending ``_arm``)."""
+    import torch
+    from sim_a_splat_torch.envs.manipulator_envs import (
+        ManipulatorEnvF, ManipulatorState,
+    )
+    from sim_a_splat_torch.ops import rasterize_moving
+
+    t0 = time.perf_counter()
+    h, w = ARM_RES
+    wrapper = entry.build_product_wrapper(n_total=N, sh_degree=SH_DEGREE,
+                                          seed=0, render_size=ARM_RES,
+                                          device=dev)
+    scene = wrapper.graph.scene
+    n_dyn = int((wrapper.graph.link_ids > 0).sum())
+    rollout, step, build_moving = entry.make_product_rollout(wrapper)
+    log(f"arm product path: pusharm6, N={N} ({N - n_dyn} static, {n_dyn} "
+        f"on {wrapper.graph.num_bodies - 1} bodies), sh{SH_DEGREE}, 2 cameras "
+        f"at {h}×{w}, B={ARM_B}, R={ARM_R}, {entry.PRODUCT_RENDER}, raster "
+        f"{wrapper.raster}; built in {time.perf_counter() - t0:.2f} s")
+
+    states, actions_seq = entry.product_inputs(wrapper, ARM_B, ARM_R,
+                                               settle=ARM_SETTLE)
+
+    # 19. the kernels' inputs on a 2-frame train rollout (also the warm-up) --
+    seen = {}
+
+    def capture(key, fn):
+        def wrapped(*args):
+            seen.setdefault(key, tuple(a.detach() if torch.is_tensor(a) else a
+                                       for a in args))
+            return fn(*args)
+        return wrapped
+
+    with replaced(composite, "composite_static",
+                  capture("k1", composite.composite_static)), \
+            replaced(composite_sel, "composite_pair_sel",
+                     capture("k2", composite_sel.composite_pair_sel)), \
+            replaced(composite_single, "composite_sel_single",
+                     capture("k3", composite_single.composite_sel_single)):
+        entry.product_loss_and_grads(rollout, scene, states, actions_seq[:2])
+    torch.cuda.synchronize()
+    tx, ty = -(-w // 16), -(-h // 16)
+    shapes = (tuple(seen["k1"][0].shape), seen["k1"][4],
+              tuple(seen["k2"][0].shape), tuple(seen["k2"][1].shape),
+              tuple(seen["k3"][0].shape), seen["k3"][4])
+    if shapes != ((tx * ty, 10, 1024), tx, (tx * ty + 1, 10, 1024),
+                  (ARM_B, min(256, tx * ty), 10, 256),
+                  (ARM_B, tx * ty + 1, 10, 512 + 256), tx):
+        raise AssertionError(f"the path's kernel inputs {shapes}: not the "
+                             f"{ty} × {tx} grid of the product path")
+    with torch.no_grad():
+        mc = build_moving(states)[1]
+    n_near = (mc.near_op > 0).sum(1).tolist()
+    log(f"  tile grid {ty} × {tx} (T = {tx * ty}); K1 payload {shapes[0]}, "
+        f"K2 static {shapes[2]} and dynamic {shapes[3]}, K3 {shapes[4]}; "
+        f"near set per env {n_near} (cap {entry.PRODUCT_RENDER['near_cap']}, "
+        f"overflow {mc.n_near_over.tolist()}), build-time truncations "
+        f"{mc.n_build_truncated.tolist()}")
+    if not min(n_near) > 0:
+        raise AssertionError("the end-effector camera's near set is empty")
+
+    # 20. K1, K2 and K3 at the path's inputs against their plain versions ----
+    rows = (static_rows(seen["k1"], dev)
+            + sel_rows(seen["k2"], None, dev, plain_envs=1)
+            + single_rows(seen["k3"], None, None, dev))
+    for r in rows:
+        r["name"] += "_arm"
+    del seen, mc
+
+    # 21. the forward rollout, timed and profiled -----------------------------
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_host = time.perf_counter()
+    start.record()
+    with torch.no_grad():
+        trs, loss = rollout(scene, states, actions_seq)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    over = trs.info["render_overflow"][:, 0].tolist()
+    trunc = trs.info["render_truncated"][:, 0].tolist()
+    log(f"arm product, forward: rollout (B={ARM_B}, R={ARM_R}): "
+        f"{start.elapsed_time(end):.2f} ms (events), {wall * 1e3:.2f} ms "
+        f"(host clock), {ARM_B * ARM_R / wall:.1f} env-frames/s (2 cameras "
+        f"each); loss {float(loss):.6f}, launches {launches}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"render_overflow per frame {over}, render_truncated per frame "
+        f"{trunc}")
+    want = dict(composite_static=1, composite_pair_sel=ARM_R,
+                composite_sel_single=ARM_R)
+    if any(launches[n] != want.get(n, 0) for n in launches):
+        raise AssertionError(f"the forward rollout launched {launches}, "
+                             f"not {want}")
+    for i, k in enumerate(("camera_0", "camera_1")):
+        img = trs.obs[k]
+        if img.shape != (ARM_R, ARM_B, 3, h, w) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"bad {k} {tuple(img.shape)}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("the forward rollout's loss is not finite")
+    del trs
+    # the same R env steps alone: the arm physics' share of the rollout
+    env = wrapper._base_env()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = states
+    with torch.no_grad():
+        for a in actions_seq:
+            s = env.step(s, a).state
+    torch.cuda.synchronize()
+    phys = time.perf_counter() - t0
+    log(f"  the arm physics alone (the same {ARM_R} env steps): "
+        f"{phys * 1e3:.2f} ms, {phys / wall:.3f} of the rollout")
+
+    def short_rollout():
+        with torch.no_grad():
+            rollout(scene, states, actions_seq[:4])
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_rollout()
+    ms4 = (time.perf_counter() - t0) * 1e3
+    log(f"  R=4 rollout (host clock, for the profile's idle share): "
+        f"{ms4:.2f} ms")
+    profiled("R=4 arm forward rollout", short_rollout, ms4)
+
+    # 22. the train rollout, timed and broken down ----------------------------
+    phases = {"physics": 0.0, "build": 0.0, "backward": 0.0}
+
+    def timed(key, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            phases[key] += time.perf_counter() - t
+            return r
+        return wrapped
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    t_host = time.perf_counter()
+    with replaced(ManipulatorEnvF, "step",
+                  timed("physics", ManipulatorEnvF.step)), \
+            replaced(rasterize_moving, "build_moving_cache",
+                     timed("build", rasterize_moving.build_moving_cache)), \
+            replaced(torch.autograd, "grad",
+                     timed("backward", torch.autograd.grad)):
+        trs, loss, grads = entry.product_loss_and_grads(rollout, scene, states,
+                                                        actions_seq)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_host
+    launches = counts_now()
+    for r in rows:
+        r["launches"] = launches[r["name"].removesuffix("_arm")]
+    fields = [n for n, f in zip(grads._fields, grads) if f is not None]
+    finite = all(bool(torch.isfinite(getattr(grads, n)).all())
+                 for n in fields)
+    log(f"arm product, train: product_loss_and_grads (B={ARM_B}, "
+        f"R={ARM_R}; each frame's render recomputed in the backward): "
+        f"{start.elapsed_time(end):.2f} ms (events), {wall * 1e3:.2f} ms "
+        f"(host clock), {ARM_B * ARM_R / wall:.1f} env-frames/s; loss "
+        f"{float(loss):.6f}, grads finite={finite}, launches {launches}, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        "render_overflow per frame "
+        f"{trs.info['render_overflow'][:, 0].tolist()}")
+    log(f"  breakdown (host clock, each phase synchronised): arm physics "
+        f"{phases['physics'] * 1e3:.2f} ms ({phases['physics'] / wall:.3f}), "
+        f"moving-cache build {phases['build'] * 1e3:.2f} ms, backward "
+        f"{phases['backward'] * 1e3:.2f} ms, the rest (renders, K1 build) "
+        f"{(wall - sum(phases.values())) * 1e3:.2f} ms")
+    want = dict(composite_static=1, composite_static_bwd=1,
+                composite_pair_sel=2 * ARM_R, composite_pair_sel_bwd=ARM_R,
+                composite_sel_single=2 * ARM_R,
+                composite_sel_single_bwd=ARM_R)
+    if any(launches[n] != want.get(n, 0) for n in launches):
+        raise AssertionError(f"the train rollout launched {launches}, not "
+                             f"{want}")
+    if not finite:
+        raise AssertionError("a gradient of the train rollout is not finite")
+    del trs, grads
+
+    # 23. the B=1 teleop step, caches prebuilt --------------------------------
+    st1, act1 = entry.product_inputs(wrapper, 1, 1, settle=ARM_SETTLE)
+    act1 = act1[0]
+    with torch.no_grad():
+        caches = wrapper.build_render_cache()
+        mc1 = build_moving(st1)
+        rebuild_ms = cuda_ms(lambda: build_moving(st1), 3)
+        step(st1, act1, caches, mc1)                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = st1
+        for _ in range(ARM_TELEOP_ITERS):
+            tr = step(s, act1, caches, mc1)
+            s = tr.state
+        torch.cuda.synchronize()
+    teleop_ms = (time.perf_counter() - t0) * 1e3 / ARM_TELEOP_ITERS
+    log(f"arm product, teleop: B=1 step_with_cache_batch, forward, 2 × "
+        f"{h}×{w}: {teleop_ms:.2f} ms/step (host clock, {ARM_TELEOP_ITERS} "
+        f"steps), severe {int(tr.info['render_overflow'][0])}; moving-cache "
+        f"rebuild {rebuild_ms:.2f} ms (events), timed apart")
+    del caches, mc1, tr
+
+    # 24. against the port's plain path, B=2, R=2 -----------------------------
+    st2 = ManipulatorState(*(type(f)(*(g[:ARM_PLAIN_B] for g in f))
+                             if isinstance(f, tuple) else f[:ARM_PLAIN_B]
+                             for f in states))
+    acts2 = actions_seq[:ARM_PLAIN_R, :ARM_PLAIN_B]
+    plain = (replaced(composite, "composite_static",
+                      composite.composite_static_plain),
+             replaced(composite_sel, "composite_pair_sel",
+                      composite_sel.composite_pair_sel_plain),
+             replaced(composite_single, "composite_sel_single",
+                      composite_single.composite_sel_single_plain))
+    trs_k, loss_k, g_k = entry.product_loss_and_grads(rollout, scene, st2,
+                                                      acts2)
+    with plain[0], plain[1], plain[2]:
+        trs_p, loss_p, g_p = entry.product_loss_and_grads(rollout, scene,
+                                                          st2, acts2)
+    for k in ("render_overflow", "render_truncated"):
+        if not torch.equal(trs_k.info[k], trs_p.info[k]):
+            raise AssertionError(f"{k} {trs_k.info[k].tolist()} (kernels) vs "
+                                 f"{trs_p.info[k].tolist()} (plain)")
+    for k in ("camera_0", "camera_1"):
+        check("arm product", trs_k.obs[k], trs_p.obs[k], TOL,
+              f"{k} vs the plain path (B={ARM_PLAIN_B}, R={ARM_PLAIN_R})")
+    log(f"  loss {float(loss_k)} (kernels) vs {float(loss_p)} (plain)")
+    near = near_lens(wrapper, (st2, trs_k.state))
+    log(f"  gradients: {int(near.sum())} gaussians lie within "
+        f"{NEAR_LENS_M} m of a lens (held to {TOL_GRAD_NEAR} × each field's "
+        f"largest), the other {int((~near).sum())} to {TOL_GRAD} × their "
+        "own largest")
+    for n in fields:
+        got, want = getattr(g_k, n), getattr(g_p, n)
+        err = (got - want).abs().reshape(len(near), -1).amax(1)
+        mag = want.abs().reshape(len(near), -1).amax(1)
+        far_rel = float(err[~near].max() / mag[~near].max())
+        near_rel = float(err[near].max() / mag.max()) if near.any() else 0.0
+        log(f"  grad {n}: far max|Δ| / max|g| {far_rel:.3e}, near-lens "
+            f"max|Δ| / max|g| of the field {near_rel:.3e}")
+        if not (bool(torch.isfinite(got).all()) and far_rel <= TOL_GRAD
+                and near_rel <= TOL_GRAD_NEAR):
+            raise AssertionError(f"arm product gradient of {n} disagrees "
+                                 "with the plain path")
+    del trs_k, trs_p, g_k, g_p
+
+    # the moving camera over its candidate cache against its full rebin, one
+    # frame, where no env-frame is severe
+    kw = {k: entry.PRODUCT_RENDER[k] for k in ("sel_tiles", "dyn_capacity",
+                                               "dyn_max_tiles")}
+    with torch.no_grad():
+        s1 = wrapper._base_env().step(st2, acts2[0]).state
+        caches = wrapper.build_render_cache()
+        imgs_c, aux_c = wrapper.render_with_cache_batch(
+            s1, caches, moving_caches=build_moving(st2), **kw)
+        imgs_r, _ = wrapper.render_with_cache_batch(s1, caches, **kw)
+    diff = (imgs_c[0] - imgs_r[0]).abs()
+    severe = int(aux_c["dropped_tiles"])
+    log(f"  end-effector camera vs its full rebin (one frame, "
+        f"B={ARM_PLAIN_B}): max|Δ| {float(diff.max()):.3e}, severe "
+        f"{severe}, bounded {int(aux_c['truncated'])}")
+    if severe == 0 and int(aux_c["truncated"]) == 0:
+        atol, rtol = TOL_REBIN
+        if not bool((diff <= atol + rtol * imgs_r[0].abs()).all()):
+            raise AssertionError("the cached end-effector frame disagrees "
+                                 "with the rebin with nothing truncated")
+        log(f"  exact case: within atol {atol} / rtol {rtol}")
+    else:
+        log("  not gated: a severe or bounded count is nonzero")
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Entry points of the port: the pushT splat scene, the batched env step
-and its train step, the per-env fixed-camera step, the uncached step, and
-the moving-camera rollout.
+and its train step, the per-env fixed-camera step, the uncached step, the
+moving-camera rollout, and the arm product path.
 
 Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
 ``_make_step``, ``entry``, ``_make_step_moving`` and
@@ -23,7 +23,14 @@ Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
 - a camera attached to each env's agent: the R-frame rollout over per-env
   candidate caches (kernel K3, ``rollout_loss_and_grads`` its train step
   through K3b), and the full per-frame rebin (kernel K1) that is its
-  exactness oracle.
+  exactness oracle;
+- the arm product path (``benchmarks/bench_product.py``'s
+  ``build_product_wrapper``, ``measure_product`` and ``measure_latency``):
+  an articulated arm in a splat scene (``envs/splat_wrapper.py`` over
+  ``envs/manipulator_envs.py``) seen by a fixed viewport (K1 once per
+  rollout, K2 every frame) and an end-effector camera (K3 every frame),
+  forward and in training (``product_loss_and_grads``), and the one-env
+  teleop step.
 
 Everything runs on ``device`` ("cuda" by default); ``device="cpu"`` runs
 the plain PyTorch path (what the tests compare against the reference).
@@ -31,10 +38,18 @@ the plain PyTorch path (what the tests compare against the reference).
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from sim_a_splat_torch import resolve_device
+from sim_a_splat_torch.envs.manipulator_envs import (
+    ManipulatorEnvF, state_from_numpy,
+)
+from sim_a_splat_torch.envs.splat_wrapper import CameraSpec, SplatEnvWrapperF
 from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.ops import rasterize_moving
 from sim_a_splat_torch.ops import sh as sh_ops
@@ -49,6 +64,7 @@ from sim_a_splat_torch.ops.rasterize_tiles import (
     RasterConfig, rasterize_raw, render_binned,
 )
 from sim_a_splat_torch.ops.transforms import SE3
+from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import pusht
 from sim_a_splat_torch.physics.pusht import PushTParams
 from sim_a_splat_torch.scenegraph.graph import SceneGraph
@@ -551,3 +567,197 @@ def rollout_loss_and_grads(rollout, scene: GaussianScene, states, actions):
 
     loss, (new_states, flags), grads = _value_and_grads(scene, fn)
     return new_states, loss, flags, grads
+
+
+# --- the arm product path ----------------------------------------------------
+
+PRODUCT_URDF = (Path(__file__).resolve().parent.parent / "robot_description"
+                / "pusharm6" / "urdf" / "pusharm6.urdf")
+# the product path's raster and render settings (bench_product.py)
+PRODUCT_RASTER = dict(tile_size=16, tile_capacity=1024, chunk=128,
+                      sigma_cutoff=3.0, term_eps=1e-4,
+                      buckets=((2, 0.70), (6, 0.20), (16, 0.10)))
+PRODUCT_RENDER = dict(sel_tiles=256, dyn_capacity=256, dyn_max_tiles=9,
+                      margin=16.0, kc=512, z_split=0.35, near_cap=16384)
+PRODUCT_RESET = {"robot_pos": np.zeros(6),
+                 "block_pos": np.array([0.45, 0.0, 0.2, 0.0])}
+PRODUCT_ACTION = (0.0, 0.3, 0.4, 0.0, 0.4, 0.0)
+# the reference's ManipulatorState leaves (numpy, by field name; ``arm`` as
+# (q, qd, target_prev)) as the port's batched state
+product_state_from_numpy = state_from_numpy
+
+
+def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
+                          render_size=(240, 320), raster=None,
+                          device="cuda"):
+    """The arm product scene and its wrapper (``bench_product.py``'s
+    ``build_product_wrapper``): ``pusharm6`` with the end effector
+    ``push_tool``, a background cloud, one cluster per link at its rest
+    pose (the port's ``fk`` at q = 0) and a T-block cluster, drawn with the
+    reference's ``numpy.random.default_rng(seed)`` calls in its order;
+    camera key 0 a fixed viewport and key 1 on the end effector (offset
+    (0, −0.15, −1.2) in world axes), both ``render_size`` (h, w), fov 1.05
+    (moving cameras render first: ``camera_0`` of the observation is the
+    end effector's); ``raster`` default :data:`PRODUCT_RASTER`."""
+    dev = resolve_device(device)
+    chain = kin.load_chain(PRODUCT_URDF)
+    env = ManipulatorEnvF(chain=chain, eef_link="push_tool",
+                          env_objects=True, device=str(dev))
+    rng = np.random.default_rng(seed)
+    rest_fk = kin.fk(chain, torch.zeros(6))
+    n_links = rest_fk.q.shape[0]
+    n_link = max(n_total // 50, 50)
+    n_block = max(n_total // 25, 50)
+    n_bg = n_total - n_links * n_link - n_block
+
+    def cluster(center, n, color, spread):
+        c = np.asarray(center, np.float32)
+        q = rng.normal(size=(n, 4))
+        q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        rgb = np.clip(color + rng.normal(0, 0.05, (n, 3)), 0, 1)
+        return dict(
+            means=rng.normal(size=(n, 3)) * spread + c, quats=q,
+            log_scales=rng.uniform(np.log(0.004), np.log(0.012), (n, 3)),
+            logit_opacities=np.full(n, 2.0, np.float32),
+            sh_dc=(rgb - 0.5) / sh_ops.C0)
+
+    parts = [cluster([0.2, 0.0, -0.6], n_bg, [0.8, 0.8, 0.75], 0.8)]
+    sizes = [n_bg]
+    rest_t_np = rest_fk.t.numpy()
+    for i in range(n_links):
+        parts.append(cluster(rest_t_np[i], n_link, [0.3, 0.4, 0.8], 0.05))
+        sizes.append(n_link)
+    block_rest = np.asarray([0.45, 0.0, 0.0])
+    parts.append(cluster(block_rest, n_block, [0.6, 0.55, 0.5], 0.06))
+    sizes.append(n_block)
+
+    def cat(k):
+        return torch.as_tensor(np.concatenate([p[k] for p in parts]).astype(
+            np.float32), device=dev)
+
+    n = sum(sizes)
+    k_rest = (sh_degree + 1) ** 2 - 1
+    sh_rest = None if sh_degree == 0 else torch.as_tensor(
+        rng.normal(0, 0.02, (n, k_rest, 3)).astype(np.float32), device=dev)
+    scene = GaussianScene(cat("means"), cat("quats"), cat("log_scales"),
+                          cat("logit_opacities"), cat("sh_dc"), sh_rest)
+
+    off = np.cumsum([0] + sizes)
+    masks = {}
+    for i in range(n_links):
+        m = np.zeros(n, bool)
+        m[off[i + 1]:off[i + 2]] = True
+        masks[f"link{i}"] = m
+    mt = np.zeros(n, bool)
+    mt[off[-2]:off[-1]] = True
+    masks["task"] = mt
+
+    ident = SE3.identity((1,))
+    block_t = torch.as_tensor(block_rest, dtype=torch.float32)[None]
+    rest = SE3(torch.cat([ident.q, rest_fk.q,
+                          torch.tensor([[1.0, 0.0, 0.0, 0.0]])]),
+               torch.cat([ident.t, rest_fk.t, block_t]))
+    h, w = render_size
+    cameras = {
+        0: CameraSpec(type="viewport", render_size=(h, w),
+                      local_frame=((1.0, 0, 0, 0), (0.4, -0.2, -1.6)),
+                      fov=1.05),
+        1: CameraSpec(type="moving", render_size=(h, w),
+                      link_name="push_tool",
+                      local_frame=((1.0, 0, 0, 0), (0.0, -0.15, -1.2)),
+                      fov=1.05),
+    }
+    return SplatEnvWrapperF.build(
+        env=env, scene=scene, link_masks=masks, camera_setup_info=cameras,
+        task_mask_key="task", rest_poses_world=rest.to(dev),
+        scene_frame="world",
+        raster=RasterConfig(**PRODUCT_RASTER) if raster is None else raster)
+
+
+def product_inputs(wrapper, B: int, R: int, settle: int = 40,
+                   dither: float = 0.004):
+    """The bench's rollout inputs: ``B`` envs reset to the arm at rest and
+    the block at (0.45, 0), settled for ``settle`` steps at the base action
+    (the reset transient has no frame coherence), and (R, B, 6) actions of
+    a mm-scale joint dither about it (``bench_product.py:181-195``)."""
+    env = wrapper._base_env()
+    states, _ = env.reset(reset_to_state=PRODUCT_RESET, batch=B)
+    dev = states.arm.q.device
+    base = torch.tensor(PRODUCT_ACTION, device=dev)
+    with torch.no_grad():
+        for _ in range(settle):
+            states = env.step(states, base.expand(B, 6)).state
+    phase = torch.sin(2 * math.pi * torch.arange(R, device=dev) / R)
+    pattern = torch.tensor([0.0, 1.0, -1.0, 0.0, 1.0, 0.0], device=dev)
+    actions = base + dither * phase[:, None, None] * pattern
+    return states, actions.expand(R, B, 6).contiguous()
+
+
+def make_product_rollout(wrapper, sel_tiles=256, dyn_capacity=256,
+                         dyn_max_tiles=9, margin=16.0, kc=512, z_split=0.35,
+                         near_cap=16384):
+    """The arm product path's rollout and teleop step (``bench_product.py``
+    ``measure_product`` and ``measure_latency``), defaults
+    :data:`PRODUCT_RENDER`.  Returns ``(rollout, step, build_moving)``:
+
+    - ``rollout(scene, states (B, …), actions_seq (R, B, 6)) →
+      (transitions, loss)``: the fixed cameras' static caches built from
+      ``scene`` (K1), then ``rollout_with_cache_batch`` (K2 and K3 every
+      frame); ``loss`` = mean(camera_0²) + mean(camera_1²), differentiable
+      in ``scene`` (:func:`product_loss_and_grads`);
+    - ``step(states, actions, caches, moving_caches)``: one
+      ``step_with_cache_batch`` over prebuilt caches (the teleop step);
+    - ``build_moving(states)``: the moving cameras' candidate caches at
+      ``states`` (the teleop loop's rebuild)."""
+    kw = dict(sel_tiles=sel_tiles, dyn_capacity=dyn_capacity,
+              dyn_max_tiles=dyn_max_tiles)
+
+    def rollout(scene, states, actions_seq):
+        w = dataclasses.replace(wrapper,
+                                graph=wrapper.graph._replace(scene=scene))
+        trs = w.rollout_with_cache_batch(
+            states, actions_seq, w.build_render_cache(scene),
+            moving_margin=margin, moving_kc=kc, moving_z_split=z_split,
+            moving_near_cap=near_cap, **kw)
+        loss = (torch.mean(trs.obs["camera_0"] ** 2)
+                + torch.mean(trs.obs["camera_1"] ** 2))
+        return trs, loss
+
+    def step(states, actions, caches, moving_caches):
+        return wrapper.step_with_cache_batch(states, actions, caches,
+                                             moving_caches=moving_caches,
+                                             **kw)
+
+    def build_moving(states):
+        draws = wrapper._base_env().draw_state(states)
+        return wrapper.build_moving_caches(draws, margin=margin, kc=kc,
+                                           z_split=z_split, near_cap=near_cap)
+
+    return rollout, step, build_moving
+
+
+def product_loss_and_grads(rollout, scene: GaussianScene, states,
+                           actions_seq):
+    """The product path's train step, as the bench takes it
+    (``jax.value_and_grad`` of the rollout's loss over the scene):
+    ``rollout`` from :func:`make_product_rollout`.  Returns
+    ``(transitions, loss, grads)``, the transitions' tensors detached and
+    ``grads`` a GaussianScene of the gradients to every scene field."""
+    def fn(leaves):
+        trs, loss = rollout(leaves, states, actions_seq)
+        return loss, trs
+
+    loss, (trs,), grads = _value_and_grads(scene, fn)
+    return _detached(trs), loss, grads
+
+
+def _detached(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_detached(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+

@@ -1,0 +1,324 @@
+"""Manipulator environment: joint-space arm + planar T-block task, batched
+over envs.
+
+Port of ``sim_a_splat_tpu/envs/manipulator_envs.py``: the PD closed loop
+of ``physics/kinematics.arm_step`` (time step 1e-2), the end effector as a
+circle of radius 0.013 pushing the T-block in the table plane with the
+pushT contact solver (``physics/planar.py``, 4 substeps of a 10-iteration
+PGS), reward −‖goal − block‖ − |Δyaw|, done at |reward| < 0.02, and
+``draw_state``: the body poses in the order of ``schema``.
+
+Every state field has a leading env axis B (the reference's ``vmap``);
+its ``scan`` over contact substeps is a loop.  ``_get_info``'s end-effector
+velocities, J(q)·q̇ for the reference's two ``jax.jacfwd`` Jacobians, are
+one forward-mode derivative each (``torch.func.jvp`` along q̇).  ``reset``
+draws from a ``torch.Generator``, whose numbers differ from
+``jax.random``'s; ``reset_to_state`` gives the reference's states.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from sim_a_splat_torch import resolve_device
+from sim_a_splat_torch.messaging.draw import (
+    GEOM_MESH, DrawState, GeomSchema, LinkSchema, ROBOT_NUM_ROBOT,
+    ROBOT_NUM_TASK, SceneSchema,
+)
+from sim_a_splat_torch.ops import quaternion as quat
+from sim_a_splat_torch.ops.transforms import SE3
+from sim_a_splat_torch.physics import kinematics as kin
+from sim_a_splat_torch.physics import planar
+
+
+@dataclasses.dataclass(frozen=True)
+class TBlockParams:
+    """The T-block's geometry and inertia (meters, kg)."""
+
+    crossbar_half_x: float = 0.1
+    crossbar_half_y: float = 0.025
+    stem_half_x: float = 0.025
+    stem_y0: float = -0.175
+    stem_y1: float = -0.025
+    mass: float = 0.2
+    izz: float = 0.003755952380952381     # about the CoG
+    cog_y: float = -0.042857142857142844
+    mu: float = 1.0
+
+    def polys_local(self) -> np.ndarray:
+        """(2, 4, 2) CCW box vertices in the block frame."""
+        cb = [(-self.crossbar_half_x, -self.crossbar_half_y),
+              (self.crossbar_half_x, -self.crossbar_half_y),
+              (self.crossbar_half_x, self.crossbar_half_y),
+              (-self.crossbar_half_x, self.crossbar_half_y)]
+        st = [(-self.stem_half_x, self.stem_y0),
+              (self.stem_half_x, self.stem_y0),
+              (self.stem_half_x, self.stem_y1),
+              (-self.stem_half_x, self.stem_y1)]
+        return np.asarray([cb, st], np.float32)
+
+
+class ManipulatorState(NamedTuple):
+    """Batched state: every leaf has a leading env axis B."""
+
+    arm: kin.ArmState
+    block_pos: torch.Tensor    # (B, 2) world xy (z = 0 on the table)
+    block_yaw: torch.Tensor    # (B,) world yaw
+    block_vel: torch.Tensor    # (B, 2)
+    block_omega: torch.Tensor  # (B,)
+    goal: torch.Tensor         # (B, 4) [x, y, z, yaw_world]
+    prev_eef_xy: torch.Tensor  # (B, 2) for the EEF velocity at the contact
+    t: torch.Tensor            # (B,) sim time
+
+
+class Transition(NamedTuple):
+    state: ManipulatorState
+    obs: Any
+    reward: torch.Tensor
+    terminated: torch.Tensor
+    truncated: torch.Tensor
+    info: dict
+
+
+def state_from_numpy(fields, device="cuda") -> ManipulatorState:
+    """ManipulatorState from numpy arrays: a mapping by field name whose
+    ``arm`` is a mapping or sequence (q, qd, target_prev), as float32
+    tensors on ``device`` (the reference's batched state carried over)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    arm = fields["arm"]
+    if isinstance(arm, dict):
+        arm = [arm[k] for k in kin.ArmState._fields]
+    return ManipulatorState(
+        kin.ArmState(*(f32(a) for a in arm)),
+        *(f32(fields[k]) for k in ManipulatorState._fields[1:]))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ManipulatorEnvF:
+    """Functional manipulator env over a batch of envs.
+
+    ``env_objects`` gates the T-block task; ``weld`` is the base weld
+    transform (q wxyz, t).  ``contact_bias`` None takes Chipmunk's
+    schedule 1 − ((1−0.1)⁶⁰)^dt per substep, as the pushT physics does.
+    ``device`` is where ``reset`` puts the states ("cuda" unless asked)."""
+
+    chain: kin.KinematicChain
+    eef_link: str
+    env_objects: bool = True
+    weld: tuple = ((1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    time_step: float = 1e-2
+    kp: float = 100.0
+    kd: float = 20.0
+    eef_radius: float = 0.013
+    block: TBlockParams = TBlockParams()
+    contact_substeps: int = 4
+    contact_bias: float | None = None
+    contact_slop: float = 1e-4
+    default_goal: tuple = (0.475, 0.0, 0.2, 0.78539816)
+    device: str = "cuda"
+
+    @functools.lru_cache(maxsize=8)
+    def _consts(self, device: torch.device) -> dict:
+        """Constant tensors on ``device``, made once."""
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        return dict(base=SE3(f32(self.weld[0]), f32(self.weld[1])),
+                    polys=f32(self.block.polys_local()),
+                    cog=f32([0.0, self.block.cog_y]), z=f32([0.0, 0.0, 1.0]))
+
+    def _base(self, device=None) -> SE3:
+        return self._consts(resolve_device(device or self.device))["base"]
+
+    @property
+    def num_dof(self) -> int:
+        return self.chain.ndof
+
+    # --- schema (the load-message analogue) ---
+
+    def schema(self) -> SceneSchema:
+        from sim_a_splat_torch.scenegraph.mesh_overlay import geom_of_visual
+
+        links = []
+        for i, n in enumerate(self.chain.link_names):
+            vis = self.chain.visuals[i]
+            geoms = (geom_of_visual(n, vis),) if vis is not None else ()
+            links.append(LinkSchema(name=f"plant::{n}",
+                                    robot_num=ROBOT_NUM_ROBOT, geoms=geoms))
+        if self.env_objects:
+            links.append(LinkSchema(
+                name="plant::tblock_paper", robot_num=ROBOT_NUM_TASK,
+                geoms=(GeomSchema(name="tblock_paper", type=GEOM_MESH,
+                                  color=(0.956, 0.396, 0.365, 1.0),
+                                  string_data="assets/tblock_paper/"
+                                              "tblock_paper.obj"),)))
+        return SceneSchema(links=tuple(links))
+
+    def draw_state(self, state: ManipulatorState) -> DrawState:
+        """Body poses (B, L, ·) ordered as :meth:`schema`: the links' FK,
+        then the T-block on the table."""
+        q = state.arm.q
+        poses = kin.fk(self.chain, q, self._base(q.device))
+        if self.env_objects:
+            c = self._consts(q.device)
+            bq = quat.from_axis_angle(c["z"], state.block_yaw)
+            bt = torch.cat([state.block_pos,
+                            torch.zeros_like(state.block_pos[:, :1])], -1)
+            poses = SE3(torch.cat([poses.q, bq[:, None]], 1),
+                        torch.cat([poses.t, bt[:, None]], 1))
+        return DrawState(poses=poses)
+
+    # --- reset -------------------------------------------------------------
+
+    def reset(self, generator: Optional[torch.Generator] = None,
+              reset_to_state: Optional[dict] = None,
+              batch: int = 1) -> tuple[ManipulatorState, Any]:
+        """``batch`` states on ``self.device``: random joints in [−π, π]
+        and a random block pose from ``generator``, or ``reset_to_state``
+        ({robot_pos, block_pos [x, y, z, yaw], goal_pos}, each one value
+        for all envs or one per env).  The block's yaw and the goal's yaw
+        are negated and their z zeroed, as the reference does."""
+        dev = resolve_device(self.device)
+
+        def f32(a):
+            a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            return a.expand(batch, a.shape[-1]).clone()
+
+        if reset_to_state is None:
+            if generator is None:
+                raise ValueError("reset needs a generator or reset_to_state")
+            robot_pos = (torch.rand((batch, self.num_dof), generator=generator,
+                                    device=dev) * 2.0 - 1.0) * math.pi
+            lo = f32([0.4, -0.183, 0.2, -np.pi])
+            hi = f32([0.55, 0.183, 0.2, np.pi])
+            block_pos = lo + (hi - lo) * torch.rand(
+                (batch, 4), generator=generator, device=dev)
+            goal_pos = f32(self.default_goal)
+        else:
+            robot_pos = f32(reset_to_state["robot_pos"])
+            block_pos = f32(reset_to_state.get("block_pos",
+                                               (0.475, 0.0, 0.2, 0.0)))
+            goal_pos = f32(reset_to_state.get("goal_pos", self.default_goal))
+        goal = goal_pos.clone()
+        goal[:, 2] = 0.0
+        goal[:, 3] = -goal_pos[:, 3]
+        zeros = torch.zeros(batch, device=dev)
+        state = ManipulatorState(
+            arm=kin.arm_init(self.chain, robot_pos),
+            block_pos=block_pos[:, :2], block_yaw=-block_pos[:, 3],
+            block_vel=torch.zeros((batch, 2), device=dev), block_omega=zeros,
+            goal=goal, prev_eef_xy=torch.zeros((batch, 2), device=dev),
+            t=zeros)
+        state = state._replace(prev_eef_xy=self._eef_pose(state).t[:, :2])
+        return state, self._get_obs(state)
+
+    # --- step --------------------------------------------------------------
+
+    def _eef_pose(self, state: ManipulatorState) -> SE3:
+        q = state.arm.q
+        return kin.link_pose(self.chain, q, self.eef_link, self._base(q.device))
+
+    def _block_substep(self, state: ManipulatorState, eef_xy, eef_vel_xy,
+                       dt: float) -> ManipulatorState:
+        bp = self.block
+        c = self._consts(eef_xy.device)
+        R = planar.rot2d(state.block_yaw)                        # (B, 2, 2)
+        polys = state.block_pos[:, None, None, :] + torch.sum(
+            R[:, None, None] * c["polys"][None, :, :, None, :], -1)
+        cs = [planar.circle_poly_contact(eef_xy, self.eef_radius,
+                                         polys[:, i], eef_vel_xy, bp.mu)
+              for i in range(2)]
+        contacts = planar.Contact(*(torch.stack(f, dim=1) for f in zip(*cs)))
+        contacts = contacts._replace(normal=-contacts.normal)
+        cog = state.block_pos + torch.sum(R * c["cog"], -1)
+        body = planar.PlanarBody(cog=cog, angle=state.block_yaw,
+                                 vel=torch.zeros_like(cog),
+                                 omega=torch.zeros_like(state.block_yaw))
+        bias = (self.contact_bias if self.contact_bias is not None
+                else 1.0 - ((1.0 - 0.1) ** 60.0) ** dt)
+        v, w, vb, wb, _ = planar.solve_contacts(
+            body, contacts, 1.0 / bp.mass, 1.0 / bp.izz, dt, iterations=10,
+            bias=bias, slop=self.contact_slop)
+        new_cog = cog + (v + vb) * dt
+        new_yaw = state.block_yaw + (w + wb) * dt
+        new_pos = new_cog - torch.sum(planar.rot2d(new_yaw) * c["cog"], -1)
+        return state._replace(block_pos=new_pos, block_yaw=new_yaw,
+                              block_vel=v, block_omega=w)
+
+    def step(self, state: ManipulatorState,
+             action: torch.Tensor) -> Transition:
+        """One control step for every env: joint targets ``action`` (B,
+        ndof) through the PD loop, then the block pushed by the end
+        effector swept linearly over the contact substeps."""
+        prev_eef = self._eef_pose(state).t[:, :2]
+        arm = kin.arm_step(self.chain, state.arm, action, dt=self.time_step,
+                           kp=self.kp, kd=self.kd)
+        state = state._replace(arm=arm, t=state.t + self.time_step)
+        eef = self._eef_pose(state)
+        if self.env_objects:
+            new_eef = eef.t[:, :2]
+            eef_vel = (new_eef - prev_eef) / self.time_step
+            h = self.time_step / self.contact_substeps
+            for i in range(self.contact_substeps):
+                frac = (i + 1.0) / self.contact_substeps
+                exy = prev_eef + frac * (new_eef - prev_eef)
+                state = self._block_substep(state, exy, eef_vel, h)
+        state = state._replace(prev_eef_xy=eef.t[:, :2])
+        reward = self._compute_reward(state)
+        return Transition(state=state, obs=self._get_obs(state),
+                          reward=reward, terminated=torch.abs(reward) < 0.02,
+                          truncated=torch.zeros_like(reward, dtype=torch.bool),
+                          info=self._get_info(state))
+
+    # --- obs / info / reward -----------------------------------------------
+
+    def _get_obs(self, state: ManipulatorState):
+        return {"robot_joint_pos": state.arm.q,
+                "robot_joint_vel": state.arm.qd}
+
+    def _get_info(self, state: ManipulatorState) -> dict:
+        eef = self._eef_pose(state)
+        base = self._base(eef.q.device)
+        q, qd = state.arm.q, state.arm.qd
+        q_eef = eef.q.detach()
+
+        def pos_of(qj):
+            return kin.link_pose(self.chain, qj, self.eef_link, base).t
+
+        def rotvec_of(qj):
+            p = kin.link_pose(self.chain, qj, self.eef_link, base)
+            return kin.orientation_error(p.q, q_eef)
+
+        # J(q)·q̇ of the reference's jacfwd Jacobians, env by env
+        _, eef_pos_vel = torch.func.jvp(pos_of, (q,), (qd,))
+        _, eef_rot_vel = torch.func.jvp(rotvec_of, (q,), (qd,))
+        info = {"eef_pos": eef.t, "eef_quat": quat.normalize(eef.q),
+                "eef_pos_vel": eef_pos_vel, "eef_rot_vel": eef_rot_vel,
+                "timestamp": state.t}
+        if self.env_objects:
+            bq = quat.from_axis_angle(self._consts(q.device)["z"],
+                                      state.block_yaw)
+            z1 = torch.zeros_like(state.block_yaw)[:, None]
+            info["block_pose"] = torch.cat([bq, state.block_pos, z1], -1)
+            info["block_vel"] = torch.cat(
+                [z1, z1, state.block_omega[:, None], state.block_vel, z1], -1)
+        return info
+
+    def _compute_reward(self, state: ManipulatorState) -> torch.Tensor:
+        if not self.env_objects:
+            return torch.zeros_like(state.t)
+        block3 = torch.cat([state.block_pos,
+                            torch.zeros_like(state.block_pos[:, :1])], -1)
+        r1 = -quat.norm(state.goal[:, :3] - block3)[:, 0]
+        r2 = -torch.abs(state.goal[:, 3] - state.block_yaw)
+        return r1 + r2

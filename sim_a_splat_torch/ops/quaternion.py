@@ -1,9 +1,9 @@
 """Batched quaternion math (wxyz convention) on torch tensors.
 
-Port of ``sim_a_splat_tpu/ops/quaternion.py`` (the functions the pushT step
-and the transforms need).  Every function takes arbitrary leading batch
-dimensions.  The expressions keep the reference's operation order so
-float32 rounding matches it term by term.
+Port of ``sim_a_splat_tpu/ops/quaternion.py``, every function.  Every
+function takes arbitrary leading batch dimensions.  The expressions keep
+the reference's operation order so float32 rounding matches it term by
+term.
 """
 
 from __future__ import annotations
@@ -118,3 +118,76 @@ def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.cat(
         [torch.cos(half)[..., None], axis * torch.sin(half)[..., None]],
         dim=-1)
+
+
+def to_angle_axis(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) wxyz → angle-axis vector (..., 3); where
+    sin(θ/2) < 1e-6 the scale takes its Taylor value 2."""
+    q = normalize(q)
+    w = q[..., 0]
+    v = q[..., 1:]
+    sin_half = norm(v)[..., 0]
+    half = torch.atan2(torch.where(w < 0, -sin_half, sin_half),
+                       torch.where(w < 0, -w, w))
+    small = sin_half < 1e-6
+    k = torch.where(small, torch.full_like(half, 2.0),
+                    2.0 * half / torch.clamp(sin_half, min=_EPS))
+    return v * k[..., None]
+
+
+def from_angle_axis(aa: torch.Tensor) -> torch.Tensor:
+    """Angle-axis vector (..., 3) → quaternion (..., 4) wxyz (the sinc's
+    Taylor value for θ < 1e-6)."""
+    theta = norm(aa)[..., 0]
+    half = 0.5 * theta
+    small = theta < 1e-6
+    s = torch.where(small, 0.5 - theta * theta / 48.0,
+                    torch.sin(half) / torch.clamp(theta, min=_EPS))
+    return torch.cat([torch.cos(half)[..., None], aa * s[..., None]], dim=-1)
+
+
+def _skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) → (..., 3, 3) cross-product matrices [v]×."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zeros = torch.zeros_like(x)
+    return torch.stack([zeros, -z, y, z, zeros, -x, -y, x, zeros],
+                       dim=-1).reshape(v.shape[:-1] + (3, 3))
+
+
+def angle_axis_to_rotation_matrix(aa: torch.Tensor) -> torch.Tensor:
+    """Angle-axis (..., 3) → rotation matrix (..., 3, 3) by Rodrigues; for
+    θ < 1e-6 the first-order I + [aa]×."""
+    theta = norm(aa)[..., 0]
+    small = theta < 1e-6
+    K = _skew(aa / torch.clamp(theta, min=_EPS)[..., None])
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device).expand(K.shape)
+    s, c = torch.sin(theta), torch.cos(theta)
+    KK = (K[..., :, :, None] * K[..., None, :, :]).sum(-2)   # K @ K, exact f32
+    R_full = eye + s[..., None, None] * K + (1.0 - c)[..., None, None] * KK
+    return torch.where(small[..., None, None], eye + _skew(aa), R_full)
+
+
+def from_rpy(rpy: torch.Tensor) -> torch.Tensor:
+    """Roll-pitch-yaw (..., 3) → quaternion, Drake's ``RollPitchYaw``
+    convention R = Rz(y)·Ry(p)·Rx(r)."""
+    r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        cr * cp * cy + sr * sp * sy,
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+    ], dim=-1)
+
+
+def to_rpy(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) → roll-pitch-yaw (..., 3), inverse of
+    :func:`from_rpy`."""
+    q = normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -1,9 +1,9 @@
 """Planar rigid-body primitives, batched over envs.
 
 Port of the pieces of ``sim_a_splat_tpu/physics/planar.py`` that the pushT
-control step uses: ``moment_for_poly``, ``rot2d`` (here ``rotate2d``, which
-applies the rotation), ``cross2``, ``perp``, ``Contact``,
-``circle_poly_contact`` and the projected Gauss-Seidel solver
+and arm steps use: ``moment_for_poly``, ``rot2d`` (and ``rotate2d``, which
+applies the rotation without building the matrix), ``cross2``, ``perp``,
+``Contact``, ``circle_poly_contact`` and the projected Gauss-Seidel solver
 ``solve_contacts``.  Every tensor carries a leading env axis B; the
 reference's ``vmap`` is that axis and its ``fori_loop`` a Python loop.  The
 contacts are resolved in the reference's order, slot by slot, so the
@@ -32,6 +32,13 @@ def moment_for_poly(mass: float, verts) -> float:
         s1 += a * b
         s2 += a
     return mass * s1 / (6.0 * s2)
+
+
+def rot2d(angle: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 2) rotation matrices of ``angle`` (...)."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)],
+                       -2)
 
 
 def rotate2d(angle: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

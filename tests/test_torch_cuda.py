@@ -750,3 +750,114 @@ def test_uncached_step_on_card_matches_cpu(dev):
     assert not bool(got.sh_rest.any()) and not bool(want.sh_rest.any())
     assert_fields_close(got._replace(sh_rest=None), want._replace(sh_rest=None),
                         GRAD_REL)
+
+
+# the arm product path (entry.build_product_wrapper): 240×320, a 15 × 20
+# tile grid, its capacities and the end-effector camera's near set
+PRODUCT_TX, PRODUCT_T = 20, 300
+
+
+@pytest.fixture(scope="module")
+def product_inputs():
+    """The K1, K2 and K3 arguments of a 2-frame train rollout of the arm
+    product path (N = 6,000, sh3, 2 envs) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    wrapper = entry.build_product_wrapper(n_total=6000, sh_degree=3,
+                                          render_size=(240, 320), device=dev)
+    rollout, _, build_moving = entry.make_product_rollout(wrapper,
+                                                          near_cap=2048)
+    states, actions = entry.product_inputs(wrapper, 2, 2, settle=5)
+    seen = {}
+    kernels = {"k1": (composite, "composite_static"),
+               "k2": (composite_sel, "composite_pair_sel"),
+               "k3": (composite_single, "composite_sel_single")}
+    real = {k: getattr(m, n) for k, (m, n) in kernels.items()}
+
+    def capture(key):
+        def wrapped(*args):
+            seen.setdefault(key, tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args))
+            return real[key](*args)
+        return wrapped
+
+    try:
+        for k, (m, n) in kernels.items():
+            setattr(m, n, capture(k))
+        entry.product_loss_and_grads(rollout, wrapper.graph.scene, states,
+                                     actions)
+    finally:
+        for k, (m, n) in kernels.items():
+            setattr(m, n, real[k])
+    with torch.no_grad():
+        mc = build_moving(states)[1]
+    return seen, mc
+
+
+def test_k1_at_product_shapes(product_inputs):
+    """K1f and K1b on the viewport's static lists, (300, 10, 1024): the
+    non-square grid's tiles map to pixels as in the plain version."""
+    a1 = product_inputs[0]["k1"]
+    pay, counts, skip, ts, tx = a1[:5]
+    assert tuple(pay.shape) == (PRODUCT_T, 10, 1024) and tx == PRODUCT_TX
+    out, car, acc = composite.composite_static_fwd(*a1)
+    want, want_car = composite.composite_static_plain(*a1)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(car, want_car, atol=2e-5, rtol=0)
+    ct = torch.randn(out.shape, device=out.device,
+                     generator=torch.Generator(out.device).manual_seed(0))
+    got = composite.composite_static_bwd(pay, counts, skip, ct, out, car,
+                                         *a1[3:], chunk_acc=acc)
+    assert_rows_close(got, composite.composite_static_bwd_plain(
+        pay, counts, skip, ct, *a1[3:]), GRAD_REL, "K1b at 240×320")
+
+
+def test_k2_at_product_shapes(product_inputs):
+    """K2f and K2b on each env's 256 selected tiles of 300, dynamic lists of
+    256 entries, against the plain versions."""
+    a2 = product_inputs[0]["k2"]
+    spay, dpay, ids = a2[:3]
+    assert tuple(spay.shape) == (PRODUCT_T + 1, 10, 1024)
+    assert tuple(dpay.shape[1:]) == (256, 10, 256) and a2[6] == PRODUCT_TX
+    out = composite_sel.composite_pair_sel(*a2)
+    ref = composite_sel.composite_pair_sel_plain(*a2)
+    for b in range(ids.shape[0]):
+        rows = ids[b].long()
+        torch.testing.assert_close(out[b, rows], ref[b, rows], atol=5e-5,
+                                   rtol=1e-4)
+    ct = torch.as_tensor(selected_cotangent(
+        np.random.default_rng(21), ids.cpu().numpy(), tuple(out.shape)),
+        device=out.device)
+    gs, gd = composite_sel.composite_pair_sel_bwd(*a2[:5], ct, out, *a2[5:])
+    want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
+        *a2[:5], ct, *a2[5:])
+    used = torch.unique(ids[ids < PRODUCT_T].long())
+    assert_rows_close(gs[used], want_s[used], GRAD_REL, "K2b static")
+    assert_rows_close(gd, want_d, GRAD_REL, "K2b dynamic")
+
+
+def test_k3_at_product_shapes_with_near_set(product_inputs):
+    """K3f and K3b on the end-effector camera's merged lists (candidates,
+    dynamics and the near set re-binned every frame), (2, 301, 10, 768),
+    against the plain versions."""
+    a3, mc = product_inputs[0]["k3"], product_inputs[1]
+    assert int((mc.near_op > 0).sum(1).min()) > 0     # the near set is on
+    spay, ids, counts = a3[:3]
+    assert tuple(spay.shape[1:]) == (PRODUCT_T + 1, 10, 512 + 256)
+    assert a3[4] == PRODUCT_TX
+    out = composite_single.composite_sel_single_fwd(*a3, save_state=True)
+    ref = composite_single.composite_sel_single_plain(*a3, save_state=True)
+    torch.testing.assert_close(out[:, :PRODUCT_T, :5], ref[:, :PRODUCT_T, :5],
+                               atol=2e-5, rtol=0)
+    assert torch.equal(out[:, :PRODUCT_T, 5], ref[:, :PRODUCT_T, 5])
+    ct = torch.zeros_like(ref)
+    ct[:, :PRODUCT_T, :5] = torch.as_tensor(np.random.default_rng(22).normal(
+        size=(spay.shape[0], PRODUCT_T, 5, ref.shape[-1])).astype(np.float32),
+        device=out.device)
+    got = composite_single.composite_sel_single_bwd(*a3[:3], ct, out,
+                                                    *a3[3:])
+    want = composite_single.composite_sel_single_bwd_plain(*a3[:3], ct,
+                                                           *a3[3:])
+    assert_rows_close(got[:, :PRODUCT_T], want[:, :PRODUCT_T], GRAD_REL,
+                      "K3b at 240×320")

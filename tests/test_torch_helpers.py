@@ -49,6 +49,15 @@ def graph_leaves(graph) -> dict:
                 rest_inv_t=np_of(graph.rest_inv.t))
 
 
+def manipulator_leaves(state) -> dict:
+    """A reference ManipulatorState's leaves as numpy by field name, ``arm``
+    as (q, qd, target_prev): what ``entry.product_state_from_numpy``
+    takes."""
+    d = {k: np_of(v) for k, v in state._asdict().items() if k != "arm"}
+    d["arm"] = [np_of(a) for a in state.arm]
+    return d
+
+
 def jax_pusht_states(vectors, legacy=False, block_cog=None):
     """Settled JAX pushT states (batched) from (B, 5) numpy state vectors,
     and the same states as a numpy dict by field name."""
