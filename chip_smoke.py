@@ -30,7 +30,7 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   card limits), against their plain versions in float64, and at
   ``dyn_capacity`` 1024 and tile size 32 (a window of 128 entries in the
   backward kernels), timed;
-- the moving camera attached to each env's agent (K3f, K3b): the R=32
+- the moving camera attached to each env's agent (K3f, K3b): the R=16
   frame candidate-cache rollout (``entry.make_step_moving_cached``) at
   B=32 forward and B=16 in training (``entry.rollout_loss_and_grads``,
   with its peak device memory), and one frame against the full per-frame
@@ -50,7 +50,17 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   forward and in training (``entry.product_loss_and_grads``), the kernels
   against their plain versions at the path's inputs (the end-effector
   camera's near set on), the B=1 teleop step with its moving-cache rebuild
-  timed apart, and the arm physics' share of the rollout.
+  timed apart, and the arm physics' share of the rollout;
+- the env layer: ``PushTEnvF.step`` at B=128 in each observation mode
+  (state, keypoints, 96² images) beside ``control_step`` and the reward
+  alone, its reward, done and observation held to the port's CPU run on
+  the same states; then the splat env built from asset files
+  (``envs/splat_assets.py``, the gym-free core of ``SplatEnvWrapper``) on
+  a 100k-gaussian ``build_demo_assets`` tree with the demo scripts' two
+  cameras at 240×320: 10 task-space steps at B=1, each rendering both
+  cameras through K1f (the step and the render timed apart), the images
+  against K1's plain version, a free-camera render and one joint-space
+  step rendered from ``examples/assets``.
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -100,6 +110,18 @@ UC_ITERS, UC_PLAIN_ENVS, UC_GRAD_ENVS = 3, 4, 2
 # steps, timed teleop steps, and the envs and frames of its plain-path checks
 ARM_B, ARM_R, ARM_SETTLE, ARM_TELEOP_ITERS = 8, 32, 40, 10
 ARM_PLAIN_B, ARM_PLAIN_R, ARM_RES = 2, 2, (240, 320)
+# the env layer: PushTEnvF at B=ENV_B in each observation mode (ENV_RS²
+# frames, ENV_ITERS timed steps), where at most ENV_EDGE_PIXELS pixels of a
+# frame may differ from the CPU's (pixel centres on a shape's edge); and the
+# splat env built from a demo asset tree: 2,000 gaussians on each of
+# pusharm6's 8 links, 80,000 on the ground and a 4,000-gaussian task mesh
+# (100,000, bench_product.py's N), captured at the demo's joint
+# configuration, ASSET_STEPS task-space steps from the push-ready pose
+ENV_B, ENV_ITERS, ENV_RS, ENV_EDGE_PIXELS = 128, 2, 96, 4
+ASSET_N_PER_LINK, ASSET_N_GROUND, ASSET_TASK_N = 2000, 80000, 4000
+ASSET_STEPS, ASSET_RES = 10, (240, 320)
+ASSET_JOINT_CONFIG = (0.0, -0.45, 0.85, 0.0, 0.35, 0.0)
+ASSET_HOME = (0.0, 0.785, 0.89, 0.0, 1.466, 0.0)
 # both product cameras sit inside the scene's background cloud: a gaussian
 # a centimetre in front of a lens covers thousands of pixels, and its
 # gradient (through the ill-conditioned 2-D covariance of its projection)
@@ -112,8 +134,10 @@ ARM_PLAIN_B, ARM_PLAIN_R, ARM_RES = 2, 2, (240, 320)
 # split) are held to TOL_GRAD_NEAR × the field's largest gradient, the
 # others to TOL_GRAD × their own largest
 NEAR_LENS_M, TOL_GRAD_NEAR = 0.35, 1e-2
-# the moving camera (bench.py's moving_camera / moving_fwd variants)
-B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 32, 1
+# the moving camera (bench.py's moving_camera / moving_fwd variants, whose
+# R=32 is cut to 16 frames to leave the env layer's phase room in the
+# script's time)
+B_MV_FWD, B_MV_TRAIN, R_MV, MV_ITERS = 32, 16, 16, 1
 MV_KW = dict(margin=16.0, kc=512, dyn_capacity=DYN_CAP, dyn_max_tiles=DYN_M,
              cam_height=-420.0, z_split=0.0)
 MV_RASTER = dict(tile_size=16, tile_capacity=1024, max_tiles_per_gaussian=16,
@@ -371,12 +395,12 @@ def versus_parent(label, fn, parent, reps, parent_fn=None):
     return new, old
 
 
-def static_rows(a1, dev):
+def static_rows(a1, dev, backward=True):
     """K1f and K1b on the captured arguments ``a1`` of one
     ``composite.composite_static`` call against their plain versions (K1b
     for a numpy-seeded cotangent), timed by CUDA events beside their bound;
     logs the applied chunks and the cull's skipped share.  Returns the two
-    rows of the ``kernels`` line."""
+    rows of the ``kernels`` line (K1f's alone without ``backward``)."""
     import numpy as np
     import torch
     from sim_a_splat_torch.ops import composite, composite_sel
@@ -434,6 +458,8 @@ def static_rows(a1, dev):
     log(f"  cull skipped {skipped1} of {pairs1} (applied entry, warp) pairs "
         f"({skipped1 / pairs1:.4f}); {composite.kernel_threads(a1[3])} "
         f"threads a block")
+    if not backward:
+        return [k1]
 
     # 3b. K1b at full size, for a numpy-seeded cotangent ----------------------
     log("K1b composite_static_bwd vs composite_static_bwd_plain:")
@@ -913,6 +939,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += arm_product(entry, composite, composite_sel, composite_single,
                            reset_counts, counts_now, profiled, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 25-27. the env layer (pushT's envs; the splat env from asset files) ----
+    torch.cuda.empty_cache()
+    kernels += env_layer(composite, reset_counts, counts_now, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -2310,6 +2341,247 @@ def arm_product(entry, composite, composite_sel, composite_single,
         log("  not gated: a severe or bounded count is nonzero")
     return rows
 
+
+
+def pusht_env_layer(dev):
+    """``PushTEnvF.step`` at B=ENV_B in each observation mode (96² frames),
+    timed beside ``control_step``, ``reward_done`` and ``observe`` alone
+    (host clock, synchronised: the eager physics is host-bound); its
+    reward, done and observation held to the port's CPU run on the same
+    states."""
+    import torch
+    from sim_a_splat_torch.envs.pusht_envs import PushTEnvF
+    from sim_a_splat_torch.physics import pusht
+    P = pusht.PushTParams()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(ENV_ITERS):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / ENV_ITERS, out
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    states, _ = PushTEnvF(device=str(dev)).reset(gen, batch=ENV_B)
+    actions = states.block_pos.clone()        # each agent heads for its block
+    phys_ms, s1 = timed(lambda: pusht.control_step(P, states, actions))
+    rew_ms, _ = timed(lambda: pusht.reward_done(P, s1))
+    log(f"env layer, pushT: B={ENV_B}, control_step alone {phys_ms:.2f} ms, "
+        f"reward_done alone {rew_ms:.2f} ms (host clock, {ENV_ITERS} calls "
+        "each)")
+    for mode in ("state", "keypoints", "image"):
+        env = PushTEnvF(obs_mode=mode, render_size=ENV_RS, device=str(dev))
+        cpu = PushTEnvF(obs_mode=mode, render_size=ENV_RS, device="cpu")
+        step_ms, tr = timed(lambda: env.step(states, actions))
+        obs_ms, _ = timed(lambda: env.observe(tr.state, action=actions))
+        log(f"  {mode}: PushTEnvF.step {step_ms:.2f} ms (reward_done "
+            f"{rew_ms / step_ms:.3f} of it, observe {obs_ms:.2f} ms, "
+            f"{obs_ms / step_ms:.3f})")
+        cs = pusht.PushTState(*(f.cpu() for f in tr.state))
+        r_c, d_c = pusht.reward_done(P, cs)
+        check("env layer", tr.reward.cpu(), r_c, 1e-5,
+              f"{mode} reward vs the CPU on the same states")
+        if not torch.equal(tr.done.cpu(), d_c):
+            raise AssertionError(f"{mode}: done differs from the CPU's")
+        obs_c = cpu.observe(cs, action=actions.cpu())
+        if mode == "image":
+            img = tr.obs["image"].cpu()
+            flips = ((img - obs_c["image"]).abs().amax(1) > 1e-6).sum((1, 2))
+            covered = float((img.amin(1) < 0.99).float().mean())
+            log(f"  image vs the CPU: at most {int(flips.max())} pixels of a "
+                f"frame differ (allowed {ENV_EDGE_PIXELS}, pixel centres on "
+                f"a shape's edge); {covered:.3f} of the pixels not white")
+            if int(flips.max()) > ENV_EDGE_PIXELS or covered < 0.05:
+                raise AssertionError("pushT frames disagree with the CPU's")
+            check("env layer", tr.obs["agent_pos"].cpu(), obs_c["agent_pos"],
+                  1e-4, "image agent_pos vs the CPU")
+        else:
+            check("env layer", tr.obs.cpu(), obs_c, 1e-4,
+                  f"{mode} observation vs the CPU")
+    log(f"  rewards: mean {float(tr.reward.mean()):.4f}, "
+        f"{int(tr.done.sum())} of {ENV_B} done")
+
+
+def look_at(eye, target, up=(0.0, 0.0, 1.0)):
+    """OpenCV camera-to-world pose (+z forward, +y down) as (q wxyz, t), as
+    ``examples/common.py::look_at`` makes it."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops import quaternion as quat
+    eye = np.asarray(eye, np.float64)
+    z = np.asarray(target, np.float64) - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(z, np.asarray(up, np.float64))
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z], axis=1)
+    q = quat.from_rotation_matrix(torch.as_tensor(R, dtype=torch.float32))
+    return tuple(q.tolist()), tuple(eye.tolist())
+
+
+def asset_cameras(icp):
+    """The demo scripts' two cameras (``examples/common.py``'s
+    ``camera_setup``) at ASSET_RES: a viewport onto the arm, its pose given
+    in the splat frame, and a camera on ``push_tool``."""
+    import torch
+    from sim_a_splat_torch.ops.transforms import SE3
+    from sim_a_splat_torch.scenegraph.registration import world_to_splat_pose
+    q, t = look_at([1.1, -0.9, 0.9], [0.35, 0.0, 0.25])
+    dev = icp.t.device
+    view = world_to_splat_pose(SE3(torch.tensor(q, device=dev),
+                                   torch.tensor(t, device=dev)), icp)
+    return {0: {"link_name": "world", "type": "viewport",
+                "local_frame": (view.q.tolist(), view.t.tolist()),
+                "render_size": list(ASSET_RES)},
+            1: {"link_name": "push_tool", "type": "moving",
+                "local_frame": ((1.0, 0.0, 0.0, 0.0), (-0.1, 0.0, 0.033)),
+                "render_size": list(ASSET_RES)}}
+
+
+def env_layer(composite, reset_counts, counts_now, dev):
+    """The env layer: :func:`pusht_env_layer`, then ``SplatEnvWrapper``'s
+    gym-free core (``envs/splat_assets.py``) on a demo asset tree of
+    100,000 gaussians (``build_demo_assets``, written to a temporary
+    directory) with two cameras at 240×320: ASSET_STEPS task-space steps at
+    B=1, each rendering both cameras (K1f over the full tile grid), the
+    step and the render timed apart; the images against K1's plain version;
+    the free-camera render; and one joint-space step rendered from
+    ``examples/assets``.  Returns
+    K1f's row on this path (``composite_static_assets``)."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.envs.eef_wrapper import ManipulatorEEFWrapperF
+    from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+    from sim_a_splat_torch.envs.splat_assets import SplatAssets, render_cameras
+    from sim_a_splat_torch.ops import quaternion as quat
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.transforms import SE3
+    from sim_a_splat_torch.physics import kinematics as kin
+    from sim_a_splat_torch.tools.demo_assets import build_demo_assets
+
+    pusht_env_layer(dev)
+
+    root = Path(__file__).resolve().parent
+    desc = root / "robot_description"
+    urdf = desc / "pusharm6" / "urdf" / "pusharm6.urdf"
+    env = ManipulatorEnvF(chain=kin.load_chain(urdf), eef_link="push_tool",
+                          env_objects=True, device=str(dev))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = build_demo_assets(
+            tmp, urdf, joint_config=np.asarray(ASSET_JOINT_CONFIG, np.float32),
+            n_per_link=ASSET_N_PER_LINK, n_ground=ASSET_N_GROUND)
+        t_build = time.perf_counter() - t0
+        assets = SplatAssets.load(
+            env, paths["assets"], paths["match_object_name"],
+            paths["splat_config_name"], paths["task_assets_path"],
+            paths["task_assets_name"], task_splat_count=ASSET_TASK_N,
+            package_path=str(desc))
+    wrapper = assets.configure_cameras(asset_cameras(assets.icp))
+    n = assets.scene_splat_frame.num_gaussians
+    h, w = ASSET_RES
+    log(f"env layer, asset wrapper: build_demo_assets {t_build:.2f} s, load "
+        f"and configure {time.perf_counter() - t0 - t_build:.2f} s; N={n} "
+        f"(8 links × {ASSET_N_PER_LINK}, ground {ASSET_N_GROUND}, task mesh "
+        f"{ASSET_TASK_N}), sh{assets.scene_splat_frame.sh_degree}, 2 cameras "
+        f"at {h}×{w}, raster {wrapper.raster}")
+    if n != 100_000:
+        raise AssertionError(f"the asset scene holds {n} gaussians")
+
+    eef = ManipulatorEEFWrapperF(env=env)
+    state, obs = eef.reset(reset_to_state={"robot_pos": ASSET_HOME,
+                                           "block_pos": (0.45, 0.0, 0.2, 0.0)})
+    pos, rpy = obs["eef_pos"], quat.to_rpy(obs["eef_quat"])
+    seen = []
+    real_k1 = composite.composite_static
+
+    def capture(*args):
+        seen.append(args)
+        return real_k1(*args)
+
+    with torch.no_grad(), replaced(composite, "composite_static", capture):
+        render_cameras(wrapper, env.draw_state(state))          # warm-up
+    if len(seen) != 2:
+        raise AssertionError(f"one render launched K1 {len(seen)} times")
+
+    # 25. the main path: task-space steps, each rendering both cameras -----
+    reset_counts()
+    t_step = t_render = 0.0
+    with torch.no_grad():
+        for i in range(ASSET_STEPS):
+            act = {"eef_pos": pos + torch.tensor([0.0, 0.0, -0.002 * (i + 1)],
+                                                 device=dev),
+                   "eef_ori": rpy}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = eef.step(state, act)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            imgs = render_cameras(wrapper, env.draw_state(tr.state))
+            t_render += time.perf_counter() - t1
+            t_step += t1 - t0
+            if not bool(tr.info["ik_converged"].all()):
+                raise AssertionError(f"asset step {i}: IK did not converge")
+            state = tr.state
+    launches = counts_now()
+    want = dict(composite_static=2 * ASSET_STEPS)
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"the asset steps launched {launches}, not "
+                             f"{want}")
+    for i, img in enumerate(imgs):
+        if img.shape != (h, w, 3) or not np.isfinite(img).all() or \
+                img.max() < 0.05:
+            raise AssertionError(f"bad camera_{i} {img.shape}")
+    draw = env.draw_state(state)
+    render_ms = cuda_ms(lambda: wrapper.render(None, draw), 5)
+    log(f"  {ASSET_STEPS} task-space steps at B=1: step (IK + env) "
+        f"{t_step * 1e3 / ASSET_STEPS:.2f} ms, render of both cameras with "
+        f"the host copy {t_render * 1e3 / ASSET_STEPS:.2f} ms (host clock, "
+        f"synchronised); the render alone {render_ms:.2f} ms (events); "
+        f"launches {launches}; image means "
+        f"{[round(float(i.mean()), 4) for i in imgs]}")
+
+    # 26. the images against K1's plain version, K1f on the path's inputs ---
+    with torch.no_grad():
+        got = wrapper.render(None, draw)
+        with replaced(composite, "composite_static",
+                      composite.composite_static_plain):
+            want_imgs = wrapper.render(None, draw)
+    for k, (a, b) in enumerate(zip(got, want_imgs)):
+        check("asset wrapper", a, b, TOL, f"camera_{k} vs K1's plain version")
+    a1 = seen[-1]                               # the viewport's lists
+    a1 = (a1[0][0], a1[1][0], a1[2][0], *a1[3:])
+    rows = static_rows(a1, dev, backward=False)
+    rows[0]["name"] = "composite_static_assets"
+    rows[0]["launches"] = launches["composite_static"]
+
+    # 27. the free camera, and one joint-space step from examples/assets ----
+    q, t = look_at([0.9, 0.9, 0.7], [0.35, 0.0, 0.2])
+    cam = Camera.from_fov(SE3(torch.tensor(q, device=dev),
+                              torch.tensor(t, device=dev)), 0.9, 160, 120)
+    with torch.no_grad():
+        free = wrapper.render_camera(draw, cam)
+    if free.shape != (1, 120, 160, 3) or not bool(torch.isfinite(free).all()):
+        raise AssertionError(f"bad free-camera image {tuple(free.shape)}")
+    ex = SplatAssets.load(env, root / "examples" / "assets", "pusharm6",
+                          "demo-run/splat.npz",
+                          root / "examples" / "assets" / "tblock_paper",
+                          "tblock_paper.obj", package_path=str(desc))
+    ex_wrapper = ex.configure_cameras(asset_cameras(ex.icp))
+    reset_counts()
+    with torch.no_grad():
+        tr = env.step(state, state.arm.q)
+        ex_imgs = render_cameras(ex_wrapper, env.draw_state(tr.state))
+    if counts_now()["composite_static"] != 2 or not all(
+            np.isfinite(i).all() and i.max() > 0.05 for i in ex_imgs):
+        raise AssertionError("examples/assets did not render")
+    log(f"  free camera 120×160: mean {float(free.mean()):.4f}; "
+        f"examples/assets (N={ex.scene_splat_frame.num_gaussians}): one step, "
+        f"image means {[round(float(i.mean()), 4) for i in ex_imgs]}")
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,2 +1,25 @@
-"""Functional environments: the manipulator env, its task-space wrapper and
-the splat observation wrapper, batched over envs."""
+"""Environments: the functional pushT and manipulator envs, the task-space
+wrapper, the splat observation wrapper and its asset-file construction,
+batched over envs; and the Gymnasium adapters over them.
+
+The Gym classes (``gym_adapter``, ``manipulator_gym``, ``splat_gym``)
+import ``gymnasium``, which the card's machine does not have, so this
+package imports them only when one of their names is asked for.
+"""
+
+import importlib
+
+_GYM = {
+    "PushTEnv": "gym_adapter", "PushTImageEnv": "gym_adapter",
+    "PushTKeypointsEnv": "gym_adapter", "register_envs": "gym_adapter",
+    "ManipulatorEEFWrapper": "manipulator_gym",
+    "ManipulatorSimEnv": "manipulator_gym",
+    "SplatEnvWrapper": "splat_gym",
+}
+
+
+def __getattr__(name):
+    if name in _GYM:
+        module = importlib.import_module(f"{__name__}.{_GYM[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

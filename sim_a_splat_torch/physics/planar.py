@@ -1,13 +1,13 @@
 """Planar rigid-body primitives, batched over envs.
 
-Port of the pieces of ``sim_a_splat_tpu/physics/planar.py`` that the pushT
-and arm steps use: ``moment_for_poly``, ``rot2d`` (and ``rotate2d``, which
-applies the rotation without building the matrix), ``cross2``, ``perp``,
-``Contact``, ``circle_poly_contact`` and the projected Gauss-Seidel solver
-``solve_contacts``.  Every tensor carries a leading env axis B; the
-reference's ``vmap`` is that axis and its ``fori_loop`` a Python loop.  The
-contacts are resolved in the reference's order, slot by slot, so the
-sequential impulses match it.
+Port of ``sim_a_splat_tpu/physics/planar.py``: ``moment_for_poly``,
+``rot2d`` (and ``rotate2d``, which applies the rotation without building the
+matrix), ``cross2``, ``perp``, ``Contact``, ``circle_poly_contact``, the
+projected Gauss-Seidel solver ``solve_contacts`` and ``convex_clip_area``,
+the pushT reward's polygon intersection.  Every tensor carries a leading env
+axis B; the reference's ``vmap`` is that axis and its ``fori_loop`` a Python
+loop.  The contacts are resolved in the reference's order, slot by slot, so
+the sequential impulses match it.
 """
 
 from __future__ import annotations
@@ -177,3 +177,75 @@ def solve_contacts(body: PlanarBody, contacts: Contact, inv_mass: float,
             vb = vb + (djb * inv_mass)[..., None] * n_i
             wb = wb + djb * inv_inertia * rxn[..., i]
     return v, w, vb, wb, torch.stack(jn, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Convex polygon intersection area (the pushT reward)
+# ---------------------------------------------------------------------------
+
+_CLIP_SLOTS = 8  # quad clipped by quad never exceeds 8 vertices
+
+
+def _take(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pts`` (..., n, 2) at ``idx`` (..., n), clamped into range as a JAX
+    gather is."""
+    idx = idx.clamp(max=pts.shape[-2] - 1)
+    return pts.gather(-2, idx[..., None].expand(*idx.shape, 2))
+
+
+def _clip_halfplane(pts: torch.Tensor, count: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor):
+    """Keep the part of each polygon (pts (..., nmax, 2), count (...)) left
+    of its directed edge a→b (..., 2): fixed-slot Sutherland-Hodgman.  The
+    emitted points are compacted by a scatter into nmax + 1 slots whose
+    last one takes (and drops) the points not emitted."""
+    nmax = pts.shape[-2]
+    idx = torch.arange(nmax, device=pts.device)
+    prv = _take(pts, torch.remainder(idx - 1,
+                                     torch.clamp(count, min=1)[..., None]))
+    e = (b - a)[..., None, :]
+    dc = cross2(e, pts - a[..., None, :])
+    dp = cross2(e, prv - a[..., None, :])
+    side_cur, side_prv = dc >= 0.0, dp >= 0.0
+    in_range = idx < count[..., None]
+    den = dp - dc
+    t = dp / torch.where(torch.abs(den) < 1e-12, torch.full_like(den, 1e-12),
+                         den)
+    inter = prv + t[..., None] * (pts - prv)
+
+    emit_inter = in_range & (side_cur != side_prv)
+    emit_cur = in_range & side_cur
+    # interleave (intersection, current) per input vertex, then compact
+    lead = pts.shape[:-2]
+    flags = torch.stack([emit_inter, emit_cur], -1).reshape(*lead, 2 * nmax)
+    points = torch.stack([inter, pts], -2).reshape(*lead, 2 * nmax, 2)
+    pos = torch.cumsum(flags, -1) - 1
+    target = torch.where(flags, pos, nmax).clamp(max=nmax)
+    out = pts.new_zeros(*lead, nmax + 1, 2).scatter(
+        -2, target[..., None].expand(*target.shape, 2), points)
+    return out[..., :nmax, :], torch.sum(flags, -1)
+
+
+def _shoelace(pts: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    nmax = pts.shape[-2]
+    idx = torch.arange(nmax, device=pts.device)
+    nxt = _take(pts, torch.remainder(idx + 1,
+                                     torch.clamp(count, min=1)[..., None]))
+    contrib = cross2(pts, nxt)
+    contrib = torch.where(idx < count[..., None], contrib,
+                          torch.zeros_like(contrib))
+    return 0.5 * torch.sum(contrib, -1)
+
+
+def convex_clip_area(poly: torch.Tensor, clip: torch.Tensor) -> torch.Tensor:
+    """Area of the intersection of convex CCW quads ``poly`` and ``clip``
+    (..., 4, 2) → (...): ``poly`` clipped by each edge of ``clip`` in fixed
+    8-slot buffers, then the shoelace formula.  Differentiable (autograd)."""
+    lead = torch.broadcast_shapes(poly.shape[:-2], clip.shape[:-2])
+    pts = poly.new_zeros(*lead, _CLIP_SLOTS, 2)
+    pts[..., :4, :] = poly
+    count = torch.full(lead, 4, dtype=torch.long, device=poly.device)
+    for i in range(4):
+        pts, count = _clip_halfplane(pts, count, clip[..., i, :],
+                                     clip[..., (i + 1) % 4, :])
+    return torch.abs(_shoelace(pts, count))

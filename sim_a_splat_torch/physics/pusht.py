@@ -1,11 +1,12 @@
 """pushT task physics, batched over envs.
 
-Port of ``sim_a_splat_tpu/physics/pusht.py`` (constants, state, contact
-gathering, ``substep``, ``control_step``, ``set_state``, ``reset``): a
-kinematic circle agent under velocity-level PD pushes a dynamic T-block
-(two boxes) inside four walls, 10 substeps per control step, each a
-projected Gauss-Seidel contact solve.  Every state field has a leading env
-axis B (the reference's ``vmap``); its ``scan`` over substeps is a loop.
+Port of ``sim_a_splat_tpu/physics/pusht.py``: a kinematic circle agent
+under velocity-level PD pushes a dynamic T-block (two boxes) inside four
+walls, 10 substeps per control step, each a projected Gauss-Seidel contact
+solve; the reward is the share of the goal's area that the block covers
+(exact convex clipping), and the observation [agent_xy, block_xy, angle].
+Every state field has a leading env axis B (the reference's ``vmap``); its
+``scan`` over substeps is a loop.
 """
 
 from __future__ import annotations
@@ -20,15 +21,14 @@ import torch
 
 from sim_a_splat_torch import resolve_device
 from sim_a_splat_torch.physics.planar import (
-    Contact, PlanarBody, circle_poly_contact, moment_for_poly, rotate2d,
-    solve_contacts,
+    Contact, PlanarBody, _shoelace, circle_poly_contact, convex_clip_area,
+    moment_for_poly, rotate2d, solve_contacts,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class PushTParams:
-    """Static task parameters (the reference's defaults; its goal and
-    reward fields belong to the env layer, not ported yet)."""
+    """Static task parameters (the reference's defaults)."""
 
     ws_x: float = 298.0
     ws_y: float = 512.0
@@ -44,6 +44,10 @@ class PushTParams:
     mass: float = 1.0
     friction: float = 0.0
     damping: float = 0.0
+    goal_x: float = 149.0         # ws_x / 2
+    goal_y: float = 256.0         # ws_y / 2
+    goal_theta: float = float(np.pi / 4)
+    success_threshold: float = 0.95
     solver_iters: int = 10
     bias: float | None = None
     slop: float = 0.1
@@ -62,6 +66,10 @@ class PushTParams:
     @property
     def substeps(self) -> int:
         return self.sim_hz // self.control_hz
+
+    @property
+    def goal_pose(self) -> np.ndarray:
+        return np.array([self.goal_x, self.goal_y, self.goal_theta])
 
 
 class PushTState(NamedTuple):
@@ -97,12 +105,17 @@ def tee_polys_local(scale: float = 30.0, length: float = 4.0) -> np.ndarray:
     return np.asarray([v1[::-1], v2[::-1]], np.float32)
 
 
+def tee_cog_local(scale: float = 30.0, length: float = 4.0) -> np.ndarray:
+    """CoG = mean of the two box centroids (a box's centroid is the mean of
+    its vertices)."""
+    return tee_polys_local(scale, length).mean(axis=1).mean(axis=0)
+
+
 def cog_local(params: PushTParams) -> np.ndarray:
-    """Body-local CoG: the ``block_cog`` override, else the mean of the two
-    box centroids."""
+    """Body-local CoG: the ``block_cog`` override, else the shape's."""
     if params.block_cog is not None:
         return np.asarray(params.block_cog, np.float32)
-    return tee_polys_local(params.scale, params.length).mean(axis=1).mean(axis=0)
+    return tee_cog_local(params.scale, params.length)
 
 
 def tee_inertia(params: PushTParams) -> float:
@@ -119,6 +132,21 @@ def _constants(params: PushTParams, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in dict(
         polys=tee_polys_local(params.scale, params.length),
         cog=cog_local(params), wall_n=n, wall_b=b).items()}
+
+
+@functools.lru_cache(maxsize=16)
+def _goal(params: PushTParams, device: torch.device) -> tuple:
+    """The goal T's world boxes (2, 4, 2) and its area, made once.  The
+    area is each box's own (shoelace) area: the reference clips each box by
+    itself, a degenerate clip (every vertex on a clip edge) whose result
+    hangs on the signs of rounding errors; its jitted form folds it to half
+    the stem's area (``ROADMAP.md`` §3)."""
+    goal = block_polys_world(
+        params, torch.tensor([[params.goal_x, params.goal_y]], device=device),
+        torch.tensor([params.goal_theta], device=device))[0]
+    four = torch.full((2,), 4, dtype=torch.long, device=device)
+    area = torch.abs(_shoelace(goal, four))
+    return goal, area[0] + area[1]
 
 
 def block_polys_world(params: PushTParams, pos, angle) -> torch.Tensor:
@@ -228,14 +256,49 @@ def control_step(params: PushTParams, state: PushTState,
     return state
 
 
+# --- reward / observation ---------------------------------------------------
+
+def coverage(params: PushTParams, state: PushTState) -> torch.Tensor:
+    """(B,) |block ∩ goal| / |goal| by exact convex clipping.  The two T
+    boxes have disjoint interiors, so the intersection's area is the sum of
+    the four pairwise box intersections (added in the reference's order)."""
+    block = block_polys_world(params, state.block_pos, state.block_angle)
+    goal, goal_area = _goal(params, block.device)
+    pairs = convex_clip_area(block[:, [0, 0, 1, 1]], goal[[0, 1, 0, 1]])
+    inter = pairs[:, 0] + pairs[:, 1] + pairs[:, 2] + pairs[:, 3]
+    return inter / goal_area
+
+
+def reward_done(params: PushTParams, state: PushTState):
+    """(B,) reward clip(coverage / threshold, 0, 1) and done (coverage past
+    the threshold)."""
+    cov = coverage(params, state)
+    reward = torch.clamp(cov / params.success_threshold, 0.0, 1.0)
+    return reward, cov > params.success_threshold
+
+
+def get_obs(state: PushTState) -> torch.Tensor:
+    """(B, 5) [agent_xy, block_xy, block_angle mod 2π]."""
+    return torch.cat([state.agent_pos, state.block_pos,
+                      torch.remainder(state.block_angle,
+                                      2.0 * math.pi)[:, None]], dim=-1)
+
+
 # --- reset / set-state -------------------------------------------------------
 
-def set_state(params: PushTParams, state_vec: torch.Tensor) -> PushTState:
+def set_state(params: PushTParams, state_vec: torch.Tensor,
+              legacy: bool = False) -> PushTState:
     """Reset every env to its row of [agent_x, agent_y, block_x, block_y,
-    block_angle] (B, 5), then one velocity-free settling substep."""
+    block_angle] (B, 5), then one velocity-free settling substep.
+    ``legacy`` keeps the reference's ordering quirk of legacy data: the
+    position was set before the angle, and the body rotates about its CoG,
+    which moves its origin."""
     agent_pos = state_vec[:, :2]
     block_pos = state_vec[:, 2:4]
     angle = state_vec[:, 4]
+    if legacy:
+        cog = _constants(params, state_vec.device)["cog"]
+        block_pos = _origin_from_cog(params, block_pos + cog, angle)
     zero2 = torch.zeros_like(agent_pos)
     state = PushTState(agent_pos=agent_pos, agent_vel=zero2,
                        block_pos=block_pos, block_angle=angle,
@@ -265,8 +328,12 @@ def sample_reset_state(params: PushTParams, generator: torch.Generator,
     ], dim=-1)
 
 
-def reset(params: PushTParams, generator: torch.Generator,
-          batch: int) -> PushTState:
-    """Batched reset: ``batch`` random states drawn from ``generator`` and
-    settled by one substep, on the generator's device."""
-    return set_state(params, sample_reset_state(params, generator, batch))
+def reset(params: PushTParams, generator: torch.Generator | None,
+          batch: int, reset_to_state: torch.Tensor | None = None,
+          legacy: bool = False) -> PushTState:
+    """Batched reset: ``batch`` random states drawn from ``generator`` (on
+    its device), or the rows of ``reset_to_state`` (B, 5), settled by one
+    substep."""
+    if reset_to_state is None:
+        reset_to_state = sample_reset_state(params, generator, batch)
+    return set_state(params, reset_to_state, legacy=legacy)

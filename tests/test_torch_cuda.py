@@ -861,3 +861,46 @@ def test_k3_at_product_shapes_with_near_set(product_inputs):
                                                            *a3[3:])
     assert_rows_close(got[:, :PRODUCT_T], want[:, :PRODUCT_T], GRAD_REL,
                       "K3b at 240×320")
+
+
+def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
+    """The splat env built from asset files (``envs/splat_assets.py``) on a
+    ``build_demo_assets`` tree, the demo scripts' two cameras at 240×320:
+    both images through K1 (one launch a camera) against K1's plain
+    version, atol 1e-4 (chip_smoke's bound of a render against its plain
+    path)."""
+    from pathlib import Path
+    from chip_smoke import ASSET_HOME, ASSET_JOINT_CONFIG, asset_cameras
+    from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+    from sim_a_splat_torch.envs.splat_assets import SplatAssets
+    from sim_a_splat_torch.physics import kinematics as kin
+    from sim_a_splat_torch.tools.demo_assets import build_demo_assets
+    desc = Path(__file__).resolve().parent.parent / "robot_description"
+    urdf = desc / "pusharm6" / "urdf" / "pusharm6.urdf"
+    paths = build_demo_assets(tmp_path, urdf, joint_config=np.asarray(
+        ASSET_JOINT_CONFIG, np.float32))
+    env = ManipulatorEnvF(chain=kin.load_chain(urdf), eef_link="push_tool",
+                          device=str(dev))
+    assets = SplatAssets.load(env, paths["assets"],
+                              paths["match_object_name"],
+                              paths["splat_config_name"],
+                              paths["task_assets_path"],
+                              paths["task_assets_name"],
+                              package_path=str(desc))
+    wrapper = assets.configure_cameras(asset_cameras(assets.icp))
+    state, _ = env.reset(reset_to_state={"robot_pos": ASSET_HOME})
+    draw = env.draw_state(state)
+    before = composite.launches
+    with torch.no_grad():
+        got = wrapper.render(None, draw)
+        torch.cuda.synchronize()
+        assert composite.launches == before + 2
+        real = composite.composite_static
+        composite.composite_static = composite.composite_static_plain
+        try:
+            want = wrapper.render(None, draw)
+        finally:
+            composite.composite_static = real
+    for a, b in zip(got, want):
+        assert a.shape == (1, 240, 320, 3) and float(a.max()) > 0.05
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
