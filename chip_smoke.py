@@ -60,7 +60,24 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   cameras at 240×320: 10 task-space steps at B=1, each rendering both
   cameras through K1f (the step and the render timed apart), the images
   against K1's plain version, a free-camera render and one joint-space
-  step rendered from ``examples/assets``.
+  step rendered from ``examples/assets``;
+- splat training (``splat/train.py``, K1f and K1b):
+  ``benchmarks/train_scene.py``'s protocol at its full width
+  (``entry.train_scene_inputs``: a 12,000-gaussian SH-1 ground truth, a
+  6,000-gaussian degraded init, 8 ring views at 128², K = 512 with
+  ``term_eps`` 1e-4, 2,000 iterations of L1 + SSIM with per-field Adam and
+  four densify/cull rounds) through ``train``, PSNR over the 8 views every
+  250 iterations, gated (final mean ≥ 33 dB and ≥ 12 dB above iteration 0,
+  N changed by a round); a steady-state iteration timed and split
+  (forward + loss, backward, Adam, the host reads the loop leaves out) and
+  profiled; one train step at the init and at the trained scene against
+  the plain path; K1f and K1b on the train lists;
+- the pipeline and the exports on a 100k-gaussian SH-3 scene:
+  ``GaussianSplatPipeline.render`` at 640×480 (K1f over 40 × 30 tiles at
+  K = 1,024) against K1's plain version, the RGB-D cloud at 320×240, the
+  densified and culled point cloud, ``save_ply`` → ``load_ply`` bit for
+  bit, the ellipsoids of 2,000 gaussians, and a ``transforms.json`` of 8
+  ring cameras through ``load_dataset`` to renders (no image is read).
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -145,6 +162,26 @@ MV_RASTER = dict(tile_size=16, tile_capacity=1024, max_tiles_per_gaussian=16,
                  buckets=((4, 0.80), (9, 0.12), (16, 0.08)))
 TOL_REBIN = (2e-5, 1e-4)  # atol, rtol: the reference's own bound for the
                           # cached render against the full rebin
+# the splat trainer: benchmarks/train_scene.py's protocol at its full width
+# (12,000-gaussian ground truth, a 6,000-gaussian degraded init, 8 ring
+# views at 128², K = 512, term_eps 1e-4, 2,000 iterations, a refinement
+# round every 400 from 400, PSNR over every view every 250 iterations);
+# the gate on its final PSNR; TRAIN_STEADY_ITERS timed iterations of the
+# trained scene
+TRAIN_ITERS, TRAIN_EVAL_EVERY, TRAIN_STEADY_ITERS = 2000, 250, 40
+TRAIN_GATE_DB, TRAIN_GAIN_DB = 33.0, 12.0
+# the degraded init's quats gradient is rounding alone (see splat_training):
+# held below this fraction of the means' largest gradient on both paths
+QUAT_NOISE = 1e-5
+# the JAX package's run of the same protocol (TRAIN_r05.json, on a TPU v5e):
+# a quality reference only
+TRAIN_R05 = dict(psnr_first=20.349, psnr_final=41.68, n_final=11772)
+# the pipeline and the exports: a 100k-gaussian SH-3 synthetic scene,
+# GaussianSplatPipeline's default raster (K = 1,024) at 640×480 (40 × 30
+# tiles), the RGB-D cloud at 320×240, ellipsoids of 2,000 gaussians
+PIPE_N, PIPE_RES, PIPE_RGBD_RES, PIPE_VIEWS = 100_000, (480, 640), \
+    (240, 320), 8
+DS_EDGE_PIXELS = 8
 # FLOP per (pixel, list entry) pair, exp as one: the alpha (dx, dy, the
 # conic quadratic, exp, opacity, clamp) is evaluated for every entry of an
 # applied chunk; the blend (w = αT, four FMAs, T·(1-α)) only where α > 0
@@ -250,7 +287,8 @@ def device_profile(fn):
     avg = prof.key_averages()
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-                 for e in avg if str(e.device_type).endswith("CUDA"))
+                 for e in avg if str(e.device_type).endswith("CUDA")
+                 and not getattr(e, "is_user_annotation", False))
     return dev_us / 1e3, avg
 
 
@@ -944,6 +982,18 @@ def main() -> int:
     # 25-27. the env layer (pushT's envs; the splat env from asset files) ----
     torch.cuda.empty_cache()
     kernels += env_layer(composite, reset_counts, counts_now, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 28-31. the splat trainer (K1f, K1b at train_scene.py's full width) ----
+    torch.cuda.empty_cache()
+    kernels += splat_training(entry, composite, reset_counts, counts_now,
+                              profiled, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 32-33. the pipeline and the exports (K1f at 640×480) ------------------
+    torch.cuda.empty_cache()
+    kernels += splat_pipeline(entry, composite, reset_counts, counts_now,
+                              dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -2582,6 +2632,344 @@ def env_layer(composite, reset_counts, counts_now, dev):
         f"examples/assets (N={ex.scene_splat_frame.num_gaussians}): one step, "
         f"image means {[round(float(i.mean()), 4) for i in ex_imgs]}")
     return rows
+
+def splat_training(entry, composite, reset_counts, counts_now, profiled,
+                   dev):
+    """The splat trainer (``splat/train.py``) on ``benchmarks/train_scene.py``'s
+    protocol at its full width (``entry.train_scene_inputs``): the 2,000
+    iterations with four refinement rounds through K1f and K1b, PSNR over
+    the 8 views every 250, gated; a steady-state iteration timed and split;
+    one train step against the plain path; K1f and K1b at the train shapes
+    against their plain versions.  Returns their rows."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.splat import train
+
+    gt, init, cams, cfg, raster = entry.train_scene_inputs(
+        iters=TRAIN_ITERS, device=dev)
+    t0 = time.perf_counter()
+    gt_views = [train.render_view(gt, c, raster, device=dev) for c in cams]
+    log(f"splat trainer: train_scene.py's protocol, ground truth N="
+        f"{gt.num_gaussians} sh{gt.sh_degree}, init N={init.num_gaussians}, "
+        f"{len(cams)} views at {cams[0].height}², {cfg.iters} iterations, "
+        f"refinement every {cfg.refine_every} from {cfg.refine_start}, SSIM "
+        f"λ {cfg.ssim_lambda}, raster {raster}; GT renders "
+        f"{time.perf_counter() - t0:.2f} s, view 0 mean "
+        f"{gt_views[0].mean():.4f}")
+
+    curve = []
+
+    def eval_psnr(scene, it):
+        vals = [train.psnr(train.render_view(scene, c, raster, device=dev), v)
+                for c, v in zip(cams, gt_views)]
+        curve.append(dict(iter=it, psnr_mean=float(np.mean(vals)),
+                          psnr_min=float(np.min(vals)),
+                          n_gaussians=scene.num_gaussians))
+        log(f"  eval @ {it}: PSNR mean {np.mean(vals):.3f} dB, min "
+            f"{np.min(vals):.3f}, N={scene.num_gaussians}")
+
+    # 28. the main path: the whole protocol through train() ----------------
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eval_psnr(init, 0)
+    t1 = time.perf_counter()
+    scene, hist = train.train(init, cams, gt_views, cfg, raster,
+                              eval_every=TRAIN_EVAL_EVERY, eval_fn=eval_psnr,
+                              device=dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t1
+    eval_psnr(scene, cfg.iters)
+    wall = time.perf_counter() - t0
+    launches = counts_now()
+    n_evals = len(curve)
+    want = dict(composite_static=cfg.iters + n_evals * len(cams),
+                composite_static_bwd=cfg.iters)
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"the protocol launched {launches}, not {want}")
+    n_hist = hist["n_gaussians"]
+    rounds = list(range(cfg.refine_start, cfg.iters, cfg.refine_every))
+    n_rounds = [(n_hist[r - 1], n_hist[r]) for r in rounds]
+    first, last = curve[0], curve[-1]
+    log(f"  the protocol: {wall:.2f} s with the evals, train() "
+        f"{t_train:.2f} s ({t_train * 1e3 / cfg.iters:.2f} ms an iteration "
+        f"with its evals and rounds, host clock); launches {launches}; "
+        f"N before → after each round {n_rounds}; loss "
+        f"{hist['loss'][0]:.5f} → {hist['loss'][-1]:.5f}")
+    log(f"  PSNR curve (iter, mean, min, N): "
+        + json.dumps([[c["iter"], round(c["psnr_mean"], 3),
+                       round(c["psnr_min"], 3), c["n_gaussians"]]
+                      for c in curve]))
+    log(f"  final PSNR mean {last['psnr_mean']:.3f} dB, min "
+        f"{last['psnr_min']:.3f} dB (iteration 0: {first['psnr_mean']:.3f}), "
+        f"n_final {scene.num_gaussians}; quality reference only, the JAX "
+        f"package on a TPU v5e (TRAIN_r05.json): "
+        f"{TRAIN_R05['psnr_first']} → {TRAIN_R05['psnr_final']} dB, n_final "
+        f"{TRAIN_R05['n_final']}")
+    if not (last["psnr_mean"] >= TRAIN_GATE_DB
+            and last["psnr_mean"] - first["psnr_mean"] >= TRAIN_GAIN_DB):
+        raise AssertionError(
+            f"final PSNR {last['psnr_mean']:.3f} dB from "
+            f"{first['psnr_mean']:.3f}: the gate is ≥ {TRAIN_GATE_DB} dB and "
+            f"≥ {TRAIN_GAIN_DB} dB above iteration 0")
+    if all(a == b for a, b in n_rounds):
+        raise AssertionError(f"no refinement round changed N: {n_rounds}")
+    if not all(np.isfinite(hist["loss"])):
+        raise AssertionError("a non-finite training loss")
+
+    # 29. a steady-state iteration of the trained scene, timed and split ----
+    params = train.parameters(scene)
+    opt = train.make_optimizer(cfg, params)
+    step = train.make_train_step(cfg, raster, opt)
+    imgs = [torch.as_tensor(v, device=dev) for v in gt_views]
+    acc = torch.zeros(params.num_gaussians, device=dev)
+
+    def iterations(n, read_back):
+        """``n`` iterations of ``train``'s loop body; ``read_back`` adds the
+        reference's per-iteration host reads (``float(loss)`` and the
+        ‖∇means‖ copy).  Returns (ms by events, ms by the host clock)."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        for i in range(n):
+            _, loss, gnorm = step(params, cams[i % len(cams)],
+                                  imgs[i % len(cams)])
+            acc.add_(gnorm)
+            if read_back:
+                float(loss)
+                gnorm.cpu()
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / n,
+                (time.perf_counter() - t) * 1e3 / n)
+
+    iterations(5, False)                                    # warm-up
+    # in turns (without, with, with, without the reads): host-clock times
+    # drift within a call
+    runs = [iterations(TRAIN_STEADY_ITERS, rb)
+            for rb in (False, True, True, False)]
+    it_ev, it_host = (float(np.mean([r[i] for r in runs[::3]]))
+                      for i in (0, 1))
+    rb_ev, rb_host = (float(np.mean([r[i] for r in runs[1:3]]))
+                      for i in (0, 1))
+    cam, img = cams[0], imgs[0]
+    fwd_ms = cuda_ms(lambda: train.train_loss(params, cam, img, cfg, raster),
+                     TRAIN_STEADY_ITERS)
+    leaves = [p for p in params if p is not None]
+    loss0 = train.train_loss(params, cam, img, cfg, raster)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss0, leaves,
+                                                 retain_graph=True),
+                     TRAIN_STEADY_ITERS)
+    del loss0
+    adam_ms = cuda_ms(opt.step, TRAIN_STEADY_ITERS)
+    log(f"  steady-state iteration (N={params.num_gaussians}, 2 × "
+        f"{TRAIN_STEADY_ITERS} iterations): {it_ev:.3f} ms (events), "
+        f"{it_host:.3f} ms (host clock); with the reference's per-iteration "
+        f"host reads (float(loss), ‖∇means‖ to the host) {rb_ev:.3f} / "
+        f"{rb_host:.3f} ms, so the syncs the port's loop leaves out cost "
+        f"{rb_host - it_host:.3f} ms; split (events, each part alone): "
+        f"forward + loss {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam "
+        f"{adam_ms:.3f} ms, sum {fwd_ms + bwd_ms + adam_ms:.3f} ms")
+    profiled("splat train step",
+             lambda: step(params, cam, img), it_ev)
+
+    # 30. one full-width train step against the plain path: at the degraded
+    # init (view 0, its GT image) and at the trained scene ------------------
+    def one_step(start):
+        p = train.parameters(start)
+        loss = train.train_loss(p, cams[0], imgs[0], cfg, raster)
+        loss.backward()
+        grads = type(p)(*(None if f is None else f.grad for f in p))
+        return float(loss.detach()), \
+            torch.linalg.vector_norm(grads.means, dim=-1), grads
+
+    seen = []
+    real_k1 = composite.composite_static
+
+    def capture(*args):
+        seen.append(args)
+        return real_k1(*args)
+
+    for label, start in (("the degraded init", init),
+                         ("the trained scene", scene)):
+        with replaced(composite, "composite_static", capture):
+            loss_k, gn_k, g_k = one_step(start)
+        with replaced(composite, "composite_static",
+                      composite.composite_static_plain):
+            loss_p, gn_p, g_p = one_step(start)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"  one train step at {label} (N={start.num_gaussians}, view 0) "
+            f"vs the plain path: loss {loss_k} vs {loss_p} (relative "
+            f"{rel:.3e}, tolerance 1e-6)")
+        if not rel <= 1e-6:
+            raise AssertionError(f"train-step loss {loss_k} vs {loss_p}")
+        fields = [n for n, f in zip(g_p._fields, g_p) if f is not None]
+        if start is init:
+            # every init gaussian is isotropic (unit quaternion, equal
+            # scales), so R S Sᵀ Rᵀ = s² I for any rotation and the quats'
+            # gradient is 0 in exact arithmetic: both paths must give only
+            # rounding, below QUAT_NOISE × the means' largest gradient
+            fields.remove("quats")
+            noise = QUAT_NOISE * float(g_p.means.abs().max())
+            q_k, q_p = (float(g.quats.abs().max()) for g in (g_k, g_p))
+            log(f"  grad quats (zero in exact arithmetic here): max|g| "
+                f"{q_k:.3e} (kernels), {q_p:.3e} (plain); bound {noise:.3e}")
+            if not max(q_k, q_p) <= noise:
+                raise AssertionError("the isotropic init's quats gradient "
+                                     "is not rounding")
+        check_fields("splat train-step", g_k, g_p, fields)
+        e_gn = float((gn_k - gn_p).abs().max())
+        log(f"  ‖∇means‖: max|Δ| = {e_gn:.3e}, max {float(gn_p.max()):.3e} "
+            f"(tolerance {TOL_GRAD:.1e} × max)")
+        if not e_gn <= TOL_GRAD * float(gn_p.max()):
+            raise AssertionError("‖∇means‖ disagrees with the plain path")
+
+    # 31. K1f and K1b at the train shapes ------------------------------------
+    rows = static_rows(seen[0], dev)
+    for r, key in zip(rows, ("composite_static", "composite_static_bwd")):
+        r["name"] += "_train"
+        r["launches"] = launches[key]
+    return rows
+
+
+def splat_pipeline(entry, composite, reset_counts, counts_now, dev):
+    """``splat/pipeline.py`` and ``splat/export.py`` on a PIPE_N SH-3
+    ``synthetic_scene``: ``render`` at 640×480 (K1f over 40 × 30 tiles at
+    K = 1,024) against K1's plain version, timed; the RGB-D cloud at
+    320×240; the point cloud with densify and cull; ``save_ply`` →
+    ``load_ply`` bit for bit; the ellipsoids of 2,000 gaussians; and a
+    ``transforms.json`` written from ring cameras, read by
+    ``load_dataset``, each dataset camera rendered (no image is read: the
+    card's machine has no PIL).  Returns K1f's row at 640×480."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops.transforms import SE3, Sim3
+    from sim_a_splat_torch.splat import (
+        GaussianSplatPipeline, ellipsoid_mesh, load_dataset, load_ply,
+        save_ply, synthetic_scene,
+    )
+
+    t0 = time.perf_counter()
+    scene = synthetic_scene(PIPE_N, seed=0, sh_degree=3, device=dev)
+    pipe = GaussianSplatPipeline(scene=scene, dataparser=Sim3.identity())
+    pose = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+               torch.tensor([0.0, 0.0, -3.0], device=dev))
+    h, w = PIPE_RES
+    rh, rw = PIPE_RGBD_RES
+    ring = entry.ring_cameras(PIPE_VIEWS, radius=3.2, height=-1.2, res=128,
+                              device=dev)
+    seen = []
+    real_k1 = composite.composite_static
+
+    def capture(*args):
+        seen.append(args)
+        return real_k1(*args)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the dataset: the ring cameras as nerfstudio frames (OpenGL
+        # camera-to-world), no images
+        frames = []
+        for i, c in enumerate(ring):
+            c2w = np.eye(4)
+            c2w[:3, :3] = (c.pose.rotation_matrix().cpu().double().numpy()
+                           @ np.diag([1.0, -1.0, -1.0]))
+            c2w[:3, 3] = c.pose.t.cpu().double().numpy()
+            frames.append({"file_path": f"images/frame_{i:05d}.png",
+                           "transform_matrix": c2w.tolist()})
+        (tmp / "transforms.json").write_text(json.dumps({
+            "w": 128, "h": 128, "fl_x": float(ring[0].fx),
+            "fl_y": float(ring[0].fy), "cx": 64.0, "cy": 64.0,
+            "camera_model": "OPENCV", "frames": frames}))
+        ds = load_dataset(tmp, "all", device=dev)
+
+        # 32. the main path: every render of the pipeline -----------------
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with replaced(composite, "composite_static", capture):
+            out = pipe.render(pose, width=w, height=h)
+        rgbd = pipe.generate_rgbd_point_cloud(pose, width=rw, height=rh)
+        ds_imgs = [pipe.render(c.pose, camera=c)["rgb"] for c in ds.cameras()]
+        torch.cuda.synchronize()
+        t_renders = time.perf_counter() - t1
+        launches = counts_now()
+        want = dict(composite_static=2 + len(ring))
+        if any(launches[k] != want.get(k, 0) for k in launches):
+            raise AssertionError(f"the pipeline launched {launches}, not "
+                                 f"{want}")
+        # each dataset camera is its ring camera after a float64 round trip
+        # (OpenGL matrix, JSON, quaternion): poses within 1e-6, and renders
+        # that differ only where a pixel's entry sits on the 3σ or 1/255
+        # cut-off (at most DS_EDGE_PIXELS pixels a view over 1e-4)
+        for k, (c, r, img) in enumerate(zip(ds.cameras(), ring, ds_imgs)):
+            check("pipeline", c.pose.q, r.pose.q, 1e-6,
+                  f"dataset camera {k}'s quaternion vs its ring camera's")
+            check("pipeline", c.pose.t, r.pose.t, 1e-6,
+                  f"dataset camera {k}'s position vs its ring camera's")
+            if (c.width, c.height) != (r.width, r.height) or any(
+                    float(getattr(c, a)) != float(getattr(r, a))
+                    for a in ("fx", "fy", "cx", "cy")):
+                raise AssertionError(f"dataset camera {k}'s intrinsics")
+            d = (img - pipe.render(r.pose, camera=r)["rgb"]).abs().amax(-1)
+            n_off = int((d > 1e-4).sum())
+            log(f"  dataset camera {k} vs its ring camera: render max|Δ| "
+                f"{float(d.max()):.3e}, {n_off} pixels over 1e-4")
+            if n_off > DS_EDGE_PIXELS:
+                raise AssertionError(f"dataset camera {k}: {n_off} pixels")
+        pc = pipe.generate_point_cloud(densify_scene=True, cull_scene=True)
+        kept = int(((scene.opacities() >= 0.1)
+                    & (scene.scales().amax(-1) <= 0.5)).sum())
+        save_ply(tmp / "scene.ply", scene)
+        back = load_ply(tmp / "scene.ply", device=dev)
+        ply_mb = (tmp / "scene.ply").stat().st_size / 2**20
+        mesh, vcol = ellipsoid_mesh(scene)
+    if len(pc["points"]) != 2 * kept or not np.isfinite(pc["points"]).all():
+        raise AssertionError(f"densified cloud of {len(pc['points'])} "
+                             f"points, not 2 × {kept}")
+    if not all(torch.equal(a, b) for a, b in zip(scene, back)):
+        raise AssertionError("save_ply → load_ply is not bit for bit")
+    if mesh.vertices.shape != (2000 * 42, 3) or len(vcol) != 2000 * 42 \
+            or not np.isfinite(mesh.vertices).all():
+        raise AssertionError(f"ellipsoid mesh {mesh.vertices.shape}")
+    if len(rgbd["points"]) < 1000 or not np.isfinite(rgbd["points"]).all():
+        raise AssertionError(f"RGB-D cloud of {len(rgbd['points'])} points")
+    for k, shape in (("rgb", (h, w, 3)), ("depth", (h, w)),
+                     ("accumulation", (h, w))):
+        if tuple(out[k].shape) != shape or \
+                not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"render {k} {tuple(out[k].shape)}")
+
+    # 33. the render against K1's plain version, K1f at its inputs ----------
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain):
+        plain = pipe.render(pose, width=w, height=h)
+    check("pipeline", out["rgb"], plain["rgb"], TOL,
+          f"rgb {h}×{w} vs K1's plain version")
+    check("pipeline", out["accumulation"], plain["accumulation"], TOL,
+          "accumulation vs K1's plain version")
+    dmax = max(1.0, float(plain["depth"].abs().max()))
+    check("pipeline", out["depth"] / dmax, plain["depth"] / dmax, TOL,
+          "depth / max depth vs K1's plain version")
+    render_ms = cuda_ms(lambda: pipe.render(pose, width=w, height=h), 5)
+    log(f"splat pipeline: N={PIPE_N} sh3, set-up "
+        f"{t1 - t0:.2f} s; the main path's renders ({w}×{h}, the RGB-D "
+        f"cloud's {rw}×{rh}, {len(ring)} dataset cameras at 128²) "
+        f"{t_renders:.2f} s (host clock), launches {launches}; render at "
+        f"{w}×{h} {render_ms:.2f} ms (events), accumulation mean "
+        f"{float(out['accumulation'].mean()):.4f}; RGB-D cloud "
+        f"{len(rgbd['points'])} points; densify + cull {len(pc['points'])} "
+        f"points (2 × {kept}); save_ply {ply_mb:.1f} MiB → load_ply bit for "
+        f"bit; ellipsoids of 2,000 gaussians: {len(mesh.vertices)} "
+        f"vertices, {len(mesh.faces)} faces")
+    rows = static_rows(seen[0], dev, backward=False)
+    rows[0]["name"] = "composite_static_pipeline"
+    rows[0]["launches"] = launches["composite_static"]
+    return rows
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -30,7 +30,11 @@ Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
   ``envs/manipulator_envs.py``) seen by a fixed viewport (K1 once per
   rollout, K2 every frame) and an end-effector camera (K3 every frame),
   forward and in training (``product_loss_and_grads``), and the one-env
-  teleop step.
+  teleop step;
+- the splat trainer's protocol (``benchmarks/train_scene.py``): the
+  ground-truth scene, the ring cameras, the degraded init and the
+  script's configs (``train_scene_inputs``), for ``splat/train.py``'s
+  ``train`` (kernel K1, K1b in every train step).
 
 Everything runs on ``device`` ("cuda" by default); ``device="cpu"`` runs
 the plain PyTorch path (what the tests compare against the reference).
@@ -68,7 +72,9 @@ from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import pusht
 from sim_a_splat_torch.physics.pusht import PushTParams
 from sim_a_splat_torch.scenegraph.graph import SceneGraph
+from sim_a_splat_torch.splat.loaders import synthetic_scene
 from sim_a_splat_torch.splat.scene import GaussianScene
+from sim_a_splat_torch.splat.train import TrainConfig
 
 GRAPH_LEAVES = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
                 "sh_rest", "link_ids", "rest_inv_q", "rest_inv_t")
@@ -761,3 +767,76 @@ def _detached(tree):
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return tree
 
+
+
+# --- the splat trainer's protocol (benchmarks/train_scene.py) ---------------
+
+def ring_cameras(n_views: int, radius: float, height: float, res: int,
+                 fov: float = 0.9, device="cuda") -> list:
+    """Cameras on a circle, all looking at the origin (OpenCV +z forward),
+    with the script's numpy arithmetic."""
+    dev = resolve_device(device)
+    cams = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / n_views
+        pos = np.asarray([radius * np.cos(ang), radius * np.sin(ang), height],
+                         np.float32)
+        # look-at: +z toward origin, up = world -y-ish
+        z = -pos / np.linalg.norm(pos)
+        up = np.asarray([0.0, 0.0, -1.0])
+        x = np.cross(up, z)
+        x /= np.linalg.norm(x) + 1e-12
+        y = np.cross(z, x)
+        R = np.stack([x, y, z], axis=1)          # columns = camera axes
+        # rotation matrix → wxyz quaternion (Shepperd)
+        w = np.sqrt(max(0.0, 1 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+        qx = (R[2, 1] - R[1, 2]) / (4 * w + 1e-12)
+        qy = (R[0, 2] - R[2, 0]) / (4 * w + 1e-12)
+        qz = (R[1, 0] - R[0, 1]) / (4 * w + 1e-12)
+        q = np.asarray([w, qx, qy, qz], np.float32)
+        q /= np.linalg.norm(q)
+        cams.append(Camera.from_fov(
+            SE3(torch.as_tensor(q, device=dev),
+                torch.as_tensor(pos, device=dev)), fov, res, res))
+    return cams
+
+
+def train_scene_inputs(n: int = 12000, views: int = 8, res: int = 128,
+                       seed: int = 0, iters: int = 2000, device="cuda"):
+    """``benchmarks/train_scene.py``'s protocol: (gt, init, cameras,
+    TrainConfig, RasterConfig).  The ground truth is ``synthetic_scene(n,
+    seed, extent 0.9, scales 0.02-0.06, sh_degree 1)``; the degraded init
+    keeps n // 2 of its means (numpy's ``default_rng(seed + 1)``, the
+    script's draws in its order) jittered by N(0, 0.03²), unit quats,
+    scales 0.05, opacity 0.5 and zero colours; ``views`` ring cameras at
+    ``res``²; the script's config at ``iters`` iterations (refinement
+    every iters // 5) and its raster (K = 512, ``term_eps`` 1e-4)."""
+    dev = resolve_device(device)
+    gt = synthetic_scene(n, seed=seed, extent=0.9, scale_range=(0.02, 0.06),
+                         sh_degree=1, device=dev)
+    cams = ring_cameras(views, radius=3.2, height=-1.2, res=res, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    keep = rng.choice(n, size=n // 2, replace=False)
+    m = n // 2
+    init = GaussianScene(*(torch.as_tensor(np.asarray(a, np.float32),
+                                           device=dev) for a in (
+        gt.means.cpu().numpy()[keep] + rng.normal(0, 0.03, (m, 3)),
+        np.tile([1.0, 0, 0, 0], (m, 1)),
+        np.full((m, 3), np.log(0.05)),
+        np.full(m, 0.0),
+        np.zeros((m, 3)),
+        np.zeros((m, 3, 3)))))
+    lr_scale = 6.0      # splatfacto's LRs are tuned for 30k iterations
+    cfg = TrainConfig(
+        iters=iters,
+        lr_means=1.6e-4 * lr_scale, lr_means_final=1.6e-6 * lr_scale,
+        lr_sh_dc=2.5e-3 * lr_scale, lr_sh_rest=1.25e-4 * lr_scale,
+        lr_opacities=5e-2, lr_scales=5e-3 * lr_scale,
+        lr_quats=1e-3 * lr_scale,
+        refine_every=iters // 5, refine_start=iters // 5,
+        densify_grad_thresh=2e-4, densify_size_thresh=0.04,
+        cull_alpha_thresh=0.08, cull_scale_thresh=1.0,
+        ssim_lambda=0.2, reset_alpha_every=0)
+    raster = RasterConfig(tile_capacity=512, max_tiles_per_gaussian=16,
+                          chunk=128, sigma_cutoff=3.0, term_eps=1e-4)
+    return gt, init, cams, cfg, raster

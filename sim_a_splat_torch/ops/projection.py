@@ -59,6 +59,11 @@ class Camera:
                       cy=torch.tensor(height / 2.0, **f32),
                       width=width, height=height)
 
+    def to(self, device) -> "Camera":
+        return Camera(self.pose.to(device), self.fx.to(device),
+                      self.fy.to(device), self.cx.to(device),
+                      self.cy.to(device), self.width, self.height)
+
 
 class Projected(NamedTuple):
     """Per-gaussian screen-space quantities (leading batch dims allowed)."""

@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from sim_a_splat_torch import resolve_device
 from sim_a_splat_torch.ops import covariance, sh as sh_ops
 
 
@@ -83,3 +84,16 @@ class GaussianScene(NamedTuple):
     def to(self, device) -> "GaussianScene":
         return GaussianScene(*(None if f is None else f.to(device)
                                for f in self))
+
+
+def scene_from_numpy(fields, device="cuda") -> GaussianScene:
+    """GaussianScene from numpy arrays (a mapping by field name, or a
+    sequence in field order; ``sh_rest`` may be None or missing), as
+    float32 tensors on ``device``: a reference scene carried across."""
+    dev = resolve_device(device)
+    if isinstance(fields, dict):
+        fields = [fields.get(k) for k in GaussianScene._fields]
+    return GaussianScene(*(None if a is None else
+                           torch.as_tensor(np.array(a, np.float32),
+                                           device=dev)
+                           for a in fields))

@@ -904,3 +904,87 @@ def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
     for a, b in zip(got, want):
         assert a.shape == (1, 240, 320, 3) and float(a.max()) > 0.05
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _train_inputs(device, n=600, res=64):
+    """``benchmarks/train_scene.py``'s protocol at a small N and 64² on
+    ``device``: its config, raster, camera 0 and the ground truth's render
+    from it; the scene to train is another ``synthetic_scene`` (random
+    rotations, anisotropic scales: the protocol's degraded init is
+    isotropic, and its quats' gradient is 0 in exact arithmetic)."""
+    from sim_a_splat_torch.splat import loaders, train
+    gt, _, cams, cfg, raster = entry.train_scene_inputs(
+        n=n, views=2, res=res, iters=10, device=device)
+    image = torch.as_tensor(train.render_view(gt, cams[0], raster,
+                                              device=device), device=device)
+    start = loaders.synthetic_scene(n // 2, seed=5, extent=0.9,
+                                    scale_range=(0.02, 0.06), sh_degree=1,
+                                    device=device)
+    return start, cams[0], image, cfg, raster
+
+
+def test_k1_at_train_shapes(dev):
+    """K1f and K1b on the trainer's lists (``train_scene.py``'s full
+    width: the 12,000-gaussian ground truth, camera 0, 64 tiles of 16² at
+    K = 512 with ``term_eps`` 1e-4) against their plain versions: out and
+    carries atol 2e-5, the gradient's rows within 2e-4 of their largest."""
+    from sim_a_splat_torch.splat import train
+    gt, _, cams, _, raster = entry.train_scene_inputs(device=dev)
+    seen = []
+    real = composite.composite_static
+    composite.composite_static = lambda *a: seen.append(a) or real(*a)
+    try:
+        train.render_view(gt, cams[0], raster, device=dev)
+    finally:
+        composite.composite_static = real
+    (a1,) = seen
+    pay, counts = a1[0], a1[1]
+    assert tuple(pay.shape) == (64, 10, 512) and a1[5:] == (3.0, 1e-4)
+    assert int(counts.max()) > 128            # several chunks a tile
+    out, car, chunk_acc = composite.composite_static_fwd(*a1)
+    want, want_car = composite.composite_static_plain(*a1)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(car, want_car, atol=2e-5, rtol=0)
+    ct = torch.as_tensor(np.random.default_rng(21).normal(
+        size=tuple(out.shape)).astype(np.float32), device=dev)
+    got = composite.composite_static_bwd(*a1[:3], ct, out, car, *a1[3:],
+                                         chunk_acc=chunk_acc)
+    assert_rows_close(got, composite.composite_static_bwd_plain(
+        *a1[:3], ct, *a1[3:]), GRAD_REL, "K1b at the train shapes")
+
+
+def test_splat_train_step_on_card_matches_cpu(dev):
+    """One ``splat/train.py`` step (L1 + SSIM, K1f and K1b on the card)
+    against the same step on the CPU path: the loss rtol 1e-5 (float32
+    math libraries of two devices), each field's gradient and ‖∇means‖
+    within 2e-4 of their largest, the updated scene within 1e-2 × its
+    group's learning rate (``test_torch_train.py``'s bound of one Adam
+    step)."""
+    from sim_a_splat_torch.splat import train
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        init, cam, image, cfg, raster = _train_inputs(d)
+        params = train.parameters(init)
+        step = train.make_train_step(cfg, raster,
+                                     train.make_optimizer(cfg, params))
+        before = (composite.launches, composite.launches_bwd)
+        _, loss, gnorm = step(params, cam, image)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert (composite.launches, composite.launches_bwd) == \
+                (before[0] + 1, before[1] + 1)
+        grads = type(params)(*(None if p is None else p.grad.cpu()
+                               for p in params))
+        out[d.type] = (float(loss), gnorm.cpu(), grads,
+                       type(params)(*(None if p is None else p.detach().cpu()
+                                      for p in params)))
+    (l_k, n_k, g_k, s_k), (l_p, n_p, g_p, s_p) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(l_k, l_p, rtol=1e-5)
+    assert_fields_close(g_k, g_p, GRAD_REL)
+    assert float((n_k - n_p).abs().max()) <= GRAD_REL * float(n_p.max())
+    lrs = dict(means=cfg.lr_means, quats=cfg.lr_quats,
+               log_scales=cfg.lr_scales, logit_opacities=cfg.lr_opacities,
+               sh_dc=cfg.lr_sh_dc, sh_rest=cfg.lr_sh_rest)
+    for name, lr in lrs.items():
+        err = float((getattr(s_k, name) - getattr(s_p, name)).abs().max())
+        assert err <= 1e-2 * lr, f"{name}: {err} > 1e-2 × {lr}"

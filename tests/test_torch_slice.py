@@ -127,7 +127,7 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
-                                             "sim_a_splat_tpu",
+                                             "optax", "sim_a_splat_tpu",
                                              "__graft_entry__"))
         print(len(mods))
         assert not bad, bad
@@ -138,7 +138,8 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 15
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "sim_a_splat_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sim_a_splat_tpu",
+             "__graft_entry__")
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "sim_a_splat_torch"])
