@@ -77,7 +77,25 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   K = 1,024) against K1's plain version, the RGB-D cloud at 320×240, the
   densified and culled point cloud, ``save_ply`` → ``load_ply`` bit for
   bit, the ellipsoids of 2,000 gaussians, and a ``transforms.json`` of 8
-  ring cameras through ``load_dataset`` to renders (no image is read).
+  ring cameras through ``load_dataset`` to renders (no image is read);
+- the distributed layer (``parallel/``; ranks are processes of one
+  process group, started by ``parallel.launch``; two ranks on one card
+  run on gloo, as NCCL refuses a duplicate GPU, and gloo's collectives take
+  the CUDA tensors): the prim-sharded render of the bench scene (100k sh3,
+  256², send 1,024 a rank) on 2 gloo ranks against the single-device
+  ``rasterize_sh`` (image and the gradient to the means, on each rank),
+  K1f/K1b at the owned rows against their plain versions, the exchange's
+  bytes and ms; the scaling protocol (``entry.bench_mesh``: B=32, N=20k,
+  128², the uncached train step) at world 1 on NCCL and on 2 gloo ranks,
+  its losses and gradients held to world 1's; ``dryrun_multichip(4)`` on
+  4 gloo ranks (one loss on every rank, K1-K4 launched on each).  Two
+  ranks on one card share its SMs: these times are the mechanism's cost,
+  not a scaling efficiency (``chip_scaling.py`` runs them across cards);
+- the viewer: one 240×320 frame of a 100k SH-3 scene served over local
+  HTTP through ``viewer.scene_render_fn`` (K1f), against K1's plain
+  version;
+- the offline matcher: the native binding builds, and ``tools.match``
+  recovers a known similarity by scaled ICP on pusharm6's link meshes.
 
 It checks that every kernel of each path was launched (and no backward
 kernel by a forward run), that the fixed-camera render is exact (no
@@ -182,6 +200,27 @@ TRAIN_R05 = dict(psnr_first=20.349, psnr_final=41.68, n_final=11772)
 PIPE_N, PIPE_RES, PIPE_RGBD_RES, PIPE_VIEWS = 100_000, (480, 640), \
     (240, 320), 8
 DS_EDGE_PIXELS = 8
+# the distributed layer: the prim-sharded render of the bench scene (N,
+# SH_DEGREE, RES², the fixed camera; no buckets, as buckets are fractions
+# of each shard's N) on DIST_RANKS gloo ranks of the one card, each rank's
+# send capacity DIST_SEND (no shard truncates: every tile's merged list is
+# the single-device list), DIST_REPS timed calls; the scaling protocol
+# (benchmarks/scaling.py: B=32, N=20k, 128², the uncached train step) at
+# world 1 on NCCL and on 2 gloo ranks, its losses and gradients within
+# TOL_SCALING × the world-1 field's largest; dryrun_multichip on
+# DRYRUN_RANKS gloo ranks
+DIST_RANKS, DIST_SEND, DIST_REPS = 2, 1024, 3
+DIST_RASTER = dict(tile_size=16, tile_capacity=1024,
+                   max_tiles_per_gaussian=16, sigma_cutoff=3.0)
+SCALING = dict(B=32, N=20_000, res=128, iters=3)
+SCALING_PLAIN_ENVS = 8
+TOL_SCALING = 1e-5
+# the dry run's loss on every rank against its plain path in one process,
+# relative (the CPU test holds the ranks to one process and to the JAX
+# package at 1e-5)
+DRYRUN_RANKS, TOL_DRYRUN = 4, 1e-5
+# the viewer: one frame of a VIEW_N SH-3 synthetic scene at VIEW_RES (h, w)
+VIEW_N, VIEW_RES = 100_000, (240, 320)
 # FLOP per (pixel, list entry) pair, exp as one: the alpha (dx, dy, the
 # conic quadratic, exp, opacity, clamp) is evaluated for every entry of an
 # applied chunk; the blend (w = αT, four FMAs, T·(1-α)) only where α > 0
@@ -723,9 +762,7 @@ def main() -> int:
                 log(f"  {name}.cu ptxas: {line.strip()}")
 
     # scene and step at full width ---------------------------------------------
-    nb, na = max(N // 20, 100), max(N // 50, 50)
-    graph = entry.build_scene(n_bg=N - nb - na, n_block=nb, n_agent=na,
-                              seed=0, sh_degree=SH_DEGREE, device=dev)
+    graph = bench_graph(entry, dev)
     raster = RasterConfig(tile_size=16, tile_capacity=1024,
                           max_tiles_per_gaussian=16, sigma_cutoff=3.0, term_eps=1e-4,
                           buckets=((4, 0.90), (6, 0.06), (9, 0.04)))
@@ -994,6 +1031,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += splat_pipeline(entry, composite, reset_counts, counts_now,
                               dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 34-37. the distributed layer (K1f, K1b on the owned rows; dryrun: K1-K4)
+    torch.cuda.empty_cache()
+    kernels += distributed(entry, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 38-39. the viewer (K1f) and the offline matching tools -----------------
+    viewer_phase(composite, reset_counts, counts_now, dev)
+    tools_phase()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -2969,6 +3016,475 @@ def splat_pipeline(entry, composite, reset_counts, counts_now, dev):
     rows[0]["name"] = "composite_static_pipeline"
     rows[0]["launches"] = launches["composite_static"]
     return rows
+
+
+# --- the distributed layer ----------------------------------------------------
+
+def bench_graph(entry, dev):
+    """The bench's pushT scene graph: N gaussians (N/20 block, N/50 agent),
+    SH degree SH_DEGREE, seed 0."""
+    nb, na = max(N // 20, 100), max(N // 50, 50)
+    return entry.build_scene(n_bg=N - nb - na, n_block=nb, n_agent=na,
+                             seed=0, sh_degree=SH_DEGREE, device=dev)
+
+
+def sharded_render_rank(ranks=DIST_RANKS):
+    """One rank of the distributed phase's prim-sharded render (started by
+    ``parallel.launch``): the bench scene through ``rasterize_sharded_sh``
+    on a prim = ``ranks`` mesh, one warm-up forward + backward with K1's
+    arguments captured, then the counted run (one forward and the gradient
+    of sum(img²) to the means), the forward, the train step and the
+    exchange alone timed by CUDA events; rank 0 holds K1f and K1b at the
+    captured owned-rows payload against their plain versions
+    (``static_rows``)."""
+    import torch
+    import torch.distributed as dist
+    from sim_a_splat_torch import entry
+    from sim_a_splat_torch.ops import composite
+    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+    from sim_a_splat_torch.parallel import make_mesh, rasterize_sharded_sh
+    from sim_a_splat_torch.parallel import render_sharding
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(env=1, prim=ranks, device="cuda")
+    group = mesh.get_group("prim")
+    scene = bench_graph(entry, dev).scene
+    cam = entry._fixed_camera(RES, RES, dev)
+    cfg = RasterConfig(**DIST_RASTER)
+    covs, sh, opac = scene.covs(), scene.sh_coeffs(), scene.opacities()
+    means = scene.means.detach().requires_grad_()
+
+    def render(m):
+        return rasterize_sharded_sh(mesh, m, covs, sh, opac, cam, SH_DEGREE,
+                                    cfg, DIST_SEND)
+
+    def train():
+        img = render(means)
+        return img, torch.autograd.grad(torch.sum(img ** 2), means)[0]
+
+    seen = []
+    real_k1 = composite.composite_static
+    with replaced(composite, "composite_static",
+                  lambda *a: seen.append(a) or real_k1(*a)):
+        train()
+    torch.cuda.synchronize()
+    dist.barrier()
+    composite.launches = composite.launches_bwd = 0
+    t0 = time.perf_counter()
+    img, g = train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"composite_static": composite.launches,
+                "composite_static_bwd": composite.launches_bwd}
+    fwd_ms = cuda_ms(lambda: render(means.detach()), DIST_REPS)
+    train_ms = cuda_ms(train, DIST_REPS)
+    send = torch.zeros((seen[0][0].shape[0], render_sharding.N_FIELDS,
+                        DIST_SEND), device=dev)
+    xch_ms = cuda_ms(lambda: render_sharding._all_to_all(send, group),
+                     DIST_REPS)
+    dist.barrier()
+    rows = []
+    if dist.get_rank() == 0:
+        rows = static_rows(seen[0], dev)
+        for r, name in zip(rows, ("composite_static_sharded",
+                                  "composite_static_bwd_sharded")):
+            r["name"] = name
+            r["launches"] = launches[name.replace("_sharded", "")]
+    return {"img": img.detach().cpu().numpy(), "grad": g.cpu().numpy(),
+            "wall_s": wall, "launches": launches, "fwd_ms": fwd_ms,
+            "train_ms": train_ms, "exchange_ms": xch_ms, "rows": rows,
+            "payload": tuple(seen[0][0].shape),
+            "owned": int((seen[0][2] > 0).sum())}
+
+
+def sharded_render_phase(entry, dev, ranks=DIST_RANKS, backend="gloo"):
+    """The prim-sharded render of the bench scene on ``ranks`` ranks of
+    ``backend`` (:func:`sharded_render_rank`) against the card's
+    single-device ``rasterize_sh``: the image within TOL, the gradient to
+    the means within TOL_GRAD × its largest, on each rank, one K1f and one
+    K1b launch a rank; logs the exchange's bytes and ms and the render's
+    ms.  Returns K1f's and K1b's rows at rank 0's owned rows
+    (``composite_static_sharded``, ``composite_static_bwd_sharded``)."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig, rasterize_sh
+    from sim_a_splat_torch.parallel import launch
+    from sim_a_splat_torch.parallel.render_sharding import exchange_bytes
+
+    t0 = time.perf_counter()
+    scene = bench_graph(entry, dev).scene
+    cam = entry._fixed_camera(RES, RES, dev)
+    cfg = RasterConfig(**DIST_RASTER)
+    means = scene.means.detach().requires_grad_()
+    covs, sh, opac = scene.covs(), scene.sh_coeffs(), scene.opacities()
+    img_1, aux = rasterize_sh(means, covs, sh, opac, cam, SH_DEGREE, cfg)
+    (g_1,) = torch.autograd.grad(torch.sum(img_1 ** 2), means)
+    single_ms = cuda_ms(lambda: rasterize_sh(means.detach(), covs, sh, opac,
+                                             cam, SH_DEGREE, cfg), DIST_REPS)
+    img_1, g_1 = img_1.detach().cpu().numpy(), g_1.cpu().numpy()
+    del scene, means, covs, sh, opac
+    t1 = time.perf_counter()
+    res = launch(sharded_render_rank, ranks, backend, dev, ranks)
+    t_ranks = time.perf_counter() - t1
+    g_scale = float(np.abs(g_1).max())
+    for r, out in enumerate(res):
+        e_img = float(np.abs(out["img"] - img_1).max())
+        e_g = float(np.abs(out["grad"] - g_1).max())
+        log(f"  rank {r}: image max|Δ| vs the single-device render "
+            f"{e_img:.3e} (tolerance {TOL:.1e}), gradient to the means "
+            f"max|Δ| {e_g:.3e} of max|g| {g_scale:.3e} (tolerance "
+            f"{TOL_GRAD:.1e} × max|g|); launches {out['launches']}")
+        if not e_img <= TOL:
+            raise AssertionError(f"rank {r}'s sharded image: {e_img}")
+        if not (np.isfinite(out["grad"]).all() and e_g <= TOL_GRAD * g_scale):
+            raise AssertionError(f"rank {r}'s sharded gradient: {e_g}")
+        if out["launches"] != {"composite_static": 1,
+                               "composite_static_bwd": 1}:
+            raise AssertionError(f"rank {r} launched {out['launches']}")
+    nbytes = exchange_bytes(cam, cfg, DIST_SEND, ranks)
+    log(f"prim-sharded render: N={N} sh{SH_DEGREE} {RES}², K="
+        f"{cfg.tile_capacity}, send {DIST_SEND}, {ranks} {backend} ranks; "
+        f"n_overflowed_tiles (single device) "
+        f"{int(aux.n_overflowed_tiles)}; K1 payload {res[0]['payload']} "
+        f"with {res[0]['owned']} owned tiles active; exchange "
+        f"{nbytes / 1e6:.2f} MB a rank, "
+        + ", ".join(f"rank {r}: exchange {o['exchange_ms']:.2f} ms, render "
+                    f"{o['fwd_ms']:.2f} ms, render + gradient "
+                    f"{o['train_ms']:.2f} ms, counted run "
+                    f"{o['wall_s'] * 1e3:.2f} ms (host clock)"
+                    for r, o in enumerate(res))
+        + f"; single-device render {single_ms:.2f} ms (events); "
+        f"the ranks' launch {t_ranks:.1f} s, the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res[0]["rows"]
+
+
+def scaling_plain(entry):
+    """The scaling protocol's step in this process with K1's plain version
+    → (loss, gradients by scene field), SCALING_PLAIN_ENVS envs at a time
+    (the plain backward keeps ~1.8 GB an env): the loss is a mean over the
+    envs, so the batch's loss and gradient are the slices' means."""
+    from sim_a_splat_torch.ops import composite
+    from sim_a_splat_torch.parallel.mesh import tree_map
+    B, n = SCALING["B"], SCALING_PLAIN_ENVS
+    scene, step, states, actions = entry.scaling_inputs(
+        B, SCALING["N"], SCALING["res"], device="cuda")
+    fwd_bwd = entry.scaling_step(step)
+    loss, grads = 0.0, {}
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain):
+        for b0 in range(0, B, n):
+            _, l_, g_ = fwd_bwd(scene, tree_map(lambda a: a[b0:b0 + n],
+                                                states), actions[b0:b0 + n])
+            loss += float(l_) * n / B
+            for k, v in g_._asdict().items():
+                if v is not None:
+                    grads[k] = grads.get(k, 0.0) + v * (n / B)
+    return loss, grads
+
+
+def scaling_phase(entry, worlds):
+    """The scaling protocol (``entry.bench_mesh``, SCALING) at each (world,
+    backend) of ``worlds``, the first the reference: every rank launches
+    K1f and K1b once a timed step; the first world's losses and gradients
+    are held to the same step with K1's plain version (``scaling_plain``:
+    the loss and each gradient field within TOL_GRAD), and every other
+    world's to the first's within TOL_SCALING (relative; each gradient
+    field to its largest).  Logs frames/s and, across cards,
+    the efficiency frames/s ÷ (world × the first's); returns
+    {world: frames/s}."""
+    import torch
+    fps, ref = {}, None
+    for world, backend in worlds:
+        t0 = time.perf_counter()
+        f, res = entry.bench_mesh(world, backend, device="cuda", **SCALING)
+        fps[world] = f
+        for k, out in enumerate(res):
+            if (out["launches"], out["launches_bwd"]) != \
+                    (SCALING["iters"],) * 2:
+                raise AssertionError(
+                    f"scaling, world {world}, rank {k} launched K1f/K1b "
+                    f"{out['launches']}/{out['launches_bwd']}")
+        if ref is None:
+            ref, w0 = res[0], world
+            plain = scaling_plain(entry)
+            for k, out in enumerate(res):
+                hold_to_plain(f"scaling, world {world}, rank {k}",
+                              out["loss"], out["grads"], *plain, TOL_GRAD)
+        else:
+            for k, out in enumerate(res):
+                e_loss = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+                worst = 0.0
+                for name, g in ref["grads"].items():
+                    scale = float(g.abs().max())
+                    err = float((out["grads"][name] - g).abs().max())
+                    worst = max(worst, err / scale if scale else err)
+                    if not (bool(torch.isfinite(out["grads"][name]).all())
+                            and err <= TOL_SCALING * scale):
+                        raise AssertionError(
+                            f"scaling, world {world}, rank {k}: gradient of "
+                            f"{name} {err} > {TOL_SCALING} × {scale}")
+                if not e_loss <= TOL_SCALING:
+                    raise AssertionError(
+                        f"scaling, world {world}, rank {k}: loss "
+                        f"{out['loss']} vs {ref['loss']}")
+                log(f"  scaling, world {world}, rank {k}: loss rel. Δ "
+                    f"{e_loss:.3e}, gradients max|Δ| / max|g| {worst:.3e} "
+                    f"(tolerance {TOL_SCALING:.0e})")
+        log(f"scaling protocol (B={SCALING['B']}, N={SCALING['N']}, "
+            f"{SCALING['res']}², uncached train step, {SCALING['iters']} "
+            f"timed steps), world {world} ({backend}): {f:.2f} frames/s, "
+            f"ranks {[round(o['seconds'], 3) for o in res]} s, frames/s ÷ "
+            f"(world × world {w0}'s) {f / (world / w0 * fps[w0]):.3f}; the "
+            f"call {time.perf_counter() - t0:.1f} s (host clock)")
+    return fps
+
+
+def distributed(entry, dev):
+    """The distributed layer on the one card (ranks are processes of one
+    process group; two ranks on one card need gloo, as NCCL refuses a
+    duplicate GPU; gloo's collectives take the CUDA tensors):
+
+    - the prim-sharded render of the bench scene on DIST_RANKS gloo ranks
+      against the card's single-device render
+      (:func:`sharded_render_phase`);
+    - the scaling protocol's train step at world 1 (NCCL) and on 2 gloo
+      ranks, frames/s, world 1's loss and gradients held to K1's plain
+      version, the 2 ranks' to world 1's;
+    - ``dryrun_multichip`` on DRYRUN_RANKS gloo ranks: one finite loss,
+      every kernel K1-K4 launched forward and backward on every rank, each
+      rank's loss and gradient held to the plain path's.
+
+    Two ranks on one card share its SMs and gloo goes through the host:
+    the times are the mechanism's cost on one card, not a scaling
+    efficiency.  Returns the two sharded K1 rows."""
+    # 34. the prim-sharded render against the single-device render --------
+    rows = sharded_render_phase(entry, dev)
+
+    # 35-36. the scaling protocol at world 1 (NCCL) and 2 (gloo) ----------
+    scaling_phase(entry, [(1, "nccl"), (2, "gloo")])
+
+    # 37. dryrun_multichip on DRYRUN_RANKS gloo ranks ----------------------
+    dryrun_phase(entry)
+    return rows
+
+
+def plain_kernels():
+    """Every kernel K1-K4 swapped for its plain PyTorch version (forward,
+    and autograd through it for the backward) while the context lasts."""
+    from sim_a_splat_torch.ops import (
+        composite, composite_pair, composite_sel, composite_single,
+    )
+    stack = contextlib.ExitStack()
+    for module, name in ((composite, "composite_static"),
+                         (composite_pair, "composite_pair"),
+                         (composite_sel, "composite_pair_sel"),
+                         (composite_single, "composite_sel_single")):
+        stack.enter_context(replaced(module, name,
+                                     getattr(module, f"{name}_plain")))
+    return stack
+
+
+def hold_to_plain(what, loss, grads, loss_p, grads_p, rel_loss):
+    """A run's loss within ``rel_loss`` (relative) of the plain path's, and
+    each gradient field (name → tensor) finite and within TOL_GRAD × that
+    field's largest plain gradient."""
+    import torch
+    e_loss = abs(loss - loss_p) / abs(loss_p)
+    worst = 0.0
+    for name, want in grads_p.items():
+        got, want = grads[name].cpu(), want.cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_GRAD * scale):
+            raise AssertionError(f"{what}: gradient of {name} {err} > "
+                                 f"{TOL_GRAD} × {scale} (the plain path's)")
+        worst = max(worst, err / scale if scale else err)
+    log(f"  {what} vs the plain path: loss {loss} vs {loss_p} (rel. Δ "
+        f"{e_loss:.3e}, tolerance {rel_loss:.0e}), gradients max|Δ| / max|g| "
+        f"{worst:.3e} (tolerance {TOL_GRAD:.1e})")
+    if not e_loss <= rel_loss:
+        raise AssertionError(f"{what}: loss {loss} vs the plain path's "
+                             f"{loss_p}")
+
+
+def dryrun_phase(entry, ranks=DRYRUN_RANKS, backend="gloo"):
+    """``dryrun_multichip`` on ``ranks`` ranks of ``backend``: one finite
+    loss on every rank, every kernel K1-K4 launched forward and backward on
+    every rank, and each rank's loss and the gradient its SGD step took
+    held to the same loss and gradient computed in one process with every
+    kernel's plain version (``entry.dryrun_single``): the loss within
+    TOL_DRYRUN, each gradient field within TOL_GRAD × its largest."""
+    t0 = time.perf_counter()
+    res = entry.dryrun_ranks(ranks, backend, "cuda")
+    loss = entry.dryrun_report(ranks, res)
+    for k, out in enumerate(res):
+        idle = [n for n, c in out["launches"].items() if c == 0]
+        if idle:
+            raise AssertionError(f"dryrun rank {k} did not launch {idle}")
+    with plain_kernels():
+        loss_p, g_p = entry.dryrun_single(ranks, "cuda")
+    g_p = {k: g for k, g in g_p._asdict().items() if g is not None}
+    for k, out in enumerate(res):
+        hold_to_plain(f"dryrun rank {k}", out["loss"], out["grads"], loss_p,
+                      g_p, TOL_DRYRUN)
+    log(f"dryrun_multichip({ranks}) on {backend} ranks: loss {loss:.6f} on "
+        f"every rank, launches per rank {res[0]['launches']}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def viewer_phase(composite, reset_counts, counts_now, dev):
+    """The viewer: a VIEW_N SH-3 synthetic scene through
+    ``viewer.scene_render_fn`` (``rasterize_sh``, kernel K1f) behind
+    ``SplatViewer``: one frame served over local HTTP (its K1f launch
+    counted), the frame against K1's plain version at the same pose, the
+    render and the request timed."""
+    import urllib.request
+    import torch
+    from sim_a_splat_torch.splat import synthetic_scene
+    from sim_a_splat_torch.viewer import SplatViewer, orbit_pose, scene_render_fn
+
+    t0 = time.perf_counter()
+    h, w = VIEW_RES
+    scene = synthetic_scene(VIEW_N, seed=0, sh_degree=3, device=dev)
+    render = scene_render_fn(scene, width=w, height=h, device=dev)
+    viewer = SplatViewer(render)
+    try:
+        render(*orbit_pose(-1.57, 0.5, 4.0, (0.0, 0.0, 0.0)), {})  # warm-up
+        reset_counts()
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(viewer.url + "frame.jpg",
+                                    timeout=30) as r:
+            ctype, body = r.headers.get("Content-Type"), r.read()
+        http_ms = (time.perf_counter() - t1) * 1e3
+        launches = counts_now()
+    finally:
+        viewer.close()
+    if launches["composite_static"] != 1 or \
+            any(v for k, v in launches.items() if k != "composite_static"):
+        raise AssertionError(f"the viewer's frame launched {launches}")
+    if ctype not in ("image/jpeg",) or body[:2] not in (b"\xff\xd8", b"P6"):
+        raise AssertionError(f"the viewer served {ctype} {body[:8]!r}")
+    q, t = orbit_pose(-1.57, 0.5, 4.0, (0.0, 0.0, 0.0))
+    img = render(q, t, {})
+    with replaced(composite, "composite_static",
+                  composite.composite_static_plain):
+        plain = render(q, t, {})
+    check("viewer", img, plain, TOL, f"frame {h}×{w} vs K1's plain version")
+    if not float(img.std()) > 0.01:
+        raise AssertionError("the viewer's frame is blank")
+    render_ms = cuda_ms(lambda: render(q, t, {}), 5)
+    log(f"viewer: N={VIEW_N} sh3 at {w}×{h}, one frame over local HTTP "
+        f"{http_ms:.2f} ms (host clock, {len(body)} bytes of {ctype}), "
+        f"launches {launches['composite_static']} K1f; the render "
+        f"{render_ms:.2f} ms (events); {time.perf_counter() - t0:.1f} s")
+
+
+def primitive_mesh_urdf(urdf, out_dir):
+    """A copy of ``urdf`` in ``out_dir`` whose cylinder and sphere visuals
+    are OBJ meshes of the same shapes (the matcher reads mesh files, as
+    the reference's does); returns its path."""
+    import re
+    from pathlib import Path
+    from sim_a_splat_torch.tools import meshio
+    out_dir = Path(out_dir)
+    text = Path(urdf).read_text()
+    count = [0]
+
+    def mesh_of(m):
+        kind, attrs = m.group(1), dict(re.findall(r'(\w+)="([^"]*)"',
+                                                  m.group(2)))
+        if kind == "cylinder":
+            mesh = meshio.cylinder_mesh(float(attrs["radius"]),
+                                        float(attrs["length"]))
+        else:
+            ico = meshio.icosphere(2)
+            mesh = meshio.TriMesh(ico.vertices * float(attrs["radius"]),
+                                  ico.faces)
+        name = f"visual_{count[0]}.obj"
+        count[0] += 1
+        meshio.save_obj(out_dir / name, mesh)
+        return f'<mesh filename="{name}"/>'
+
+    text = re.sub(r"<(cylinder|sphere)\s([^>]*)/>", mesh_of, text)
+    path = out_dir / Path(urdf).name
+    path.write_text(text)
+    return path
+
+
+def tools_phase():
+    """The offline matching tools on their native path: the port's binding
+    of the C++ KD-tree / BVH builds (``native.available()``), and
+    ``tools.match`` runs scaled ICP on pusharm6's link meshes (its URDF's
+    cylinders and sphere as OBJ files) against a splat made of their
+    surface samples under a known similarity, plus a background cloud: the
+    similarity recovered within 5e-3, each link's mask holding its own
+    samples and no background."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from sim_a_splat_torch import native
+    from sim_a_splat_torch.physics import kinematics as kin
+    from sim_a_splat_torch.splat.scene import GaussianScene
+    from sim_a_splat_torch.tools import meshio
+    from sim_a_splat_torch.tools.match import load_link_meshes, match
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native binding did not build: "
+                             f"{native.build_error}")
+    t_build = time.perf_counter() - t0
+    urdf = Path(__file__).resolve().parent / "robot_description" / \
+        "pusharm6" / "urdf" / "pusharm6.urdf"
+    q = np.asarray(ASSET_JOINT_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = primitive_mesh_urdf(urdf, tmp)
+        meshes = load_link_meshes(kin.load_chain(path), tmp, q)
+        rng = np.random.default_rng(0)
+        parts = [meshio.sample_surface(m, 600, seed=i)
+                 for i, m in enumerate(meshes.values())]
+        bg = rng.uniform(-3, 3, (2000, 3)) + np.array([0.0, 0.0, 5.0])
+        c, s_ = np.cos(0.3), np.sin(0.3)
+        R = np.array([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]])
+        s, t = 0.2112, np.array([0.4, -0.1, 0.3])
+        world = np.concatenate(parts + [bg])
+        means = s * world @ R.T + t + rng.normal(0, 1e-5, world.shape)
+        n = len(means)
+        scene = GaussianScene(*(torch.as_tensor(np.asarray(a, np.float32))
+                                for a in (means, np.tile([1.0, 0, 0, 0],
+                                                         (n, 1)),
+                                          np.full((n, 3), -6.0),
+                                          np.full(n, 2.0), np.zeros((n, 3)))))
+        init = np.eye(4)
+        init[:3, :3] = 0.2 * np.array([[np.cos(0.25), -np.sin(0.25), 0.0],
+                                       [np.sin(0.25), np.cos(0.25), 0.0],
+                                       [0.0, 0.0, 1.0]])
+        init[:3, 3] = t + 0.01
+        t1 = time.perf_counter()
+        res = match(path, scene, q, tmp / "out", trans_init=init,
+                    max_correspondence_distance=0.1, distance_threshold=0.004,
+                    n_sample_points=5000)
+        t_match = time.perf_counter() - t1
+        written = sorted(p.name for p in (tmp / "out").iterdir())
+    want = np.eye(4)
+    want[:3, :3] = s * R
+    want[:3, 3] = t
+    err = float(np.abs(res.icp_transformation - want).max())
+    n_parts = np.cumsum([0] + [len(p) for p in parts])
+    held = [float(res.link_masks[f"link{i}"][n_parts[i]:n_parts[i + 1]].mean())
+            for i in range(len(parts))]
+    stray = int(sum(m[n_parts[-1]:].sum() for m in res.link_masks.values()))
+    log(f"tools: native binding built/loaded in {t_build:.2f} s; match on "
+        f"pusharm6's {len(meshes)} link meshes ({n} splat means, "
+        f"{n_parts[-1]} on the links): scaled ICP rmse {res.rmse:.3e}, "
+        f"fitness {res.fitness:.3f}, scale {res.scale:.5f} (true {s}), "
+        f"similarity max|Δ| {err:.3e}, each link's mask holds "
+        f"{min(held):.3f}-{max(held):.3f} of its samples, {stray} background "
+        f"means in a mask; artifacts {written}; {t_match:.2f} s")
+    if not (err <= 5e-3 and min(held) > 0.9 and stray == 0):
+        raise AssertionError("the matcher did not recover the similarity "
+                             "or the link masks")
 
 
 if __name__ == "__main__":

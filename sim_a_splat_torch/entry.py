@@ -34,7 +34,11 @@ Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
 - the splat trainer's protocol (``benchmarks/train_scene.py``): the
   ground-truth scene, the ring cameras, the degraded init and the
   script's configs (``train_scene_inputs``), for ``splat/train.py``'s
-  ``train`` (kernel K1, K1b in every train step).
+  ``train`` (kernel K1, K1b in every train step);
+- the multi-rank dry run (the reference's ``dryrun_multichip``: its six
+  branches and the prim-sharded render over an env × prim mesh of
+  processes, ``parallel/``) and ``benchmarks/scaling.py``'s protocol
+  (``scaling_inputs``, ``scaling_step``, ``bench_mesh``).
 
 Everything runs on ``device`` ("cuda" by default); ``device="cpu"`` runs
 the plain PyTorch path (what the tests compare against the reference).
@@ -840,3 +844,261 @@ def train_scene_inputs(n: int = 12000, views: int = 8, res: int = 128,
     raster = RasterConfig(tile_capacity=512, max_tiles_per_gaussian=16,
                           chunk=128, sigma_cutoff=3.0, term_eps=1e-4)
     return gt, init, cams, cfg, raster
+
+
+# --- the multi-rank dry run (the reference's dryrun_multichip) ----------------
+
+DRYRUN_PATHS = ("plain", "cached+fused-pair (K4)", "sel-batch (K1, K2)",
+                "moving (bucketed)", "moving-cached (K3)", "prim-sharded (K1)")
+
+
+def _dryrun_inputs(B: int, device, vecs=None):
+    """The dry run's scene (``build_scene(256, 64, 32)``), its steps at
+    32×32 with the reference's configs, and B envs' states and actions:
+    the states ``set_state`` of ``vecs`` (B, 5) where given (e.g. the
+    reference's reset draws), else a reset from seed 0."""
+    dev = resolve_device(device)
+    graph = build_scene(n_bg=256, n_block=64, n_agent=32, device=dev)
+    raster = RasterConfig(tile_size=16, tile_capacity=64,
+                          max_tiles_per_gaussian=9, chunk=32,
+                          sigma_cutoff=3.0)
+    raster_prod = RasterConfig(tile_size=16, tile_capacity=128,
+                               max_tiles_per_gaussian=9, chunk=32,
+                               sigma_cutoff=3.0, term_eps=1e-4)
+    step, params = make_step(graph, 32, 32, raster, device=dev)
+    parts = dict(
+        raster=raster, step=step, camera=_fixed_camera(32, 32, dev),
+        cached=make_step_cached(graph, 32, 32, raster_prod, dyn_capacity=128,
+                                static_skip=True, dyn_max_tiles=9,
+                                device=dev)[:2],
+        sel=make_step_cached_batch(graph, 32, 32, raster_prod,
+                                   dyn_capacity=128, sel_tiles=4,
+                                   dyn_max_tiles=9, device=dev)[:2],
+        moving=make_step_moving(graph, 32, 32, raster._replace(
+            buckets=((2, 0.5), (4, 0.3), (9, 0.2))), device=dev)[0],
+        moving_cached=make_step_moving_cached(
+            graph, 32, 32, raster_prod, R=2, margin=8.0, kc=128,
+            dyn_capacity=128, dyn_max_tiles=9, device=dev)[0])
+    if vecs is None:
+        states = pusht.reset(params, torch.Generator().manual_seed(0), B)
+        states = pusht.PushTState(*(f.to(dev) for f in states))
+    else:
+        states = pusht.set_state(params, torch.tensor(
+            np.asarray(vecs), dtype=torch.float32, device=dev))
+    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    return graph, parts, states, actions
+
+
+def _dryrun_loss(parts, scene: GaussianScene, states, actions, render):
+    """The dry run's loss over these envs: the five env branches' means
+    (each a mean over the envs given) and the whole-scene render's
+    mean(img²), ``render(means, covs, colors, opacities, camera, raster)``
+    → (H, W, 3)."""
+    _, imgs = parts["step"](scene, states, actions)
+    loss = torch.mean(imgs ** 2)
+    prepare_c, step_c = parts["cached"]
+    _, imgs_c, _ = step_c(prepare_c(scene), scene, states, actions)
+    loss = loss + torch.mean(imgs_c ** 2)
+    prepare_s, step_s = parts["sel"]
+    _, imgs_s, _ = step_s(prepare_s(scene), scene, states, actions)
+    loss = loss + torch.mean(imgs_s ** 2)
+    _, imgs_m, _ = parts["moving"](scene, states, actions)
+    loss = loss + torch.mean(imgs_m ** 2)
+    _, l_mc, _ = parts["moving_cached"](scene, states, actions)
+    img1 = render(scene.means, scene.covs(), scene.colors_dc(),
+                  scene.opacities(), parts["camera"], parts["raster"])
+    return loss + l_mc + torch.mean(img1 ** 2)
+
+
+def dryrun_single(n_ranks: int = 4, device="cuda", vecs=None):
+    """The dry run's loss over ``n_ranks`` ranks' envs and its gradient to
+    the scene, computed in one process (every env here; the whole-scene
+    render by ``rasterize_prim_shards``, the prim group's render without
+    its collectives): what every rank of :func:`dryrun_multichip` must
+    report before its SGD step.  Returns (loss, grads: a GaussianScene)."""
+    from sim_a_splat_torch.parallel.render_sharding import (
+        rasterize_prim_shards,
+    )
+    prim = 2 if n_ranks % 2 == 0 else 1
+    graph, parts, states, actions = _dryrun_inputs(n_ranks // prim * 2,
+                                                   device, vecs)
+
+    def fn(scene):
+        return (_dryrun_loss(parts, scene, states, actions,
+                             lambda *a: rasterize_prim_shards(
+                                 prim, *a, send_capacity=32)),)
+
+    loss, _, grads = _value_and_grads(graph.scene, fn)
+    return float(loss), grads
+
+
+def _dryrun_rank(device, vecs=None):
+    """One rank of :func:`dryrun_multichip`: mesh env = n/2 × prim = 2, the
+    global batch of 2 envs per env shard, one train step (this rank's envs
+    and its prim shard of the render; the gradient through the exchange,
+    a mean over env; SGD lr 1e-6)."""
+    import torch.distributed as dist
+    from sim_a_splat_torch.ops import (
+        composite, composite_pair, composite_sel, composite_single,
+    )
+    from sim_a_splat_torch.parallel import (
+        make_mesh, make_train_step, rasterize_sharded,
+    )
+    n = dist.get_world_size()
+    prim = 2 if n % 2 == 0 else 1
+    mesh = make_mesh(env=n // prim, prim=prim, device=device)
+    graph, parts, states, actions = _dryrun_inputs(n // prim * 2, device,
+                                                   vecs)
+    leaves = GaussianScene(*(None if f is None else
+                             f.detach().clone().requires_grad_()
+                             for f in graph.scene))
+    opt = torch.optim.SGD([f for f in leaves if f is not None], lr=1e-6)
+
+    def render(*args):
+        return rasterize_sharded(mesh, *args, send_capacity=32)
+
+    def loss_fn(scene, batch):
+        return _dryrun_loss(parts, scene, *batch, render)
+
+    for m in (composite, composite_pair, composite_sel, composite_single):
+        m.launches = m.launches_bwd = 0
+    loss = make_train_step(loss_fn, opt, mesh)(leaves, (states, actions))
+    launches = {f"{m.__name__.rsplit('.', 1)[-1]}{sfx}": getattr(m, attr)
+                for m in (composite, composite_pair, composite_sel,
+                          composite_single)
+                for sfx, attr in (("", "launches"), ("_bwd", "launches_bwd"))}
+    return {"loss": float(loss), "mesh": dict(zip(mesh.mesh_dim_names,
+                                                  mesh.shape)),
+            "launches": launches,
+            "grads": {k: f.grad for k, f in leaves._asdict().items()
+                      if f is not None}}
+
+
+def dryrun_ranks(n_ranks: int, backend: str = "nccl", device="cuda",
+                 vecs=None) -> list:
+    """:func:`dryrun_multichip`'s ranks' results, by rank: {"loss", "mesh",
+    "launches" (each kernel's forward and backward launches on the rank),
+    "grads" (the gradient the SGD step took, by scene field)}; ``vecs``
+    as :func:`_dryrun_inputs` takes them."""
+    from sim_a_splat_torch.parallel import launch
+    return launch(_dryrun_rank, n_ranks, backend, device, device, vecs)
+
+
+def dryrun_report(n_ranks: int, results: list) -> float:
+    """The ranks' results of :func:`dryrun_ranks` → the loss, after the
+    reference's report line; raises where a loss is not finite or the
+    ranks disagree."""
+    losses = [r["loss"] for r in results]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss {losses}")
+    if max(losses) - min(losses) > 1e-6 * abs(losses[0]):
+        raise RuntimeError(f"the ranks' losses disagree: {losses}")
+    print(f"dryrun_multichip({n_ranks}): mesh={results[0]['mesh']} "
+          f"loss={losses[0]:.4f} ok [paths: {', '.join(DRYRUN_PATHS)}]")
+    return losses[0]
+
+
+def dryrun_multichip(n_ranks: int = 4, backend: str = "nccl",
+                     device="cuda", vecs=None) -> float:
+    """The reference's ``dryrun_multichip`` on ``n_ranks`` processes of one
+    ``backend`` (the caller's: NCCL needs one card per rank; gloo runs
+    several ranks on one card or on the CPU): the full train step over an
+    env = n/2 × prim = 2 mesh at the reference's tiny shapes (its scene,
+    32×32, its six configs), the six branches' loss summed (the plain
+    uncached step, the cached fused-pair step on K4, the selected-tile
+    batch on K1 and K2, the bucketed moving camera, the candidate-cache
+    rollout on K3, and the prim-sharded whole-scene render on K1 through
+    the exchange), its gradient all-reduced over env, one SGD step
+    (lr 1e-6).  The envs start from ``vecs`` (B, 5) where given (the
+    reference draws them from its keys), else from a reset of seed 0.
+    Prints the reference's line and returns the loss; raises where it is
+    not finite or the ranks disagree."""
+    return dryrun_report(n_ranks, dryrun_ranks(n_ranks, backend, device,
+                                               vecs))
+
+
+# --- the scaling protocol (benchmarks/scaling.py's bench_mesh) ---------------
+
+SCALING_RASTER = dict(tile_size=16, tile_capacity=1024,
+                      max_tiles_per_gaussian=16, chunk=128, sigma_cutoff=3.0)
+
+
+def scaling_inputs(B: int = 32, N: int = 20_000, res: int = 128,
+                   device="cuda"):
+    """``benchmarks/scaling.py``'s inputs: the pushT scene at N gaussians
+    (``build_scene`` with N/20 block and N/50 agent gaussians), the
+    uncached step (:func:`make_step`, kernel K1 over every env's tiles) at
+    ``res``² with its raster, and B envs' states and actions [150, 250].
+    Returns (scene, step, states, actions)."""
+    dev = resolve_device(device)
+    nb, na = max(N // 20, 100), max(N // 50, 50)
+    graph = build_scene(n_bg=N - nb - na, n_block=nb, n_agent=na, seed=0,
+                        device=dev)
+    step, params = make_step(graph, res, res, RasterConfig(**SCALING_RASTER),
+                             device=dev)
+    states = pusht.reset(params, torch.Generator().manual_seed(0), B)
+    states = pusht.PushTState(*(f.to(dev) for f in states))
+    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    return graph.scene, step, states, actions
+
+
+def scaling_step(step, mesh=None):
+    """The protocol's step: ``fwd_bwd(scene, states, actions)`` over the
+    global batch → (new_states, loss, grads): mean(imgs²) of the uncached
+    step and its gradient to the scene (a GaussianScene).  With an
+    env-only ``mesh`` each rank steps its own rows, and the loss and the
+    gradient are all-reduced as means over env (every rank returns the
+    global batch's); new_states are this rank's."""
+    from sim_a_splat_torch.parallel import mean_over_env, shard_batch
+
+    def fwd_bwd(scene, states, actions):
+        if mesh is not None:
+            states, actions = shard_batch(mesh, (states, actions))
+        new_states, loss, _, grads = loss_and_grads(None, step, scene,
+                                                    states, actions)
+        if mesh is not None:
+            loss, grads = mean_over_env(mesh, (loss, grads))
+        return new_states, loss, grads
+
+    return fwd_bwd
+
+
+def _bench_mesh_rank(B, N, res, iters, device):
+    import time
+
+    import torch.distributed as dist
+    from sim_a_splat_torch.ops import composite
+    from sim_a_splat_torch.parallel import make_mesh
+    mesh = make_mesh(device=device)
+    scene, step, states, actions = scaling_inputs(B, N, res, device)
+    fwd_bwd = scaling_step(step, mesh)
+    sync = torch.cuda.synchronize if scene.means.is_cuda else (lambda: None)
+    _, loss, grads = fwd_bwd(scene, states, actions)      # warm-up
+    sync()
+    dist.barrier()
+    composite.launches = composite.launches_bwd = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        _, loss, grads = fwd_bwd(scene, states, actions)
+    sync()
+    seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "loss": float(loss),
+            "grads": {k: v for k, v in grads._asdict().items()
+                      if v is not None},
+            "launches": composite.launches,
+            "launches_bwd": composite.launches_bwd}
+
+
+def bench_mesh(n_ranks: int, backend: str = "nccl", B: int = 32,
+               N: int = 20_000, res: int = 128, iters: int = 10,
+               device="cuda"):
+    """``benchmarks/scaling.py``'s ``bench_mesh`` on ``n_ranks`` processes
+    (an env-only mesh; ``backend`` the caller's): ``iters`` timed train
+    steps of :func:`scaling_step` after one warm-up, each rank on the host
+    clock ending in a device synchronise.  Returns (frames/s = B·iters /
+    the slowest rank's seconds, the ranks' results: seconds, loss, the
+    gradient's fields, K1f / K1b launches in the timed steps)."""
+    from sim_a_splat_torch.parallel import launch
+    res_ = launch(_bench_mesh_rank, n_ranks, backend, device, B, N, res,
+                  iters, device)
+    return B * iters / max(r["seconds"] for r in res_), res_

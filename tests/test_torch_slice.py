@@ -32,6 +32,7 @@ from test_torch_helpers import (
 import __graft_entry__ as graft
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.viewer import scene_render_fn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 W = H = 64
@@ -93,7 +94,10 @@ def test_step_matches_reference(seed):
                                          "build_scene", "state_from_numpy",
                                          "make_step_moving_cached",
                                          "make_step_moving",
-                                         "make_step_cached"])
+                                         "make_step_cached",
+                                         "dryrun_multichip", "bench_mesh",
+                                         "scaling_inputs",
+                                         "scene_render_fn"])
 def test_cuda_without_card_raises(entry_point):
     if torch.cuda.is_available():
         pytest.skip("a card is present: this checks the no-card refusal")
@@ -110,9 +114,28 @@ def test_cuda_without_card_raises(entry_point):
         "build_scene": lambda: entry.build_scene(64, 32, 16),
         "state_from_numpy": lambda: pusht.state_from_numpy(
             [np.zeros((2, 2))] * 4 + [np.zeros(2)] * 3),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(2),
+        "bench_mesh": lambda: entry.bench_mesh(1),
+        "scaling_inputs": lambda: entry.scaling_inputs(2, 500, 32),
+        "scene_render_fn": lambda: scene_render_fn(g.scene),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry_point]()          # each defaults to device="cuda"
+
+
+@pytest.mark.parametrize("script,needs", [("chip_smoke.py", "CUDA device"),
+                                          ("chip_scaling.py",
+                                           "two CUDA devices")])
+def test_card_scripts_refuse_without_cards(script, needs):
+    """Each card script, run as a user runs it, exits non-zero and prints
+    no result where the cards it needs are missing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the no-card refusal")
+    out = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert needs in out.stderr
 
 
 def test_port_imports_no_jax():
@@ -127,7 +150,8 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
-                                             "optax", "sim_a_splat_tpu",
+                                             "optax", "orbax",
+                                             "sim_a_splat_tpu",
                                              "__graft_entry__"))
         print(len(mods))
         assert not bad, bad
@@ -138,14 +162,15 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 15
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sim_a_splat_tpu",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sim_a_splat_tpu",
              "__graft_entry__")
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "sim_a_splat_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_scaling.py",
+                                  "sim_a_splat_torch"])
 def test_no_reference_import_statements(path):
-    """No import statement anywhere in the port or in chip_smoke.py (also
-    inside functions) names JAX or the reference package."""
+    """No import statement anywhere in the port or in the card scripts
+    (also inside functions) names JAX or the reference package."""
     files = [ROOT / path] if path.endswith(".py") else \
         sorted((ROOT / path).rglob("*.py"))
     for f in files:
