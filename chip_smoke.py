@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 With ``--parent DIR`` (the root of another checkout, e.g. the parent
 commit's ``git archive``) it also builds that checkout's K2, K3 and K4
 kernels and times them on the same inputs, in turns with this tree's
-(parent, this, this, parent), beside this tree's times; K3 through the
-parent's own wrapper (``ops/composite_single.py``), whose launch interface
-differs from this tree's.
+(parent, this, this, parent), beside this tree's times; K2 and K3
+through the parent's own wrappers (``ops/composite_sel.py``,
+``ops/composite_single.py``), whose launch interfaces differ from this
+tree's.
 
 It builds the port's CUDA kernels from ``sim_a_splat_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of its path, and
@@ -36,7 +37,12 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   with its peak device memory), and one frame against the full per-frame
   rebin (``entry.make_step_moving``); and K3 in its shared-payload mode
   (one env's lists shared by the B=16 envs of a frame), which no caller
-  runs, against its plain versions;
+  runs, against its plain versions; and K2 (K2f, K2b) in its per-env mode,
+  which no caller runs either, on one B=32 frame's reprojected statics and
+  dynamic lists apart (256 tiles, Ks 512, Kd 128, the dense ids): one
+  forward and backward through its autograd Function, against its plain
+  versions, and each env's rows against the shared mode run on that env's
+  lists alone, bit for bit;
 - the uncached step (``entry.make_step``, the reference's ``_make_step``
   that its ``entry()`` returns; K1f, K1b with a leading env axis), B=128,
   forward and in training (``entry.loss_and_grads(None, step, ...)``):
@@ -61,6 +67,12 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   cameras through K1f (the step and the render timed apart), the images
   against K1's plain version, a free-camera render and one joint-space
   step rendered from ``examples/assets``;
+- the example drivers (``sim_a_splat_torch/examples``) through their own
+  functions at their own sizes (``examples/assets``, two 240×320 cameras):
+  ``demo_pusht_splat --steps 3``, ``demo_joint_sliders_splat --steps 40``
+  (frames written), ``demo_hw_splat --replay 20`` and ``demo_viewer
+  --selftest`` (320×320), K1f's launches counted in each, each demo's
+  frames after its run against K1's plain version;
 - splat training (``splat/train.py``, K1f and K1b):
   ``benchmarks/train_scene.py``'s protocol at its full width
   (``entry.train_scene_inputs``: a 12,000-gaussian SH-1 ground truth, a
@@ -157,6 +169,14 @@ ASSET_N_PER_LINK, ASSET_N_GROUND, ASSET_TASK_N = 2000, 80000, 4000
 ASSET_STEPS, ASSET_RES = 10, (240, 320)
 ASSET_JOINT_CONFIG = (0.0, -0.45, 0.85, 0.0, 0.35, 0.0)
 ASSET_HOME = (0.0, 0.785, 0.89, 0.0, 1.466, 0.0)
+# the example drivers at their own sizes (sim_a_splat_torch/examples): the
+# pushT demo's scripted steps (3: each is ~8-10 s of host-bound IK, the
+# latency the asset env's ASSET_STEPS already read, so 3 give its step and
+# render times and frames to hold), the slider sweep's steps, the hardware
+# stream's messages, the viewer's frame size, and the demos' viewport's key
+# in their camera setup (``examples.common.camera_setup``)
+EX_PUSHT_STEPS, EX_SLIDER_STEPS, EX_HW_STEPS, EX_VIEW_SIZE = 3, 40, 20, 320
+VIEWPORT_KEY = 0
 # both product cameras sit inside the scene's background cloud: a gaussian
 # a centimetre in front of a lens covers thousands of pixels, and its
 # gradient (through the ill-conditioned 2-D covariance of its projection)
@@ -572,7 +592,7 @@ def static_rows(a1, dev, backward=True):
     return [k1, k1b]
 
 
-def sel_rows(a2, parent, dev, plain_envs=8):
+def sel_rows(a2, parent, dev, plain_envs=8, parent_k2=None):
     """K2f and K2b on the captured arguments ``a2`` of one
     ``composite_sel.composite_pair_sel`` call against their plain versions
     (K2b for a numpy-seeded cotangent on the selected rows, the plain
@@ -632,7 +652,8 @@ def sel_rows(a2, parent, dev, plain_envs=8):
         f"{FIRST_DESIGN_MS['composite_pair_sel']} ms), plain "
         f"{k2['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     versus_parent("K2f", lambda: composite_sel.composite_pair_sel(*a2),
-                  parent, 10)
+                  parent, 10,
+                  parent_fn=lambda: parent_k2.composite_pair_sel(*a2))
     # the (entry, warp) pairs of the applied entries that the cull skips,
     # by the kernels' test's plain twin
     sbox = composite_sel.cull_boxes(spay, sigma2)           # (T+1, 4, Ks)
@@ -707,7 +728,162 @@ def sel_rows(a2, parent, dev, plain_envs=8):
         f"{FIRST_DESIGN_MS['composite_pair_sel_bwd']} ms), plain "
         f"{k2b['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     versus_parent("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b),
-                  parent, 10)
+                  parent, 10,
+                  parent_fn=lambda: parent_k2.composite_pair_sel_bwd(*a2b))
+    return [k2, k2b]
+
+
+def per_env_lists(rasterize_moving, payload, key, kc, ts, tx, raster):
+    """K2's per-env inputs from one moving frame's lists, captured where
+    ``render_moving_batch`` merges them (``_sort_by_key`` of its payload
+    (B, T, 10, kc + Kd) and key): each env's reprojected statics (the first
+    kc columns) and the frame's dynamic lists apart, each sorted by depth,
+    with the zero trash row and the dense ids ids[b] = arange(T) → the
+    arguments of ``composite_sel.composite_pair_sel``."""
+    import math
+    import torch
+    lists = []
+    for cols in (slice(0, kc), slice(kc, None)):
+        k = key[..., cols]
+        lists.append((rasterize_moving._sort_by_key(payload[..., cols], k),
+                      torch.sum(k < math.inf, dim=-1).to(torch.int32)))
+    (spay, cs), (dpay, cd) = lists
+    B_, T = cs.shape
+    spay_pad = torch.cat([spay, spay.new_zeros((B_, 1) + spay.shape[2:])], 1)
+    cs_pad = torch.cat([cs, cs.new_zeros((B_, 1))], 1)
+    ids = torch.arange(T, dtype=torch.int32, device=cs.device).expand(
+        B_, T).contiguous()
+    return (spay_pad.contiguous(), dpay.contiguous(), ids, cs_pad.contiguous(),
+            cd.contiguous(), ts, tx, raster.sigma_cutoff, raster.term_eps)
+
+
+def sel_per_env_rows(a2, reset_counts, counts_now, dev, plain_envs=2):
+    """K2f and K2b in the per-env mode on ``a2`` (per-env static lists
+    (B, T+1, 10, Ks) with counts (B, T+1), dense ids): one forward and its
+    backward through ``composite_sel.composite_pair_sel`` (the launches
+    counted), each kernel against its plain version (the plain backward
+    ``plain_envs`` envs at a time), each env's forward rows against the
+    shared-mode K2f run on that env's lists alone, bit for bit, and the
+    times by CUDA events beside the bound, which counts each env's own
+    static read and, in K2b, the gradient's zero fill.  Returns the two
+    rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from sim_a_splat_torch.ops import composite, composite_sel
+    spay, dpay, ids, cs_pad, cd = a2[:5]
+    ts2 = a2[5]
+    P_ = ts2 ** 2
+    B_, TT = ids.shape
+    T1, Ks, Kd = spay.shape[1], spay.shape[-1], dpay.shape[-1]
+    log(f"K2 per-env mode (spay {tuple(spay.shape)}, "
+        f"{spay.numel() * 4 / 1e6:.1f} MB; dpay {tuple(dpay.shape)}; dense "
+        f"ids; static entries a slot: mean "
+        f"{float(cs_pad[:, :-1].float().mean()):.1f}, dynamic "
+        f"{float(cd.float().mean()):.1f}):")
+    bidx = torch.arange(B_, device=dev)[:, None]
+    named = bidx, ids.long()
+    ct = torch.zeros((B_, T1, 8, P_), device=dev)
+    ct[bidx, ids.long(), :5] = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(B_, TT, 5, P_)).astype(np.float32), device=dev)
+    ct[:, T1 - 1] = 0.0                         # the trash row: pads only
+
+    # the phase's run: one forward and backward through the Function
+    leaves = (spay.clone().requires_grad_(), dpay.clone().requires_grad_())
+    reset_counts()
+    out_f = composite_sel.composite_pair_sel(*leaves, *a2[2:])
+    (out_f[named] * ct[named]).sum().backward()
+    torch.cuda.synchronize()
+    launches = counts_now()
+    want = {"composite_pair_sel": 1, "composite_pair_sel_bwd": 1}
+    if any(n != want.get(k, 0) for k, n in launches.items()):
+        raise AssertionError(f"one per-env forward and backward launched "
+                             f"{launches}")
+    out_k, gs_k, gd_k = out_f.detach(), leaves[0].grad, leaves[1].grad
+
+    out_p, applied, hits = composite_sel.composite_pair_sel_plain(
+        *a2, return_work=True)
+    rows = [0, 1, 2, 4]
+    sel_k, sel_p = out_k[named], out_p[named]
+    e_f = check("K2 per-env", sel_k[:, :, rows], sel_p[:, :, rows], TOL,
+                "rgb+trans (selected rows)")
+    dscale = max(1.0, float(spay[:, :, 8].abs().max()),
+                 float(dpay[:, :, 8].abs().max()))
+    check("K2 per-env", sel_k[:, :, 3] / dscale, sel_p[:, :, 3] / dscale,
+          TOL, "depth_acc / max depth")
+    for b in range(B_):
+        one = composite_sel.composite_pair_sel(
+            spay[b], dpay[b:b + 1], ids[b:b + 1], cs_pad[b], cd[b:b + 1],
+            *a2[5:])
+        if not torch.equal(one[0, ids[b].long()], out_k[b, ids[b].long()]):
+            raise AssertionError(f"K2 per-env: env {b}'s rows differ from "
+                                 "the shared mode on its lists alone")
+    log(f"  each of the {B_} envs' rows equal to the shared-mode K2f on "
+        "that env's lists alone, bit for bit")
+
+    def bwd_plain():
+        g_s, g_d = torch.zeros_like(spay), torch.empty_like(dpay)
+        for b0 in range(0, B_, plain_envs):
+            sl = slice(b0, b0 + plain_envs)
+            g_s[sl], g_d[sl] = composite_sel.composite_pair_sel_bwd_plain(
+                spay[sl], dpay[sl], ids[sl], cs_pad[sl], cd[sl], ct[sl],
+                *a2[5:])
+        return g_s, g_d
+
+    gs_p, gd_p = bwd_plain()
+    e_b = max(check_rows("K2b per-env", gs_k[:, :T1 - 1], gs_p[:, :T1 - 1],
+                         "static grad, per env and tile"),
+              check_rows("K2b per-env", gd_k, gd_p, "dynamic grad"))
+    if not (bool(torch.isfinite(gs_k).all()) and bool(torch.isfinite(gd_k).all())):
+        raise AssertionError("K2b per-env: gradient not finite")
+    if bool(gs_k[:, T1 - 1].any()):
+        raise AssertionError("K2b per-env: a trash row got a gradient")
+
+    # the work these inputs need: each slot reads its own env's static list
+    cs_slot = torch.clamp(cs_pad[named].long(), max=Ks)             # (B, TT)
+    c0 = torch.arange(Ks // composite.CHUNK, device=dev) * composite.CHUNK
+    per_chunk = torch.clamp(cs_slot[..., None] - c0, 0, composite.CHUNK)
+    used = torch.arange(len(c0), device=dev) < applied[..., None]
+    s_entries = int((per_chunk * used).sum())
+    d_entries = int(torch.clamp(cd.long(), max=Kd).sum())
+    entries, blended = s_entries + d_entries, int(hits.sum())
+    reads = (s_entries + d_entries) * 40 + ids.numel() * 8 + cs_pad.numel() * 4
+    b_f = bound(reads + ids.numel() * 8 * P_ * 4,
+                ALPHA_FLOPS * P_ * entries + BLEND_FLOPS * blended)
+    # K2b: + 5 channels each of ct and out a row; the static gradient
+    # (B, T+1, 10, Ks) and the dynamic one each written once (the static
+    # one's zero fill is that write: the atomic adds touch only the applied
+    # entries, which the reads above count)
+    b_b = bound(reads + ids.numel() * 2 * 5 * P_ * 4 + spay.numel() * 4
+                + dpay.numel() * 4,
+                ALPHA_FLOPS * P_ * entries + GRAD_FLOPS * blended)
+    a2b = (spay, dpay, ids, cs_pad, cd, ct, out_k, *a2[5:])
+    k2 = dict(name="composite_pair_sel_per_env", route="cuda",
+              source="sim_a_splat_torch/csrc/composite_sel.cu",
+              replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:583",
+              max_abs_err=e_f, launches=launches["composite_pair_sel"],
+              ms=cuda_ms(lambda: composite_sel.composite_pair_sel(*a2), 10),
+              plain_ms=cuda_ms(
+                  lambda: composite_sel.composite_pair_sel_plain(*a2), 1),
+              bound_ms=b_f[0], bound_by=b_f[1], library_ms=None)
+    k2b = dict(name="composite_pair_sel_bwd_per_env", route="cuda",
+               source="sim_a_splat_torch/csrc/composite_sel_bwd.cu",
+               replaces="sim_a_splat_tpu/ops/pallas_composite_sel.py:633",
+               max_abs_err=e_b, launches=launches["composite_pair_sel_bwd"],
+               ms=cuda_ms(lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+                          10),
+               plain_ms=cuda_ms(bwd_plain, 1, warmup=0),
+               bound_ms=b_b[0], bound_by=b_b[1], library_ms=None)
+    shared = (spay[0], dpay, ids, cs_pad[0], cd, *a2[5:])
+    fill_ms = cuda_ms(lambda: torch.zeros_like(spay), 10)
+    log(f"  slots {ids.numel()}, entries {entries} ({s_entries} static, read "
+        f"per env); (pixel, entry) pairs: {P_ * entries} alpha, {blended} "
+        f"blended (α > 0); K2f {k2['ms']:.4f} ms (the shared mode on env 0's "
+        f"lists for every env: "
+        f"{cuda_ms(lambda: composite_sel.composite_pair_sel(*shared), 10):.4f}"
+        f" ms), plain {k2['plain_ms']:.3f} ms, bound {b_f[0]:.4f} ms "
+        f"({b_f[1]}); K2b {k2b['ms']:.4f} ms with the gradient's zero fill "
+        f"({fill_ms:.4f} ms alone), plain {k2b['plain_ms']:.3f} ms ("
+        f"{plain_envs} envs at a time), bound {b_b[0]:.4f} ms ({b_b[1]})")
     return [k2, k2b]
 
 
@@ -748,11 +924,12 @@ def main() -> int:
     report = _kernels.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(parallel nvcc; rebuilt: {sorted(report) or 'none, cached'})")
-    parent = parent_k3 = None
+    parent = parent_k2 = parent_k3 = None
     if "--parent" in sys.argv[1:]:
         t0 = time.perf_counter()
         parent_dir = sys.argv[sys.argv.index("--parent") + 1]
         parent = parent_libraries(parent_dir)
+        parent_k2 = parent_module(parent_dir, "composite_sel")
         parent_k3 = parent_module(parent_dir, "composite_single")
         log(f"the parent's K2, K3 and K4 kernels built in "
             f"{time.perf_counter() - t0:.2f} s")
@@ -795,7 +972,7 @@ def main() -> int:
 
     # 3-4. K1 and K2 at full size ---------------------------------------------
     kernels += static_rows(seen["k1"], dev)
-    kernels += sel_rows(seen["k2"], parent, dev)
+    kernels += sel_rows(seen["k2"], parent, dev, parent_k2=parent_k2)
 
 
     # 5. the main path forward, timed ----------------------------------------
@@ -993,7 +1170,7 @@ def main() -> int:
     # 11b. K2 and K4 at a dynamic capacity past their backward kernels'
     # windows, and at tile size 32 ---------------------------------------------
     large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
-                   states0, actions, raster, parent, dev)
+                   states0, actions, raster, parent, dev, parent_k2)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 12-15. the moving camera -----------------------------------------------
@@ -1019,6 +1196,10 @@ def main() -> int:
     # 25-27. the env layer (pushT's envs; the splat env from asset files) ----
     torch.cuda.empty_cache()
     kernels += env_layer(composite, reset_counts, counts_now, dev)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 27b. the example drivers (K1f at 240×320 and in the viewer) ----------
+    kernels += examples_phase(composite, reset_counts, counts_now, dev)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 28-31. the splat trainer (K1f, K1b at train_scene.py's full width) ----
@@ -1337,7 +1518,7 @@ def per_env_camera(entry, composite, composite_sel, composite_pair, pusht,
 
 
 def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
-                   states0, actions, raster, parent, dev):
+                   states0, actions, raster, parent, dev, parent_k2=None):
     """K2f, K2b, K4f and K4b at ``dyn_capacity`` BIG_KD, past the dynamic
     windows of the backward kernels (896 entries at ts 16) and past the
     first design's card limits, on LONG_ENVS envs of the main path's scene
@@ -1488,12 +1669,17 @@ def large_capacity(entry, composite_sel, composite_pair, pusht, graph, scene,
               *composite_pair.composite_pair_bwd(*a4b)):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError("a gradient at tile size 32 is not finite")
-    for label, fn in (
-            ("K2f", lambda: composite_sel.composite_pair_sel(*a2)),
-            ("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b)),
-            ("K4f", lambda: composite_pair.composite_pair(*a4)),
-            ("K4b", lambda: composite_pair.composite_pair_bwd(*a4b))):
-        if versus_parent(f"{label} at ts 32", fn, parent, 5) is None:
+    # K2 of the parent through its own wrapper (its launch interface
+    # differs from this tree's)
+    for label, fn, parent_fn in (
+            ("K2f", lambda: composite_sel.composite_pair_sel(*a2),
+             lambda: parent_k2.composite_pair_sel(*a2)),
+            ("K2b", lambda: composite_sel.composite_pair_sel_bwd(*a2b),
+             lambda: parent_k2.composite_pair_sel_bwd(*a2b)),
+            ("K4f", lambda: composite_pair.composite_pair(*a4), None),
+            ("K4b", lambda: composite_pair.composite_pair_bwd(*a4b), None)):
+        if versus_parent(f"{label} at ts 32", fn, parent, 5,
+                         parent_fn=parent_fn) is None:
             log(f"  {label} at ts 32: {cuda_ms(fn, 5):.4f} ms")
 
 
@@ -1728,19 +1914,33 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
 
     # 14. one frame against the full per-frame rebin (kernel K1) ---------------
     real_render = rasterize_moving.render_moving_batch
+    real_sort = rasterize_moving._sort_by_key
+    merged_cols = MV_KW["kc"] + MV_KW["dyn_capacity"]
 
     def keep(*args, **kw):
         seen["mv"] = real_render(*args, **kw)
         return seen["mv"]
 
+    def keep_lists(payload, key):            # the statics and dynamics apart
+        if payload.shape[-1] == merged_cols:
+            seen["lists"] = (payload, key)
+        return real_sort(payload, key)
+
     with torch.no_grad():
-        with replaced(rasterize_moving, "render_moving_batch", keep):
+        with replaced(rasterize_moving, "render_moving_batch", keep), \
+                replaced(rasterize_moving, "_sort_by_key", keep_lists):
             _, _, flags1 = roll1(scene, st_fwd, act)
         step_rb, _ = entry.make_step_moving(graph, RES, RES, raster,
                                             cam_height=MV_KW["cam_height"],
                                             device=dev)
         _, img_rb, n_trunc = step_rb(scene, st_fwd, act)
     img_c, aux = seen.pop("mv")
+    # 14b. K2 in its per-env mode on this frame's lists (no caller runs it)
+    per_env_rows = sel_per_env_rows(
+        per_env_lists(rasterize_moving, *seen.pop("lists"), MV_KW["kc"],
+                      raster.tile_size, RES // raster.tile_size, raster),
+        reset_counts, counts_now, dev)
+    torch.cuda.empty_cache()
     diff = (img_c.permute(0, 2, 3, 1) - img_rb).abs()
     per_env = diff.flatten(1).amax(1)
     flags1, n_trunc = flags1.tolist(), int(n_trunc.sum())
@@ -1835,7 +2035,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
     log(f"train rollout vs the plain path (B=2, R=4): loss {float(loss_k)} "
         f"vs {float(loss_p)}, flags {flags_k.tolist()}")
     check_fields("train-rollout", g_k, g_p, fields)
-    return [k3, k3b]
+    return [k3, k3b] + per_env_rows
 
 
 def uncached_step(entry, composite, pusht, graph, scene, P, raster,
@@ -2151,7 +2351,7 @@ def arm_product(entry, composite, composite_sel, composite_single,
                 reset_counts, counts_now, profiled, dev):
     """The arm product path (``benchmarks/bench_product.py``): B=8 envs of
     ``pusharm6`` in an N=100k sh3 splat scene, a fixed viewport and an
-    end-effector camera at 240×320, R=32 frames after a 40-step settle.
+    end-effector camera at 240×320, R=ARM_R frames after a 40-step settle.
     K1f/K1b, K2f/K2b and K3f/K3b against their plain versions at the
     path's captured inputs (a 15 × 20 tile grid, the near set on); the
     forward rollout and the train rollout timed (launches, counters, peak
@@ -2501,41 +2701,6 @@ def pusht_env_layer(dev):
         f"{int(tr.done.sum())} of {ENV_B} done")
 
 
-def look_at(eye, target, up=(0.0, 0.0, 1.0)):
-    """OpenCV camera-to-world pose (+z forward, +y down) as (q wxyz, t), as
-    ``examples/common.py::look_at`` makes it."""
-    import numpy as np
-    import torch
-    from sim_a_splat_torch.ops import quaternion as quat
-    eye = np.asarray(eye, np.float64)
-    z = np.asarray(target, np.float64) - eye
-    z /= np.linalg.norm(z)
-    x = np.cross(z, np.asarray(up, np.float64))
-    x /= np.linalg.norm(x)
-    R = np.stack([x, np.cross(z, x), z], axis=1)
-    q = quat.from_rotation_matrix(torch.as_tensor(R, dtype=torch.float32))
-    return tuple(q.tolist()), tuple(eye.tolist())
-
-
-def asset_cameras(icp):
-    """The demo scripts' two cameras (``examples/common.py``'s
-    ``camera_setup``) at ASSET_RES: a viewport onto the arm, its pose given
-    in the splat frame, and a camera on ``push_tool``."""
-    import torch
-    from sim_a_splat_torch.ops.transforms import SE3
-    from sim_a_splat_torch.scenegraph.registration import world_to_splat_pose
-    q, t = look_at([1.1, -0.9, 0.9], [0.35, 0.0, 0.25])
-    dev = icp.t.device
-    view = world_to_splat_pose(SE3(torch.tensor(q, device=dev),
-                                   torch.tensor(t, device=dev)), icp)
-    return {0: {"link_name": "world", "type": "viewport",
-                "local_frame": (view.q.tolist(), view.t.tolist()),
-                "render_size": list(ASSET_RES)},
-            1: {"link_name": "push_tool", "type": "moving",
-                "local_frame": ((1.0, 0.0, 0.0, 0.0), (-0.1, 0.0, 0.033)),
-                "render_size": list(ASSET_RES)}}
-
-
 def env_layer(composite, reset_counts, counts_now, dev):
     """The env layer: :func:`pusht_env_layer`, then ``SplatEnvWrapper``'s
     gym-free core (``envs/splat_assets.py``) on a demo asset tree of
@@ -2553,6 +2718,7 @@ def env_layer(composite, reset_counts, counts_now, dev):
     from sim_a_splat_torch.envs.eef_wrapper import ManipulatorEEFWrapperF
     from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
     from sim_a_splat_torch.envs.splat_assets import SplatAssets, render_cameras
+    from sim_a_splat_torch.examples.common import camera_setup, look_at
     from sim_a_splat_torch.ops import quaternion as quat
     from sim_a_splat_torch.ops.projection import Camera
     from sim_a_splat_torch.ops.transforms import SE3
@@ -2577,7 +2743,8 @@ def env_layer(composite, reset_counts, counts_now, dev):
             paths["splat_config_name"], paths["task_assets_path"],
             paths["task_assets_name"], task_splat_count=ASSET_TASK_N,
             package_path=str(desc))
-    wrapper = assets.configure_cameras(asset_cameras(assets.icp))
+        cameras = camera_setup(ASSET_RES, paths["assets"])
+    wrapper = assets.configure_cameras(cameras)
     n = assets.scene_splat_frame.num_gaussians
     h, w = ASSET_RES
     log(f"env layer, asset wrapper: build_demo_assets {t_build:.2f} s, load "
@@ -2658,7 +2825,8 @@ def env_layer(composite, reset_counts, counts_now, dev):
     # 27. the free camera, and one joint-space step from examples/assets ----
     q, t = look_at([0.9, 0.9, 0.7], [0.35, 0.0, 0.2])
     cam = Camera.from_fov(SE3(torch.tensor(q, device=dev),
-                              torch.tensor(t, device=dev)), 0.9, 160, 120)
+                              torch.tensor(t, dtype=torch.float32,
+                                           device=dev)), 0.9, 160, 120)
     with torch.no_grad():
         free = wrapper.render_camera(draw, cam)
     if free.shape != (1, 120, 160, 3) or not bool(torch.isfinite(free).all()):
@@ -2667,7 +2835,8 @@ def env_layer(composite, reset_counts, counts_now, dev):
                           "demo-run/splat.npz",
                           root / "examples" / "assets" / "tblock_paper",
                           "tblock_paper.obj", package_path=str(desc))
-    ex_wrapper = ex.configure_cameras(asset_cameras(ex.icp))
+    ex_wrapper = ex.configure_cameras(
+        camera_setup(ASSET_RES, root / "examples" / "assets"))
     reset_counts()
     with torch.no_grad():
         tr = env.step(state, state.arm.q)
@@ -2679,6 +2848,165 @@ def env_layer(composite, reset_counts, counts_now, dev):
         f"examples/assets (N={ex.scene_splat_frame.num_gaussians}): one step, "
         f"image means {[round(float(i.mean()), 4) for i in ex_imgs]}")
     return rows
+
+def examples_phase(composite, reset_counts, counts_now, dev):
+    """The example drivers (``sim_a_splat_torch/examples``) on the card
+    through their own functions at their own sizes (the shipped
+    ``examples/assets`` tree, both cameras at 240×320): ``demo_pusht_splat
+    --steps EX_PUSHT_STEPS`` (task-space steps, both cameras rendered and
+    written each step), ``demo_joint_sliders_splat --steps EX_SLIDER_STEPS``
+    (with ``--out``, so each step renders), ``demo_hw_splat --replay
+    EX_HW_STEPS`` (no camera observation) and ``demo_viewer --selftest``
+    (one 320×320 JPEG).  Each demo's launches of K1f are counted over its
+    run; after it, its frames (both cameras, or the viewer's) are held
+    against K1's plain version.  Logs each env's build s, the step ms and
+    the render ms a camera.  Returns K1f's row on the pushT demo's viewport
+    lists (``composite_static_examples``), launches summed over the
+    demos."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from sim_a_splat_torch.examples import (
+        demo_hw_splat, demo_joint_sliders_splat, demo_pusht_splat,
+        demo_viewer,
+    )
+    from sim_a_splat_torch.examples.common import make_manipulator_splat_env
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.transforms import SE3
+    from sim_a_splat_torch.viewer import orbit_pose
+
+    seen, real_k1 = [], composite.composite_static
+
+    def capture(*args):
+        seen.append(args)
+        return real_k1(*args)
+
+    def hold(name, render):
+        """``render()`` (a list of images) on K1f against K1's plain
+        version; returns its events ms."""
+        with torch.no_grad():
+            got = render()
+            with replaced(composite, "composite_static",
+                          composite.composite_static_plain):
+                want = render()
+        got = [torch.as_tensor(a) for a in got]
+        # the hardware demo's weld carries the end effector's camera away
+        # from the scene: only the frames together must show it
+        if not all(bool(torch.isfinite(a).all()) for a in got) \
+                or max(float(a.max()) for a in got) < 0.05:
+            raise AssertionError(f"{name}: bad frames")
+        for k, (a, b) in enumerate(zip(got, want)):
+            check(name, a, torch.as_tensor(b), TOL,
+                  f"frame {k} vs K1's plain version")
+        return cuda_ms(render, 5)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    total = 0
+    report = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # demo_pusht_splat: pushT keypoints drive the end effector (IK)
+        build_s, env = timed(lambda: make_manipulator_splat_env(
+            eef=True, device=dev))
+        pt = demo_pusht_splat.pusht_keypoints_env(96, seed=0, device=dev)
+        out = Path(tmp) / "pusht"
+        out.mkdir()
+        reset_counts()
+        with torch.no_grad(), replaced(composite, "composite_static",
+                                       capture):
+            run_s, n = timed(lambda: demo_pusht_splat.run_headless(
+                pt, env, EX_PUSHT_STEPS, out))
+        launches = counts_now()
+        frames = len(list(out.glob("*.ppm")))
+        if launches["composite_static"] != 2 * n or frames != 2 * n \
+                or n != EX_PUSHT_STEPS:
+            raise AssertionError(f"demo_pusht_splat: {n} steps, {frames} "
+                                 f"frames, launches {launches}")
+        total += launches["composite_static"]
+        draw = env._draw()
+        ms = hold("demo_pusht_splat", lambda: env.wrapper_f.render(None, draw))
+        report.append(("demo_pusht_splat", build_s, run_s / n, ms / 2))
+        # the last step's launches, one a camera in render order (the
+        # end-effector camera, then the viewport): the viewport's lists
+        keys = env.render_cam_keys
+        a1 = seen[len(seen) - len(keys) + keys.index(VIEWPORT_KEY)]
+        a1 = (a1[0][0], a1[1][0], a1[2][0], *a1[3:])
+
+        # demo_joint_sliders_splat: the scripted sweep, frames written
+        build_s, env = timed(lambda: demo_joint_sliders_splat.make_env(
+            device=dev))
+        out = Path(tmp) / "sliders"
+        out.mkdir()
+        reset_counts()
+        with torch.no_grad():
+            run_s, n = timed(lambda: demo_joint_sliders_splat.run(
+                env, EX_SLIDER_STEPS, out))
+        launches = counts_now()
+        if launches["composite_static"] != 2 * n or n != EX_SLIDER_STEPS:
+            raise AssertionError(f"demo_joint_sliders_splat: {n} steps, "
+                                 f"launches {launches}")
+        total += launches["composite_static"]
+        draw = env._draw()
+        ms = hold("demo_joint_sliders_splat",
+                  lambda: env.wrapper_f.render(None, draw))
+        report.append(("demo_joint_sliders_splat", build_s, run_s / n, ms / 2))
+
+        # demo_hw_splat: a replayed joint stream on the non-identity weld
+        build_s, env = timed(lambda: demo_hw_splat.create_splat_env(dev))
+        reset_counts()
+
+        def replay():
+            for t in range(EX_HW_STEPS):
+                demo_hw_splat.joint_state_callback(
+                    demo_hw_splat.replay_message(t, EX_HW_STEPS), env)
+
+        with torch.no_grad():
+            run_s, _ = timed(replay)
+        launches = counts_now()
+        if any(launches.values()):
+            raise AssertionError(f"demo_hw_splat's replay (no camera "
+                                 f"observation) launched {launches}")
+        draw = env._draw()
+        ms = hold("demo_hw_splat", lambda: env.wrapper_f.render(None, draw))
+        report.append(("demo_hw_splat", build_s, run_s / EX_HW_STEPS, ms / 2))
+
+        # demo_viewer --selftest: one JPEG through the viewer's callback
+        build_s, env = timed(lambda: demo_viewer.create_splat_env(
+            EX_VIEW_SIZE, dev))
+        viewer = demo_viewer.make_viewer(env, EX_VIEW_SIZE)
+        try:
+            reset_counts()
+            with torch.no_grad():
+                run_s, jpg = timed(lambda: demo_viewer.selftest(viewer))
+            launches = counts_now()
+            cam = viewer.camera
+        finally:
+            viewer.close()
+        if launches["composite_static"] != 1:
+            raise AssertionError(f"demo_viewer --selftest launched {launches}")
+        total += 1
+        q, t = orbit_pose(cam["azim"], cam["elev"], cam["dist"],
+                          cam["target"])
+        orbit = Camera.from_fov(SE3(torch.as_tensor(q, device=dev),
+                                    torch.as_tensor(t, device=dev)),
+                                demo_viewer.FOV, EX_VIEW_SIZE, EX_VIEW_SIZE)
+        ms = hold("demo_viewer", lambda: [env.render_free_camera(orbit)])
+        report.append(("demo_viewer", build_s, run_s, ms))
+    for name, build_s, step_s, ms in report:
+        log(f"  {name}: env build {build_s:.2f} s, step {step_s * 1e3:.2f} "
+            f"ms (host clock, synchronised; the pushT and slider steps "
+            f"render both cameras and write the frames), render "
+            f"{ms:.2f} ms a camera (events)")
+    rows = static_rows(a1, dev, backward=False)
+    rows[0]["name"] = "composite_static_examples"
+    rows[0]["launches"] = total
+    return rows
+
 
 def splat_training(entry, composite, reset_counts, counts_now, profiled,
                    dev):

@@ -1,14 +1,18 @@
-// Kernel K2 forward: selected-tile composite of the shared static tile
-// lists interleaved by depth with each env's dynamic lists.
+// Kernel K2 forward: selected-tile composite of the static tile lists
+// (shared by the envs, or one set per env) interleaved by depth with each
+// env's dynamic lists.
 //
 // Replaces the TPU kernel _fwd_kernel / _call_fwd of
 // sim_a_splat_tpu/ops/pallas_composite_sel.py (composite_pair_sel, shared
-// 3-D static payload; helpers _dyn_log_alphas / _static_chunk_ind of
-// pallas_composite_pair.py).
+// 3-D or per-env 4-D static payload; helpers _dyn_log_alphas /
+// _static_chunk_ind of pallas_composite_pair.py).
 //
-// Layout: spay_pad (T+1, 10, Ks) with a zero trash row T; dpay (B, TT, 10, Kd);
-// ids (B, TT) int32 tile ids, pad slots carry T; counts_s_pad (T+1,) and
-// counts_d (B, TT) int32.  Output out (B, T+1, 8, P), channel-major
+// Layout: spay_pad (T+1, 10, Ks) shared, or (B, T+1, 10, Ks) per env
+// (per_env), with a zero trash row T; dpay (B, TT, 10, Kd); ids (B, TT) int32
+// tile ids, pad slots carry T; counts_s_pad (T+1,) shared or (B, T+1) per
+// env, and counts_d (B, TT) int32.  The two modes differ only in the row of
+// the static list a block reads: env b's rows start b * (T+1) rows in per
+// env, 0 in the shared mode.  Output out (B, T+1, 8, P), channel-major
 // [r, g, b, depth_acc, trans, 0, 0, 0], written only at the rows the slots
 // name (pads write the trash row); other rows are left unwritten.
 //
@@ -48,7 +52,8 @@ composite_pair_sel_fwd(const float* __restrict__ spay,
                        const int* __restrict__ counts_d,
                        float* __restrict__ out, int TT, int T1, int Ks,
                        int Kd, int W, int ts, int tx, float power_min,
-                       int has_pmin, float term_eps, int has_term) {
+                       int has_pmin, float term_eps, int has_term,
+                       int per_env) {
   extern __shared__ float4 smem[];
   const sel::Smem s = sel::carve(smem, W, blockDim.x >> 5);
   const int b = blockIdx.y;
@@ -56,8 +61,9 @@ composite_pair_sel_fwd(const float* __restrict__ spay,
   const int tid = ids[slot];
   const int P = ts * ts;
   const sel::Pixels pix(ts, tx, tid);
+  const size_t srow = (per_env ? (size_t)b * T1 : 0) + tid;  // static list
   sel::composite_block<false, WINDOWS>(
-      s, pix, spay + (size_t)tid * ROWS * Ks, Ks, min(counts_s_pad[tid], Ks),
+      s, pix, spay + srow * ROWS * Ks, Ks, min(counts_s_pad[srow], Ks),
       dpay + (size_t)slot * ROWS * Kd, Kd, min(counts_d[slot], Kd),
       power_min, has_pmin != 0, term_eps, has_term != 0,
       out + (size_t)(b * T1 + tid) * 8 * P, P);
@@ -65,12 +71,13 @@ composite_pair_sel_fwd(const float* __restrict__ spay,
 
 }  // namespace
 
-// The caller checks the layout (1 <= ts <= 32, Kd % 128 == 0).
+// The caller checks the layout (1 <= ts <= 32, Kd % 128 == 0).  per_env:
+// spay and counts_s_pad hold one set of T+1 static lists per env.
 extern "C" int composite_pair_sel_launch(
     const void* spay, const void* dpay, const void* ids,
     const void* counts_s_pad, const void* counts_d, void* out, int B, int TT,
     int T1, int Ks, int Kd, int ts, int tx, float power_min, int has_pmin,
-    float term_eps, int has_term, void* stream) {
+    float term_eps, int has_term, int per_env, void* stream) {
   if (B <= 0 || TT <= 0) return (int)cudaGetLastError();
   const sel::Layout l(Kd, ts, false);
   auto kernel =
@@ -82,7 +89,8 @@ extern "C" int composite_pair_sel_launch(
   kernel<<<dim3(TT, B), l.threads, l.smem, (cudaStream_t)stream>>>(
       (const float*)spay, (const float*)dpay, (const int*)ids,
       (const int*)counts_s_pad, (const int*)counts_d, (float*)out, TT, T1,
-      Ks, Kd, l.W, ts, tx, power_min, has_pmin, term_eps, has_term);
+      Ks, Kd, l.W, ts, tx, power_min, has_pmin, term_eps, has_term,
+      per_env);
   return (int)cudaGetLastError();
 }
 

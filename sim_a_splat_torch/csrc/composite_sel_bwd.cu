@@ -1,18 +1,22 @@
-// Kernel K2 backward: gradient of the selected-tile composite of the shared
-// static tile lists interleaved by depth with each env's dynamic lists.
+// Kernel K2 backward: gradient of the selected-tile composite of the static
+// tile lists (shared, or one set per env) interleaved by depth with each
+// env's dynamic lists.
 //
 // Replaces the TPU kernel _bwd_kernel / _call_bwd of
 // sim_a_splat_tpu/ops/pallas_composite_sel.py (the backward of the custom
-// VJP composite_pair_sel, shared 3-D static payload, with the per-tile sum
-// _scatter_rows).
+// VJP composite_pair_sel, shared 3-D or per-env 4-D static payload, with the
+// per-tile sum _scatter_rows).
 //
-// Layout: spay_pad (T+1, 10, Ks), dpay (B, TT, 10, Kd), ids (B, TT),
-// counts_s_pad (T+1,), counts_d (B, TT) as in K2f (composite_sel.cu);
-// ct (B, T+1, 8, P) the cotangent of out and out (B, T+1, 8, P) the
-// forward's output, both read only at the rows the slots name.  Outputs:
-// gs (T+1, 10, Ks), zeroed by the caller, receives each slot's static
-// gradient summed into its tile row with atomicAdd (nothing for the trash
-// row T, nothing for entries the forward never applied); gd (B, TT, 10, Kd)
+// Layout: spay_pad (T+1, 10, Ks) or (B, T+1, 10, Ks) per env, dpay
+// (B, TT, 10, Kd), ids (B, TT), counts_s_pad (T+1,) or (B, T+1),
+// counts_d (B, TT) as in K2f (composite_sel.cu); ct (B, T+1, 8, P) the
+// cotangent of out and out (B, T+1, 8, P) the forward's output, both read
+// only at the rows the slots name.  Outputs: gs, spay_pad's shape, zeroed by
+// the caller, receives each slot's static gradient summed into the row of
+// its static list with atomicAdd: its tile's row (shared), or its tile's row
+// of its own env (per env: the reference's dense ids meet no contention, and
+// other ids get the true gradient, scattered by id); nothing for the trash
+// row T, nothing for entries the forward never applied; gd (B, TT, 10, Kd)
 // the gradient of each slot's dynamic list, every column written once (zero
 // past count_d).
 //
@@ -70,7 +74,7 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
                        float* __restrict__ gs, float* __restrict__ gd, int TT,
                        int T1, int Ks, int Kd, int W, int ts, int tx,
                        float power_min, int has_pmin, float term_eps,
-                       int has_term) {
+                       int has_term, int per_env) {
   extern __shared__ float4 smem[];
   const sel::Smem s = sel::carve(smem, W, blockDim.x >> 5);
   const int b = blockIdx.y;
@@ -79,10 +83,11 @@ composite_pair_sel_bwd(const float* __restrict__ spay,
   const int P = ts * ts;
   const sel::Pixels pix(ts, tx, tid);
   const size_t row = (size_t)(b * T1 + tid) * 8 * P;
+  const size_t srow = (per_env ? (size_t)b * T1 : 0) + tid;  // static list
   // the trash row T (pads) gets nothing
-  float* gtile = tid < T1 - 1 ? gs + (size_t)tid * ROWS * Ks : nullptr;
+  float* gtile = tid < T1 - 1 ? gs + srow * ROWS * Ks : nullptr;
   sel::grad_block<false, WINDOWS>(
-      s, pix, spay + (size_t)tid * ROWS * Ks, Ks, min(counts_s_pad[tid], Ks),
+      s, pix, spay + srow * ROWS * Ks, Ks, min(counts_s_pad[srow], Ks),
       dpay + (size_t)slot * ROWS * Kd, Kd, min(counts_d[slot], Kd),
       power_min, has_pmin != 0, term_eps, has_term != 0, ct + row, out + row,
       P, gtile, gd + (size_t)slot * ROWS * Kd);
@@ -97,7 +102,7 @@ extern "C" int composite_pair_sel_bwd_launch(
     const void* counts_s_pad, const void* counts_d, const void* ct,
     const void* out, void* gs, void* gd, int B, int TT, int T1, int Ks,
     int Kd, int ts, int tx, float power_min, int has_pmin, float term_eps,
-    int has_term, void* stream) {
+    int has_term, int per_env, void* stream) {
   if (B <= 0 || TT <= 0) return (int)cudaGetLastError();
   const sel::Layout l(Kd, ts, true);
   auto kernel =
@@ -110,7 +115,7 @@ extern "C" int composite_pair_sel_bwd_launch(
       (const float*)spay, (const float*)dpay, (const int*)ids,
       (const int*)counts_s_pad, (const int*)counts_d, (const float*)ct,
       (const float*)out, (float*)gs, (float*)gd, TT, T1, Ks, Kd, l.W, ts, tx,
-      power_min, has_pmin, term_eps, has_term);
+      power_min, has_pmin, term_eps, has_term, per_env);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 """Environments: the functional pushT and manipulator envs, the task-space
 wrapper, the splat observation wrapper and its asset-file construction,
-batched over envs; and the Gymnasium adapters over them.
+batched over envs; the stateful one-env shells over them
+(``single_env``); and the Gymnasium adapters, which are those shells with
+their spaces.
 
 The Gym classes (``gym_adapter``, ``manipulator_gym``, ``splat_gym``)
 import ``gymnasium``, which the card's machine does not have, so this

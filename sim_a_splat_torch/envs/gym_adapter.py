@@ -3,9 +3,9 @@
 Port of ``sim_a_splat_tpu/envs/gym_adapter.py``: the reference's
 constructor signatures, observation and action spaces, and ``reset() ->
 obs`` / ``step() -> (obs, reward, done, info)`` return shapes, over one env
-(B = 1) of :class:`PushTEnvF` on ``device`` ("cuda" unless asked).  Random
-draws come from a ``torch.Generator`` seeded by :meth:`PushTEnv.seed`, so a
-seed gives other states than the reference's.
+(B = 1) of :class:`PushTEnvF` on ``device`` ("cuda" unless asked).  The
+stateful part is the gym-free ``single_env.PushTSingleEnv``; these classes
+add the spaces.
 
 This module imports ``gymnasium``, which the card's machine does not have:
 nothing on the port's card path imports it.  :func:`register_envs`
@@ -15,57 +15,28 @@ registers ``pusht-keypoints-torch-v0`` (the reference's id,
 
 from __future__ import annotations
 
-import collections
-
 import numpy as np
 import gymnasium as gym
 from gymnasium import spaces
-import torch
 
-from sim_a_splat_torch import resolve_device
-from sim_a_splat_torch.envs.pusht_envs import PushTEnvF
-from sim_a_splat_torch.physics import pusht
-from sim_a_splat_torch.physics.pusht import PushTParams
+from sim_a_splat_torch.envs.single_env import PushTSingleEnv
 
 ENV_ID = "pusht-keypoints-torch-v0"
 
 
-def _numpy(x):
-    """One env's entry (the leading axis dropped) of a tensor or dict."""
-    if isinstance(x, dict):
-        return {k: _numpy(v) for k, v in x.items()}
-    return x[0].detach().cpu().numpy()
-
-
-class PushTEnv(gym.Env):
-    """State-obs pushT (the reference's ``PushTEnv``)."""
+class PushTEnv(PushTSingleEnv, gym.Env):
+    """State-obs pushT (the reference's ``PushTEnv``): the gym-free
+    :class:`PushTSingleEnv` (same constructor) with its spaces."""
 
     metadata = {"render.modes": ["human", "rgb_array"],
                 "video.frames_per_second": 10}
     reward_range = (0.0, 1.0)
 
-    def __init__(self, legacy=False, block_cog=None, damping=None,
-                 render_action=True, render_size=96, reset_to_state=None,
-                 obs_mode="state", keypoint_visible_rate=1.0,
-                 agent_keypoints=False, local_keypoint_map=None, seed=None,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        self.env_f = PushTEnvF(
-            params=PushTParams(),
-            obs_mode=obs_mode,
-            render_size=render_size,
-            keypoint_visible_rate=keypoint_visible_rate,
-            agent_keypoints=agent_keypoints,
-            legacy=legacy,
-            render_action=render_action,
-            local_keypoint_map=local_keypoint_map,
-            damping=damping,
-            block_cog=None if block_cog is None else tuple(
-                np.asarray(block_cog, np.float64).tolist()),
-            device=str(self.device),
-        )
+    def __init__(self, *args, **kwargs):
+        PushTSingleEnv.__init__(self, *args, **kwargs)
         p = self.env_f._params()
         ws_x, ws_y = p.ws_x, p.ws_y
+        obs_mode, render_size = self.env_f.obs_mode, self.env_f.render_size
         if obs_mode == "state":
             self.observation_space = spaces.Box(
                 low=np.array([0, 0, 0, 0, 0], dtype=np.float64),
@@ -91,99 +62,6 @@ class PushTEnv(gym.Env):
             low=np.zeros(2, dtype=np.float64),
             high=np.array([ws_x, ws_y], dtype=np.float64),
             shape=(2,), dtype=np.float64)
-
-        self.reset_to_state = reset_to_state
-        self.latest_action = None
-        self._state = None
-        self.seed(seed)
-
-    def seed(self, seed=None):
-        if seed is None:
-            seed = np.random.randint(0, 25536)
-        self._seed = seed
-        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-
-    def reset(self):
-        self._state, obs = self.env_f.reset(self._gen, self.reset_to_state)
-        self.latest_action = None
-        return _numpy(obs)
-
-    def step(self, action):
-        self.latest_action = torch.as_tensor(
-            np.asarray(action, np.float32), device=self.device).reshape(1, 2)
-        tr = self.env_f.step(self._state, self.latest_action, self._gen)
-        self._state = tr.state
-        return (_numpy(tr.obs), float(tr.reward[0]), bool(tr.done[0]),
-                _numpy(tr.info))
-
-    def render(self, mode="rgb_array"):
-        img = self.env_f.render(self._state, self.latest_action)
-        return (_numpy(img) * 255).astype(np.uint8)
-
-    def _get_obs(self):
-        return _numpy(self.env_f.observe(self._state, generator=self._gen,
-                                         action=self.latest_action))
-
-    def _get_info(self):
-        return _numpy(self.env_f.info(self._state))
-
-    @property
-    def goal_pose(self):
-        return np.asarray(self.env_f._params().goal_pose)
-
-    def teleop_agent(self):
-        """Mouse-teleop agent: ``act(obs)`` returns the mouse position
-        while the button is held near the agent, else None.  Needs a
-        pygame display."""
-        TeleopAgent = collections.namedtuple("TeleopAgent", ["act"])
-
-        def act(obs):
-            import pygame
-            act = None
-            mouse_position = pygame.mouse.get_pos()
-            agent_pos = np.asarray(obs[:2], np.float64)
-            lmb = pygame.mouse.get_pressed()[0]
-            if lmb and (
-                    self.teleop
-                    or np.linalg.norm(np.asarray(mouse_position) - agent_pos)
-                    < 30):
-                self.teleop = True
-                act = np.asarray(mouse_position, np.float64)
-            return act
-
-        self.teleop = False
-        return TeleopAgent(act)
-
-    def _set_state(self, state_vec):
-        self._state = pusht.set_state(
-            self.env_f._params(), torch.as_tensor(
-                np.asarray(state_vec, np.float32),
-                device=self.device).reshape(1, 5),
-            legacy=self.env_f.legacy)
-        return self._get_obs()
-
-    def _set_state_local(self, state_local):
-        """Goal-relative state: the local block pose composes with the
-        goal pose; the agent position is given in the local block frame."""
-        state_local = np.asarray(state_local, np.float64)
-        agent_local = state_local[:2]
-        block_local = state_local[2:]
-
-        def affine(tx, ty, r):
-            c, s = np.cos(r), np.sin(r)
-            return np.array([[c, -s, tx], [s, c, ty], [0.0, 0.0, 1.0]])
-
-        g = self.goal_pose
-        m = affine(g[0], g[1], g[2]) @ affine(block_local[0], block_local[1],
-                                              block_local[2])
-        agent_new = (m @ np.array([agent_local[0], agent_local[1], 1.0]))[:2]
-        new_state = np.array([*agent_new, m[0, 2], m[1, 2],
-                              np.arctan2(m[1, 0], m[0, 0])])
-        self._set_state(new_state)
-        return new_state
-
-    def close(self):
-        pass
 
 
 class PushTKeypointsEnv(PushTEnv):

@@ -1,13 +1,11 @@
 """ctypes binding of the host-side C++ geometry and recorder kernels.
 
-The port's binding of the JAX package's native sources
-``sim_a_splat_tpu/native/geometry.cpp`` (a 3-D KD-tree for ICP
-correspondences and a triangle BVH for point-to-mesh distance and
+The port's own copy of the JAX package's native sources, in
+``sim_a_splat_torch/csrc/native/``: ``geometry.cpp`` (a 3-D KD-tree for
+ICP correspondences and a triangle BVH for point-to-mesh distance and
 ray-parity occupancy) and ``recorder.cpp`` (a multithreaded-deflate
-``.npz`` writer).  They are plain C++ with a C interface and no JAX, so
-the port compiles the same files, read by their path in the checkout (it
-never imports their package, whose ``__init__`` imports JAX), with the
-reference's command::
+``.npz`` writer).  They are plain C++ with a C interface, compiled with
+the reference's command::
 
     g++ -O3 -shared -fPIC -std=c++17 -pthread geometry.cpp recorder.cpp -lz
 
@@ -28,10 +26,10 @@ from pathlib import Path
 
 import numpy as np
 
-_REPO = Path(__file__).resolve().parent.parent
-SOURCES = (_REPO / "sim_a_splat_tpu" / "native" / "geometry.cpp",
-           _REPO / "sim_a_splat_tpu" / "native" / "recorder.cpp")
-BUILD_DIR = Path(__file__).resolve().parent / "_build" / "native"
+_PKG = Path(__file__).resolve().parent
+SOURCES = (_PKG / "csrc" / "native" / "geometry.cpp",
+           _PKG / "csrc" / "native" / "recorder.cpp")
+BUILD_DIR = _PKG / "_build" / "native"
 _LIB = None
 _TRIED = False
 build_error: str | None = None     # why the last build failed, if it did

@@ -71,8 +71,8 @@ def composite_pair_plain(spay, dpay, counts_s, counts_d, skip, ts: int,
     for s0 in range(0, touched.numel(), composite_sel.SLOT_BLOCK):
         idx = touched[s0:s0 + composite_sel.SLOT_BLOCK]
         res, applied[idx], hits[idx] = composite_sel.plain_slots(
-            spay, dflat[idx], idx % T, counts_s, cd[idx], ts, tx, pmin,
-            term_eps)
+            spay[idx % T], counts_s[idx % T], dflat[idx], idx % T, cd[idx],
+            ts, tx, pmin, term_eps)
         out[idx] = res.transpose(1, 2)
     out = out.reshape(B, T, P, 8)
     if return_work:

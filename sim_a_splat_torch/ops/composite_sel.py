@@ -1,10 +1,12 @@
-"""Kernel K2: selected-tile composite of the shared static tile lists
-interleaved by depth with each env's dynamic lists, and its gradient.
+"""Kernel K2: selected-tile composite of the static tile lists interleaved
+by depth with each env's dynamic lists, and its gradient.
 
 Replaces the TPU kernels ``_fwd_kernel`` (``_call_fwd``) and ``_bwd_kernel``
-(``_call_bwd``) under the custom VJP ``composite_pair_sel`` (shared 3-D
-static payload) of ``sim_a_splat_tpu/ops/pallas_composite_sel.py``.  The
-CUDA sources are ``csrc/composite_sel.cu`` (K2f) and
+(``_call_bwd``) under the custom VJP ``composite_pair_sel`` of
+``sim_a_splat_tpu/ops/pallas_composite_sel.py``, in both its modes: one
+static payload (T+1, 10, Ks) shared by the envs, or one per env
+(B, T+1, 10, Ks) with counts (B, T+1).  The CUDA sources are
+``csrc/composite_sel.cu`` (K2f) and
 ``csrc/composite_sel_bwd.cu`` (K2b), with their walk and block bodies in
 ``csrc/composite_sel_walk.cuh`` (shared with K4, ``composite_pair``); their
 notes say what bounds each on an H100 (instruction issue, not bytes) and
@@ -21,11 +23,15 @@ in a block's shared memory) and tile sizes 1 to 32 (``kernel_threads``).
 Function ``CompositePairSel``, whose forward is K2f and whose backward is
 K2b.  CPU tensors run the plain versions (``composite_pair_sel_plain``,
 ``composite_pair_sel_bwd_plain``); CUDA tensors launch the kernels (adding
-one to ``launches`` or ``launches_bwd``) or raise.  Only the shared-payload
-mode is ported; the per-env 4-D payload belongs to the moving camera and
-raises.  ``cull_boxes``, ``warp_rects`` and ``culled`` are the plain twin
-of the kernels' cull test, and ``walk_schedule`` of their window schedule,
-for the tests and the chip run's counts.
+one to ``launches`` or ``launches_bwd``) or raise.  In the per-env mode a
+block reads its env's static list (one stride an env in the kernels), and
+slot i's static gradient lands at row ``ids[b, i]`` of env b: with the
+dense ids ``ids[b] = arange(T)`` that the reference requires there this is
+the reference's gradient; with other ids it is the true gradient, where
+the reference places it by slot position.  ``cull_boxes``, ``warp_rects``
+and ``culled`` are the plain twin of the kernels' cull test, and
+``walk_schedule`` of their window schedule, for the tests and the chip
+run's counts.
 
 The plain forward follows the reference's algebra (log-space
 transmittances and depth-indicator contractions, chunk-granular early stop
@@ -57,18 +63,17 @@ SMEM_OPTIN_BYTES = 232_448
 SLOT_BLOCK = 512  # slots per vectorised step of the plain version
 
 
-def plain_slots(spay_pad, dp, tid, counts_s_pad, cd, ts, tx, pmin,
-                term_eps):
-    """Plain interleaved composite of S (static list, dynamic list) slots,
-    K2's and K4's arithmetic per slot: static list ``spay_pad[tid]`` of
-    ``counts_s_pad[tid]`` entries, dynamic list dp (S, 10, Kd) of cd (S,)
-    entries → ((S, 8, P) rows, applied static chunks (S,), composited
+def plain_slots(sp, cs, dp, tid, cd, ts, tx, pmin, term_eps):
+    """Plain interleaved composite of S (static list, dynamic list) slots
+    of tiles ``tid`` (S,), K2's and K4's arithmetic per slot: static list
+    sp (S, 10, Ks) of cs (S,) entries, dynamic list dp (S, 10, Kd) of cd
+    (S,) entries → ((S, 8, P) rows, applied static chunks (S,), composited
     (pixel, entry) pairs (S,))."""
     S, _, Kd = dp.shape
-    Ks = spay_pad.shape[-1]
+    Ks = sp.shape[-1]
     P = ts * ts
     dev = dp.device
-    count_s = torch.clamp(counts_s_pad[tid].long(), max=Ks)
+    count_s = torch.clamp(cs.long(), max=Ks)
     count_d = torch.clamp(cd.long(), max=Kd)
     px, py = pixel_centers(tid, ts, tx)
 
@@ -79,7 +84,6 @@ def plain_slots(spay_pad, dp, tid, counts_s_pad, cd, ts, tx, pmin,
     dd = dp[:, _ROW_DEPTH, :]                                  # (S, Kd)
     sum_ld = ld.sum(dim=-1, keepdim=True)                      # (S, P, 1)
 
-    sp = spay_pad[tid]                                         # (S, 10, Ks)
     acc = dp.new_zeros((S, P, 4))
     tsv = dp.new_ones((S, P))
     ltsd = torch.zeros_like(ld)
@@ -133,18 +137,25 @@ def composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
                              term_eps: Optional[float] = None,
                              return_work: bool = False):
     """Plain PyTorch version of K2, vectorised over slots and pixels (in
-    blocks of ``SLOT_BLOCK`` slots) with a loop over static chunks.
+    blocks of ``SLOT_BLOCK`` slots) with a loop over static chunks.  The
+    static payload is shared (T+1, 10, Ks) with counts (T+1,), or per env
+    (B, T+1, 10, Ks) with counts (B, T+1).
 
     Returns out (B, T+1, 8, P), written only at the rows ``ids`` name (the
     others are uninitialised), and with ``return_work`` the work these
     inputs need per slot: applied static chunks (B, TT) and (pixel, entry)
     pairs with alpha > 0, the ones composited (B, TT)."""
     B, TT = ids.shape
-    T1, _, Ks = spay_pad.shape
+    T1 = spay_pad.shape[-3]
     Kd = dpay.shape[-1]
     P = ts * ts
     pmin = power_min_of(sigma_cutoff)
     flat_ids = ids.reshape(-1).long()
+    bidx = torch.arange(B, device=dpay.device).repeat_interleave(TT)
+    # each slot's row of the static lists, in a (·, 10, Ks) view of them
+    srow = flat_ids + bidx * T1 if spay_pad.dim() == 4 else flat_ids
+    sflat = spay_pad.reshape(-1, 10, spay_pad.shape[-1])
+    cflat = counts_s_pad.reshape(-1)
     flat_cd = counts_d.reshape(-1)
     dflat = dpay.reshape(B * TT, 10, Kd)
     res = dpay.new_empty((B * TT, 8, P))
@@ -153,10 +164,9 @@ def composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
     for s0 in range(0, B * TT, SLOT_BLOCK):
         sl = slice(s0, min(s0 + SLOT_BLOCK, B * TT))
         res[sl], applied[sl], hits[sl] = plain_slots(
-            spay_pad, dflat[sl], flat_ids[sl], counts_s_pad, flat_cd[sl], ts,
-            tx, pmin, term_eps)
+            sflat[srow[sl]], cflat[srow[sl]], dflat[sl], flat_ids[sl],
+            flat_cd[sl], ts, tx, pmin, term_eps)
     out = dpay.new_empty((B, T1, 8, P))
-    bidx = torch.arange(B, device=dpay.device).repeat_interleave(TT)
     out[bidx, flat_ids] = res        # pad slots all write the same trash row
     if return_work:
         return out, applied.reshape(B, TT), hits.reshape(B, TT)
@@ -164,19 +174,19 @@ def composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
 
 
 def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d):
-    if spay_pad.dim() == 4:
-        raise NotImplementedError(
-            "per-env (B, T+1, 10, Ks) static payloads (the moving-camera "
-            "mode) are not ported; pass the shared (T+1, 10, Ks) payload")
-    if spay_pad.dtype != torch.float32 or spay_pad.dim() != 3 \
-            or spay_pad.shape[1] != 10:
-        raise ValueError("spay_pad must be float32 (T+1, 10, Ks), got "
+    if spay_pad.dtype != torch.float32 or spay_pad.dim() not in (3, 4) \
+            or spay_pad.shape[-2] != 10:
+        raise ValueError("spay_pad must be float32 (T+1, 10, Ks) shared or "
+                         "(B, T+1, 10, Ks) per env, got "
                          f"{spay_pad.dtype} {tuple(spay_pad.shape)}")
     if spay_pad.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {spay_pad.device}")
-    T1, _, Ks = spay_pad.shape
-    if ids.dtype != torch.int32 or ids.dim() != 2:
-        raise ValueError(f"ids must be int32 (B, TT), got {ids.dtype} "
+    shared = spay_pad.dim() == 3
+    T1, _, Ks = spay_pad.shape[-3:]
+    if ids.dtype != torch.int32 or ids.dim() != 2 \
+            or (not shared and ids.shape[0] != spay_pad.shape[0]):
+        want = "(B, TT)" if shared else f"({spay_pad.shape[0]}, TT)"
+        raise ValueError(f"ids must be int32 {want}, got {ids.dtype} "
                          f"{tuple(ids.shape)}")
     B, TT = ids.shape
     if dpay.dtype != torch.float32 or tuple(dpay.shape[:3]) != (B, TT, 10) \
@@ -187,8 +197,12 @@ def _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d):
     if Ks % CHUNK or Kd % CHUNK:
         raise ValueError(f"capacities Ks={Ks}, Kd={Kd} must be multiples "
                          f"of {CHUNK}")
-    if counts_s_pad.dtype != torch.int32 or tuple(counts_s_pad.shape) != (T1,):
-        raise ValueError(f"counts_s_pad must be int32 ({T1},)")
+    shape = (T1,) if shared else (B, T1)
+    if counts_s_pad.dtype != torch.int32 \
+            or tuple(counts_s_pad.shape) != shape:
+        raise ValueError(f"counts_s_pad must be int32 {shape}, got "
+                         f"{counts_s_pad.dtype} "
+                         f"{tuple(counts_s_pad.shape)}")
     if counts_d.dtype != torch.int32 or tuple(counts_d.shape) != (B, TT):
         raise ValueError(f"counts_d must be int32 ({B}, {TT})")
     for a in (dpay, ids, counts_s_pad, counts_d):
@@ -388,9 +402,10 @@ def composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
                                  ct, ts: int, tx: int,
                                  sigma_cutoff: Optional[float] = None,
                                  term_eps: Optional[float] = None):
-    """Plain PyTorch version of K2's gradient: (grad of ``spay_pad``
-    (T+1, 10, Ks) summed per tile, grad of ``dpay`` (B, TT, 10, Kd)) for the
-    cotangent ``ct`` (B, T+1, 8, P) of ``out``, by autograd through
+    """Plain PyTorch version of K2's gradient: (grad of ``spay_pad`` in its
+    shape, summed per tile when shared and per (env, tile) when per env,
+    grad of ``dpay`` (B, TT, 10, Kd)) for the cotangent ``ct``
+    (B, T+1, 8, P) of ``out``, by autograd through
     :func:`composite_pair_sel_plain` recomputed here.  Only the selected
     rows of ``ct`` are read; pads read the trash row.  It shares no algebra
     with the kernel's merged walk, so it is an independent check."""
@@ -409,19 +424,20 @@ def composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad, counts_d,
 
 
 # ctypes signatures of the launch functions: pointers, then B, TT, T+1, Ks,
-# Kd, ts, tx, power_min, has_pmin, term_eps, has_term, stream
+# Kd, ts, tx, power_min, has_pmin, term_eps, has_term, per_env, stream
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TAIL = [_I] * 7 + [_F, _I, _F, _I, _VP]
+_TAIL = [_I] * 7 + [_F, _I, _F, _I, _I, _VP]
 _FWD_ARGS = [_VP] * 6 + _TAIL
 _BWD_ARGS = [_VP] * 9 + _TAIL
 
 
 def _scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps):
     pmin = power_min_of(sigma_cutoff)
-    return (ids.shape[0], ids.shape[1], spay_pad.shape[0], spay_pad.shape[-1],
-            dpay.shape[-1], ts, tx, 0.0 if pmin is None else pmin,
-            int(pmin is not None), 0.0 if term_eps is None else term_eps,
-            int(term_eps is not None))
+    return (ids.shape[0], ids.shape[1], spay_pad.shape[-3],
+            spay_pad.shape[-1], dpay.shape[-1], ts, tx,
+            0.0 if pmin is None else pmin, int(pmin is not None),
+            0.0 if term_eps is None else term_eps, int(term_eps is not None),
+            int(spay_pad.dim() == 4))
 
 
 def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
@@ -435,7 +451,7 @@ def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
     kernel_threads(ts)
     spay_pad, dpay, ids, counts_s_pad, counts_d = (
         a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d))
-    out = dpay.new_empty((ids.shape[0], spay_pad.shape[0], 8, ts * ts))
+    out = dpay.new_empty((ids.shape[0], spay_pad.shape[-3], 8, ts * ts))
     launch = _kernels.function("composite_sel", "composite_pair_sel_launch",
                                _FWD_ARGS)
     with torch.cuda.device(spay_pad.device):
@@ -454,8 +470,9 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
                                  counts_d, ct, out, ts: int, tx: int,
                                  sigma_cutoff: Optional[float] = None,
                                  term_eps: Optional[float] = None):
-    """K2b on CUDA tensors → (gs (T+1, 10, Ks), the static gradient summed
-    per tile in the kernel (atomic adds; the trash row T stays zero),
+    """K2b on CUDA tensors → (gs, ``spay_pad``'s shape, the static gradient
+    summed in the kernel (atomic adds) per tile, or per env and tile row in
+    the per-env mode; the trash row T stays zero,
     gd (B, TT, 10, Kd), each slot's dynamic gradient, zero past its count)
     for the cotangent ``ct`` (B, T+1, 8, P), given the forward's ``out``.
     The kernel replays the forward's merged walk, so it needs no other
@@ -463,7 +480,7 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
     global launches_bwd
     _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
     B, TT = ids.shape
-    shape = (B, spay_pad.shape[0], 8, ts * ts)
+    shape = (B, spay_pad.shape[-3], 8, ts * ts)
     for name, a in (("ct", ct), ("out", out)):
         if a.dtype != torch.float32 or tuple(a.shape) != shape \
                 or a.device != spay_pad.device:
@@ -498,9 +515,10 @@ def composite_pair_sel_bwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ct,
                            out, ts: int, tx: int,
                            sigma_cutoff: Optional[float] = None,
                            term_eps: Optional[float] = None):
-    """K2 backward → (grad of ``spay_pad`` (T+1, 10, Ks), summed per tile,
-    the trash row zero, grad of ``dpay``).  CPU tensors run the plain
-    version; CUDA tensors launch K2b, which sums per tile itself."""
+    """K2 backward → (grad of ``spay_pad``, its shape: summed per tile, or
+    per env and tile row, the trash row zero; grad of ``dpay``).  CPU
+    tensors run the plain version; CUDA tensors launch K2b, which sums per
+    tile itself."""
     if spay_pad.device.type == "cpu":
         _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
         return composite_pair_sel_bwd_plain(spay_pad, dpay, ids, counts_s_pad,
@@ -513,7 +531,8 @@ def composite_pair_sel_bwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ct,
 
 class CompositePairSel(torch.autograd.Function):
     """K2 with its gradient: forward K2f → out (B, T+1, 8, P), backward K2b
-    → the gradients of the shared static payload and the dynamic lists."""
+    → the gradients of the static payload (shared or per env) and the
+    dynamic lists."""
 
     @staticmethod
     def forward(ctx, spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
@@ -540,7 +559,10 @@ def composite_pair_sel(spay_pad: torch.Tensor, dpay: torch.Tensor,
                        term_eps: Optional[float] = None) -> torch.Tensor:
     """K2 → out (B, T+1, 8, P) channel-major [r, g, b, depth_acc, trans,
     0, 0, 0], written only at selected rows (pads: the trash row T),
-    differentiable in ``spay_pad`` and ``dpay``.  Rows no slot selects are
+    differentiable in ``spay_pad`` and ``dpay``.  ``spay_pad`` is shared
+    (T+1, 10, Ks) with ``counts_s_pad`` (T+1,), or per env (B, T+1, 10, Ks)
+    with (B, T+1); ``ids`` obey one contract in both modes: pad slots after
+    the real ones, carrying T.  Rows no slot selects are
     left unwritten: the caller must where-select against the static
     composite before reading (their cotangent is then zero)."""
     _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)

@@ -435,17 +435,25 @@ def test_as_pose_tuple_matches_reference():
 
 
 def test_card_path_imports_without_gymnasium():
-    """The package, ``envs``, the splat env's gym-free core and ``entry``
-    import with ``gymnasium`` unavailable; a Gym class then fails to
-    import (checked in a fresh interpreter)."""
+    """The package, ``envs``, the splat env's gym-free core, ``entry`` and
+    every example driver import with ``gymnasium``, ``click`` and
+    ``pygame`` unavailable; a Gym class then fails to import (checked in a
+    fresh interpreter)."""
     code = textwrap.dedent("""
         import sys
-        sys.modules["gymnasium"] = None
+        for name in ("gymnasium", "click", "pygame"):
+            sys.modules[name] = None
         import sim_a_splat_torch, sim_a_splat_torch.envs
         import sim_a_splat_torch.envs.splat_assets
         import sim_a_splat_torch.envs.pusht_envs
+        import sim_a_splat_torch.envs.single_env
         import sim_a_splat_torch.tools.demo_assets
         import sim_a_splat_torch.entry
+        import sim_a_splat_torch.examples.common
+        import sim_a_splat_torch.examples.demo_pusht_splat
+        import sim_a_splat_torch.examples.demo_joint_sliders_splat
+        import sim_a_splat_torch.examples.demo_hw_splat
+        import sim_a_splat_torch.examples.demo_viewer
         try:
             sim_a_splat_torch.envs.PushTEnv
         except ImportError:

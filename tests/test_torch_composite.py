@@ -11,7 +11,10 @@ rows: atol 5e-5, rtol 1e-4, the bound the reference holds its own selected
 -tile kernel to (tests/test_pallas_sel.py), for log-space sums over two
 lists.  The inputs cover tiles that skip, tiles cut by counts mid-chunk,
 early termination, equal static/dynamic depths, a real slot without
-dynamic entries and pad slots.
+dynamic entries and pad slots.  K2's per-env mode (a (B, T+1, 10, Ks)
+static payload, the reference's dense ids) is held to the reference's 4-D
+mode at the same bound, and each env's rows to the shared mode run on that
+env's payload alone, bit for bit.
 """
 
 import numpy as np
@@ -20,7 +23,9 @@ import torch
 
 import jax.numpy as jnp
 
-from test_torch_helpers import k1_inputs, k2_inputs, np_of
+from test_torch_helpers import (
+    k1_inputs, k2_inputs, k2_per_env_inputs, np_of,
+)
 
 from sim_a_splat_tpu.ops import pallas_composite as jk1
 from sim_a_splat_tpu.ops.pallas_composite_sel import composite_pair_sel as jk2
@@ -89,6 +94,47 @@ def test_k2_plain_matches_pallas(sigma_cutoff, term_eps):
     assert ds & set(dpay[1, 0, 8, :cd[1, 0]].tolist())
 
 
+@pytest.mark.parametrize("sigma_cutoff,term_eps", [(3.0, 1e-4), (None, None)])
+def test_k2_per_env_plain_matches_pallas(sigma_cutoff, term_eps):
+    spay, dpay, ids, cs, cd = k2_per_env_inputs()
+    ref = jk2(jnp.asarray(spay), jnp.asarray(dpay), jnp.asarray(ids),
+              jnp.asarray(cs), jnp.asarray(cd), TS, TX, sigma_cutoff, True,
+              term_eps, "split", False)
+    out, applied, hits = composite_sel.composite_pair_sel_plain(
+        *(torch.as_tensor(a) for a in (spay, dpay, ids, cs, cd)), TS, TX,
+        sigma_cutoff, term_eps, return_work=True)
+    assert out.shape == (2, T + 1, 8, TS * TS)
+    np.testing.assert_allclose(np_of(out[:, :T]), np_of(ref[:, :T]),
+                               atol=5e-5, rtol=1e-4)
+    if term_eps is not None:          # env 0's opaque tile 4 stopped early
+        assert int(applied[0, 4]) < spay.shape[-1] // 128
+        assert int(applied[1, 4]) == 2
+    # an empty static list (env 0, tile 2) composites its dynamic list
+    # alone; a slot without dynamic entries (env 0, tile 3) its static list
+    assert int(applied[0, 2]) == 0 and int(hits[0, 2]) > 0
+    px, py = composite.pixel_centers(torch.tensor([3]), TS, TX)
+    a0 = composite.entry_alpha(torch.as_tensor(spay[0, 3:4, :, :cs[0, 3]]),
+                               px, py, composite.power_min_of(sigma_cutoff))
+    assert int(hits[0, 3]) == int((a0 > 0).sum()) > 0
+    ds = set(spay[1, 0, 8, :cs[1, 0]].tolist())
+    assert ds & set(dpay[1, 0, 8, :cd[1, 0]].tolist())   # depths tie
+
+
+def test_k2_per_env_rows_equal_shared_mode():
+    """Each env's rows of the per-env mode are the shared mode run on that
+    env's static payload alone, bit for bit (the plain version, and the
+    public wrapper on CPU tensors)."""
+    args = [torch.as_tensor(a) for a in k2_per_env_inputs(seed=8)]
+    spay, dpay, ids, cs, cd = args
+    for fn in (composite_sel.composite_pair_sel_plain,
+               composite_sel.composite_pair_sel):
+        out = fn(*args, TS, TX, 3.0, 1e-4)
+        for b in range(ids.shape[0]):
+            one = fn(spay[b], dpay[b:b + 1], ids[b:b + 1], cs[b], cd[b:b + 1],
+                     TS, TX, 3.0, 1e-4)
+            assert torch.equal(out[b, :T], one[0, :T]), f"env {b}"
+
+
 def test_wrappers_run_plain_on_cpu():
     pay, counts, skip = k1_inputs(seed=2)
     args = (torch.as_tensor(pay), torch.as_tensor(counts),
@@ -111,9 +157,19 @@ def test_wrappers_run_plain_on_cpu():
 
 def test_wrappers_check_inputs():
     spay, dpay, ids, cs, cd = (torch.as_tensor(a) for a in k2_inputs())
-    with pytest.raises(NotImplementedError):
-        composite_sel.composite_pair_sel(spay[None].expand(2, -1, -1, -1),
-                                         dpay, ids, cs, cd, TS, TX)
+    # a per-env payload runs (each env its own copy of the shared lists
+    # gives the shared mode's rows); its counts must be per env too
+    per_env = spay[None].expand(2, -1, -1, -1)
+    out = composite_sel.composite_pair_sel(per_env, dpay, ids,
+                                           cs[None].expand(2, -1), cd, TS, TX)
+    want = composite_sel.composite_pair_sel(spay, dpay, ids, cs, cd, TS, TX)
+    rows = (torch.arange(2)[:, None], ids.long())
+    assert torch.equal(out[rows], want[rows])
+    with pytest.raises(ValueError, match="counts_s_pad"):
+        composite_sel.composite_pair_sel(per_env, dpay, ids, cs, cd, TS, TX)
+    with pytest.raises(ValueError, match="ids"):
+        composite_sel.composite_pair_sel(per_env[:1], dpay, ids,
+                                         cs[None], cd, TS, TX)
     with pytest.raises(ValueError):
         composite_sel.composite_pair_sel(spay, dpay, ids.long(), cs, cd, TS,
                                          TX)

@@ -42,7 +42,7 @@ import torch
 from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
     k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
-    k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
+    k2_per_env_inputs, k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
     rows_rel_err,
     selected_cotangent, torch_raster,
 )
@@ -229,6 +229,49 @@ def test_k2_narrow_gaussians_cull(dev, sigma_cutoff, term_eps):
         composite_sel.cull_boxes(tile0, sigma_cutoff),
         composite_sel.warp_rects(args[2].new_zeros(1), TS, TX))
     assert float(culled.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k2_per_env_kernels_match_plain(dev, sigma_cutoff, term_eps,
+                                        permuted):
+    """K2f and K2b with a per-env (B, T+1, 10, Ks) static payload against
+    their plain versions, with the dense ids and with ids out of tile order
+    (the static gradient scattered by id); each env's forward rows equal
+    K2f's shared mode on that env's payload alone, bit for bit."""
+    spay, dpay, ids, cs, cd = k2_per_env_inputs()
+    if permuted:
+        order = np.asarray([[3, 1, 0, 5, 2, 4], [4, 0, 2, 1, 5, 3]])
+        ids = ids[np.arange(2)[:, None], order]
+        dpay = dpay[np.arange(2)[:, None], order]
+        cd = cd[np.arange(2)[:, None], order]
+    args = [torch.as_tensor(a, device=dev) for a in (spay, dpay, ids, cs, cd)]
+    before = (composite_sel.launches, composite_sel.launches_bwd)
+    out = composite_sel.composite_pair_sel(*args, TS, TX, sigma_cutoff,
+                                           term_eps)
+    ref = composite_sel.composite_pair_sel_plain(*args, TS, TX, sigma_cutoff,
+                                                 term_eps)
+    torch.testing.assert_close(out[:, :K_T], ref[:, :K_T], atol=5e-5,
+                               rtol=1e-4)
+    for b in range(2):
+        one = composite_sel.composite_pair_sel(
+            args[0][b], args[1][b:b + 1], args[2][b:b + 1], args[3][b],
+            args[4][b:b + 1], TS, TX, sigma_cutoff, term_eps)
+        assert torch.equal(out[b, :K_T], one[0, :K_T]), f"env {b}"
+    ct = torch.as_tensor(selected_cotangent(
+        np.random.default_rng(20), ids, tuple(out.shape)), device=dev)
+    gs, gd = composite_sel.composite_pair_sel_bwd(*args, ct, out, TS, TX,
+                                                  sigma_cutoff, term_eps)
+    torch.cuda.synchronize()
+    assert (composite_sel.launches, composite_sel.launches_bwd) == \
+        (before[0] + 3, before[1] + 1)
+    want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
+        *args, ct, TS, TX, sigma_cutoff, term_eps)
+    assert gs.shape == args[0].shape
+    assert_rows_close(gs[:, :K_T], want_s[:, :K_T], GRAD_REL,
+                      "K2b per-env static")
+    assert_rows_close(gd, want_d, GRAD_REL, "K2b per-env dynamic")
+    assert not gs[:, K_T].any()
 
 
 @pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
@@ -870,9 +913,10 @@ def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
     version, atol 1e-4 (chip_smoke's bound of a render against its plain
     path)."""
     from pathlib import Path
-    from chip_smoke import ASSET_HOME, ASSET_JOINT_CONFIG, asset_cameras
+    from chip_smoke import ASSET_HOME, ASSET_JOINT_CONFIG, ASSET_RES
     from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
     from sim_a_splat_torch.envs.splat_assets import SplatAssets
+    from sim_a_splat_torch.examples.common import camera_setup
     from sim_a_splat_torch.physics import kinematics as kin
     from sim_a_splat_torch.tools.demo_assets import build_demo_assets
     desc = Path(__file__).resolve().parent.parent / "robot_description"
@@ -887,7 +931,8 @@ def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
                               paths["task_assets_path"],
                               paths["task_assets_name"],
                               package_path=str(desc))
-    wrapper = assets.configure_cameras(asset_cameras(assets.icp))
+    wrapper = assets.configure_cameras(camera_setup(ASSET_RES,
+                                                    paths["assets"]))
     state, _ = env.reset(reset_to_state={"robot_pos": ASSET_HOME})
     draw = env.draw_state(state)
     before = composite.launches

@@ -19,6 +19,14 @@ while the plain float32 version matches float64 to 5.5e-5 (checked at
 2e-4).  (a) checks the plain float32 version against float64 too, at
 1e-4.
 
+(b') K2's per-env mode (a (B, T+1, 10, Ks) static payload): with the
+reference's dense ids, the plain backward against ``jax.vjp`` of the
+reference's 4-D mode at (b)'s bounds; with ids out of tile order, the
+port scatters slot i's static gradient to row ``ids[b, i]`` (the true
+gradient, held to float64 at 2e-4), where the reference places it at row
+i: re-indexed by slot, the reference's gradient is the port's at (b)'s
+bound.
+
 (c) Both autograd Functions on CPU tensors: ``.backward()`` gives exactly
 what ``torch.autograd.grad`` through the plain forward gives (it is that
 computation), launches no kernel, and the forward-only call records no
@@ -42,8 +50,8 @@ import jax.numpy as jnp
 from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
     graph_leaves, jax_pusht_states, jax_raster, k1_inputs, k2_full_dyn_inputs,
-    k2_inputs, np_of, random_state_vectors, rows_rel_err, selected_cotangent,
-    torch_raster,
+    k2_inputs, k2_per_env_inputs, np_of, random_state_vectors, rows_rel_err,
+    selected_cotangent, tile_lists, torch_raster,
 )
 
 import __graft_entry__ as graft
@@ -116,6 +124,87 @@ def test_k2_bwd_plain_matches_pallas(sigma_cutoff, term_eps):
     # the real slot without dynamic entries (env 1, slot 2, tile 0) still
     # passes the gradient of its static list
     assert got_s[0].any() and cd[1, 2] == 0
+
+
+def _k2_vjp(spay, dpay, ids, cs, cd, ct, sigma_cutoff, term_eps):
+    """The reference's (static, dynamic) gradients of ``composite_pair_sel``
+    (interpret mode) for the cotangent ``ct``."""
+    _, vjp = jax.vjp(lambda s, d: jk2(
+        s, d, jnp.asarray(ids), jnp.asarray(cs), jnp.asarray(cd), K_TS, K_TX,
+        sigma_cutoff, True, term_eps, "split", False),
+        jnp.asarray(spay), jnp.asarray(dpay))
+    return tuple(np_of(g) for g in vjp(jnp.asarray(ct)))
+
+
+@pytest.mark.parametrize("sigma_cutoff,term_eps", SETTINGS)
+def test_k2_per_env_bwd_plain_matches_pallas(sigma_cutoff, term_eps):
+    spay, dpay, ids, cs, cd = k2_per_env_inputs()
+    B = ids.shape[0]
+    ct = selected_cotangent(np.random.default_rng(13), ids,
+                            (B, K_T + 1, 8, K_TS * K_TS))
+    ref_s, ref_d = _k2_vjp(spay, dpay, ids, cs, cd, ct, sigma_cutoff,
+                           term_eps)
+    args = [torch.as_tensor(a) for a in (spay, dpay, ids, cs, cd, ct)]
+    got_s, got_d = (np_of(g) for g in
+                    composite_sel.composite_pair_sel_bwd_plain(
+                        *args, K_TS, K_TX, sigma_cutoff, term_eps))
+    assert got_s.shape == spay.shape == ref_s.shape
+    assert_rows_close(got_s[:, :K_T], ref_s[:, :K_T], 2e-3,
+                      "K2 per-env static grad")
+    assert_rows_close(got_d, ref_d, 2e-3, "K2 per-env dynamic grad")
+    exact_s, exact_d = (np_of(g) for g in
+                        composite_sel.composite_pair_sel_bwd_plain(
+                            *as_float64(args), K_TS, K_TX, sigma_cutoff,
+                            term_eps))
+    assert_rows_close(got_s[:, :K_T], exact_s[:, :K_T], 2e-4,
+                      "K2 per-env static grad vs float64")
+    assert_rows_close(got_d, exact_d, 2e-4,
+                      "K2 per-env dynamic grad vs float64")
+    # nothing for the trash rows, the empty static lists (env 0 tile 2,
+    # env 1 tile 3) and the slots without dynamic entries
+    assert not got_s[:, K_T].any()
+    assert not got_s[0, 2].any() and not got_s[1, 3].any()
+    assert not got_d[0, 3].any() and not got_d[1, 1].any()
+    assert got_s[1, 4].any() and got_s[0, 4].any()
+
+
+def test_k2_per_env_permuted_ids():
+    """Per-env payloads with ids out of tile order: the port's static
+    gradient is scattered by id (autograd through the plain forward, and
+    the Function on CPU tensors, held to float64); the reference's places
+    slot i's gradient at row i, which re-indexed by slot is the port's."""
+    spay, _, _, cs, cd = k2_per_env_inputs(seed=9)
+    ids = np.asarray([[3, 1, 0, 5, 2, 4], [4, 0, 2, 1, 5, 3]], np.int32)
+    rng = np.random.default_rng(19)
+    dpay = np.stack([tile_lists(rng, ids[b], cd[b], 128, K_TS, K_TX)
+                     for b in range(2)])
+    ct = selected_cotangent(rng, ids, (2, K_T + 1, 8, K_TS * K_TS))
+    args = [torch.as_tensor(a) for a in (spay, dpay, ids, cs, cd, ct)]
+    got_s, got_d = composite_sel.composite_pair_sel_bwd_plain(
+        *args, K_TS, K_TX, 3.0, 1e-4)
+    exact_s, exact_d = composite_sel.composite_pair_sel_bwd_plain(
+        *as_float64(args), K_TS, K_TX, 3.0, 1e-4)
+    assert_rows_close(got_s[:, :K_T], exact_s[:, :K_T], 2e-4,
+                      "per-env static grad, permuted ids, vs float64")
+    assert_rows_close(got_d, exact_d, 2e-4,
+                      "per-env dynamic grad, permuted ids, vs float64")
+    leaves = (args[0].clone().requires_grad_(),
+              args[1].clone().requires_grad_())
+    out = composite_sel.composite_pair_sel(*leaves, *args[2:5], K_TS, K_TX,
+                                           3.0, 1e-4)
+    rows = (torch.arange(2)[:, None], args[2].long())
+    (out[rows] * args[5][rows]).sum().backward()
+    torch.testing.assert_close(leaves[0].grad, got_s, atol=0, rtol=0)
+    torch.testing.assert_close(leaves[1].grad, got_d, atol=0, rtol=0)
+    ref_s, ref_d = _k2_vjp(spay, dpay, ids, cs, cd, ct, 3.0, 1e-4)
+    by_slot = np_of(got_s)[np.arange(2)[:, None], ids]     # (B, TT, 10, Ks)
+    assert_rows_close(by_slot, ref_s[:, :K_T], 2e-3,
+                      "the reference's static grad, slot-indexed")
+    assert_rows_close(np_of(got_d), ref_d, 2e-3, "the dynamic grad")
+    # measured: 295.6 on the moved rows; slot-indexed within 2.3e-4
+    moved = ids != np.arange(K_T)
+    assert np.abs(ref_s[:, :K_T][moved]
+                  - np_of(got_s)[:, :K_T][moved]).max() > 1
 
 
 def test_k2_reference_suffix_sums_on_long_lists():

@@ -33,7 +33,9 @@ from sim_a_splat_tpu.envs import gym_adapter as jgym
 from sim_a_splat_tpu.envs import manipulator_gym as jmgym
 from sim_a_splat_tpu.physics import pusht as jpusht
 
-from sim_a_splat_torch.envs import gym_adapter, manipulator_gym
+from sim_a_splat_torch.envs import (
+    gym_adapter, manipulator_gym, single_env, splat_gym,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 DESC = REPO / "robot_description"
@@ -128,6 +130,29 @@ def test_register_envs_and_make():
             "sim_a_splat_tpu.")
     with pytest.raises(RuntimeError, match="cuda"):
         gym_adapter.PushTEnv()                        # device="cuda" default
+
+
+def test_gym_classes_are_the_single_env_shells():
+    """Each Gym class is the gym-free shell the example drivers use plus
+    its spaces: it defines no method but ``__init__``, so the two cannot
+    drift apart."""
+    for gym_cls, shell, base in (
+            (gym_adapter.PushTEnv, single_env.PushTSingleEnv, gymnasium.Env),
+            (gym_adapter.PushTKeypointsEnv, single_env.PushTSingleEnv,
+             gymnasium.Env),
+            (manipulator_gym.ManipulatorSimEnv,
+             single_env.ManipulatorSingleEnv, gymnasium.Env),
+            (manipulator_gym.ManipulatorEEFWrapper,
+             single_env.ManipulatorEEFSingleEnv, gymnasium.Wrapper),
+            (splat_gym.SplatEnvWrapper, single_env.SplatSingleEnv,
+             gymnasium.Wrapper)):
+        assert issubclass(gym_cls, shell) and issubclass(gym_cls, base)
+        for cls in gym_cls.__mro__[:gym_cls.__mro__.index(shell)]:
+            own = {n for n, v in vars(cls).items()
+                   if callable(v) and not n.startswith("__")}
+            assert own <= {"genenerate_keypoint_manager_params"}, (cls, own)
+    env = gym_adapter.PushTKeypointsEnv(seed=0, device="cpu")
+    assert isinstance(env.unwrapped, gym_adapter.PushTKeypointsEnv)
 
 
 def _arm(mod, **kw):

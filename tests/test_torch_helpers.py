@@ -160,6 +160,31 @@ def k2_inputs(seed=1, Ks=256, Kd=128, scale=(1.0, 6.0), ts=K_TS):
     return spay, dpay.reshape(B, TT, 10, Kd), ids, counts_s, counts_d
 
 
+def k2_per_env_inputs(seed=7, Ks=256, Kd=128, ts=K_TS):
+    """K2 inputs in the per-env mode (spay_pad (2, T+1, 10, Ks), dpay
+    (2, T, 10, Kd), ids (2, T), counts_s_pad (2, T+1), counts_d (2, T)) over
+    the 3 × 2 grid of ``ts`` × ``ts`` tiles with the reference's dense ids
+    ids[b] = arange(T): each env's own static lists (full, cut mid-chunk,
+    empty, nearly opaque so that a tile stops early) with the zero trash
+    row, dynamic lists full, cut, empty and nearly opaque, and static and
+    dynamic depths on one grid, so that they tie."""
+    rng = np.random.default_rng(seed)
+    counts_s = np.asarray([[Ks, 100, 0, 200, Ks, 150, 0],
+                           [60, Ks, 130, 0, 250, Ks, 0]], np.int32)
+    counts_d = np.asarray([[40, Kd, 7, 0, 60, 90],
+                           [Kd, 0, 25, Kd, 5, 70]], np.int32)
+    B = counts_s.shape[0]
+    spay = np.zeros((B, K_T + 1, 10, Ks), np.float32)
+    dpay = np.zeros((B, K_T, 10, Kd), np.float32)
+    for b in range(B):
+        spay[b, :K_T] = tile_lists(rng, range(K_T), counts_s[b, :K_T], Ks,
+                                   ts, K_TX, opaque=(4,) if b == 0 else (1,))
+        dpay[b] = tile_lists(rng, range(K_T), counts_d[b], Kd, ts, K_TX,
+                             opaque=(3,) if b == 1 else ())
+    ids = np.tile(np.arange(K_T, dtype=np.int32), (B, 1))
+    return spay, dpay, ids, counts_s, counts_d
+
+
 def k2_shared_tile_inputs(seed=6, B=24, Ks=256, Kd=128):
     """K2 inputs where every one of ``B`` envs selects tiles 0 and 4 (the
     static gradient's atomic adds then contend for two rows), plus one other

@@ -183,3 +183,47 @@ def test_no_reference_import_statements(path):
                 continue
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, f"{f}: imports {n}"
+
+
+def _reference_paths(tree):
+    """The string constants of a module (f-string parts too) that name the
+    reference package, leaving out docstrings and the ``replaces`` labels
+    of the card scripts' ``kernels`` line (the file:line of the TPU kernel
+    each CUDA kernel replaces, which the line must name)."""
+    skip = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant):
+            skip.add(id(body[0].value))                       # docstring
+        if isinstance(node, ast.keyword) and node.arg == "replaces":
+            skip.update(id(n) for n in ast.walk(node.value))
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "replaces":
+                    skip.update(id(n) for n in ast.walk(v))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and "sim_a_splat_tpu" in n.value and id(n) not in skip]
+
+
+def test_port_keeps_its_own_native_sources():
+    """The native binding builds from the port's own copy of the C++
+    sources, and no module of the port and no card script names a path
+    in the reference package outside a docstring or a comment (a path
+    built from the string "sim_a_splat_tpu" counts)."""
+    from sim_a_splat_torch import native
+    pkg = (ROOT / "sim_a_splat_torch").resolve()
+    for src in native.SOURCES:
+        assert src.resolve().is_relative_to(pkg), src
+        assert src.exists(), src
+    files = sorted((ROOT / "sim_a_splat_torch").rglob("*.py")) + [
+        ROOT / n for n in ("chip_smoke.py", "chip_scaling.py",
+                           "chip_levers.py")]
+    for f in files:
+        hits = _reference_paths(ast.parse(f.read_text()))
+        assert not hits, f"{f.relative_to(ROOT)} names {hits}"
+    # the scan sees a path built from the package's name
+    built = ast.parse('p = ROOT / "sim_a_splat_tpu" / "native"\n'
+                      'q = f"{ROOT}/sim_a_splat_tpu/x.cpp"\n')
+    assert len(_reference_paths(built)) == 2
