@@ -78,6 +78,7 @@ from sim_a_splat_torch.physics.pusht import PushTParams
 from sim_a_splat_torch.scenegraph.graph import SceneGraph
 from sim_a_splat_torch.splat.loaders import synthetic_scene
 from sim_a_splat_torch.splat.scene import GaussianScene
+from sim_a_splat_torch.utils.profiling import span
 from sim_a_splat_torch.splat.train import TrainConfig
 
 GRAPH_LEAVES = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
@@ -186,6 +187,7 @@ class _Bodies:
                          torch.cat([states.agent_pos, zeros1], -1)],
                         dim=1))
 
+    @span("render.pose")
     def pose(self, dyn: GaussianScene, states):
         """World means and quats (B, Nd, ·) of the dynamic gaussians."""
         rel = self.body_poses(states).compose(self.graph.rest_inv)
@@ -234,6 +236,7 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
     bodies = _Bodies(graph, dev)
     white = torch.ones(3, device=dev)
 
+    @span("render.sh")
     def colors_of(s, means):
         if s.sh_rest is None:
             return s.colors_dc()
@@ -241,6 +244,7 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
                                           view_directions(means, cam),
                                           s.sh_degree)
 
+    @span("render.prepare")
     def prepare(scene):
         st = scene.select(bodies.stat_idx)
         cache = build_tile_cache_raw(st.means, st.quats, st.log_scales,
@@ -248,6 +252,7 @@ def make_step_cached_batch(graph: SceneGraph, width: int, height: int,
                                      cam, raster)
         return cache, build_static_composite(cache, cam, raster)
 
+    @span("step.batch")
     def step_batch(cache, scene, states, actions):
         cache, scomp = cache
         new_states = pusht.control_step(params, states, actions)
@@ -399,13 +404,15 @@ def _value_and_grads(scene: GaussianScene, fn, unread=()):
     loss, *aux = fn(leaves)
     read = [f for name, f in zip(leaves._fields, leaves)
             if f is not None and name not in unread]
-    got = iter(torch.autograd.grad(loss, read))
+    with span("step.backward"):
+        got = iter(torch.autograd.grad(loss, read))
     grads = GaussianScene(*(
         None if f is None else torch.zeros_like(f) if name in unread
         else next(got) for name, f in zip(leaves._fields, leaves)))
     return loss.detach(), aux, grads
 
 
+@span("step.train")
 def loss_and_grads(prepare, step_batch, scene: GaussianScene, states,
                    actions):
     """One train step of the batched env, as the reference's bench takes it

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from sim_a_splat_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("composite", "composite_bwd", "composite_sel",
@@ -93,6 +95,8 @@ def build_all() -> dict:
     jobs = {name: lib for name, lib in jobs.items() if not lib.exists()}
     logs = compile_all([(CSRC / f"{name}.cu", CSRC, lib)
                         for name, lib in jobs.items()])
+    if jobs:
+        count("kernels.built", len(jobs))
     seconds = time.perf_counter() - t0
     return {name: {"seconds": seconds, "ptxas": logs[lib]}
             for name, lib in jobs.items()}
@@ -102,11 +106,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _library_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        with span("kernels.load"):
+            path = _library_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
     return lib
 
 

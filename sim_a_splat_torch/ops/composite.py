@@ -41,6 +41,7 @@ import torch
 
 from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.ops.rasterize_reference import ALPHA_CLAMP, ALPHA_MIN
+from sim_a_splat_torch.utils.profiling import span
 
 CHUNK = 128   # list entries per chunk
 
@@ -218,6 +219,7 @@ def warp_rects(tile_ids: torch.Tensor, ts: int, tx: int) -> torch.Tensor:
                         ((wy + RECT_Y - 1).float() + 0.5) + oy], dim=-1)
 
 
+@span("render.k1f")
 def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
                          skip: torch.Tensor, ts: int, tx: int,
                          sigma_cutoff: Optional[float] = None,
@@ -259,6 +261,7 @@ def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
     return out, carries, chunk_acc
 
 
+@span("render.k1b")
 def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
                          skip: torch.Tensor, ct: torch.Tensor,
                          out: torch.Tensor, carries: torch.Tensor, ts: int,

@@ -39,6 +39,7 @@ import torch
 
 from sim_a_splat_torch.ops import _kernels, composite_sel
 from sim_a_splat_torch.ops.composite import CHUNK, power_min_of
+from sim_a_splat_torch.utils.profiling import span
 
 launches = 0      # K4f launches since the last reset (set to 0 to reset)
 launches_bwd = 0  # K4b launches since the last reset
@@ -144,6 +145,7 @@ def _scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps):
             0.0 if term_eps is None else term_eps, int(term_eps is not None))
 
 
+@span("render.k4f")
 def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
              term_eps):
     """K4f on CUDA tensors, the plain version on CPU tensors."""
@@ -169,6 +171,7 @@ def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
     return out
 
 
+@span("render.k4b")
 def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
                        ts: int, tx: int, sigma_cutoff: Optional[float] = None,
                        term_eps: Optional[float] = None):

@@ -53,6 +53,7 @@ from sim_a_splat_torch.ops.composite import (
     CHUNK, _ROW_DEPTH, _ROW_RGBD, entry_alpha, pixel_centers, power_min_of,
 )
 from sim_a_splat_torch.ops.rasterize_reference import ALPHA_MIN
+from sim_a_splat_torch.utils.profiling import span
 
 launches = 0      # K2f launches since the last reset (set to 0 to reset)
 launches_bwd = 0  # K2b launches since the last reset
@@ -440,6 +441,7 @@ def _scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps):
             int(spay_pad.dim() == 4))
 
 
+@span("render.k2f")
 def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
              sigma_cutoff, term_eps):
     """K2f on CUDA tensors, the plain version on CPU tensors."""
@@ -511,6 +513,7 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
     return gs, gd
 
 
+@span("render.k2b")
 def composite_pair_sel_bwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ct,
                            out, ts: int, tx: int,
                            sigma_cutoff: Optional[float] = None,

@@ -55,6 +55,7 @@ from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.ops.composite import (
     CHUNK, composite_static_plain, power_min_of,
 )
+from sim_a_splat_torch.utils.profiling import span
 
 launches = 0      # K3f launches since the last reset (set to 0 to reset)
 launches_bwd = 0  # K3b launches since the last reset
@@ -162,6 +163,7 @@ _FWD_ARGS = [_VP] * 4 + [_I] * 6 + [_F, _I, _F, _I, _I, _I, _VP]
 _BWD_ARGS = [_VP] * 7 + [_I] * 6 + [_F, _I, _I, _VP]
 
 
+@span("render.k3f")
 def composite_sel_single_fwd(spay_pad, ids, counts_pad, ts: int, tx: int,
                              sigma_cutoff: Optional[float] = None,
                              term_eps: Optional[float] = None,
@@ -196,6 +198,7 @@ def composite_sel_single_fwd(spay_pad, ids, counts_pad, ts: int, tx: int,
     return out
 
 
+@span("render.k3b")
 def composite_sel_single_bwd(spay_pad, ids, counts_pad, ct, out, ts: int,
                              tx: int, sigma_cutoff: Optional[float] = None,
                              term_eps: Optional[float] = None):

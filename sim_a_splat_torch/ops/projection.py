@@ -27,6 +27,7 @@ import torch
 
 from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.ops.transforms import SE3
+from sim_a_splat_torch.utils.profiling import span
 
 # gsplat classic-mode screen-space dilation of the 2-D covariance diagonal
 BLUR_2D = 0.3
@@ -169,6 +170,7 @@ def project(means: torch.Tensor, covs: torch.Tensor, camera: Camera,
                               cov_cam=cov_cam)
 
 
+@span("render.project")
 def project_raw(means: torch.Tensor, quats: torch.Tensor,
                 log_scales: torch.Tensor, camera: Camera, near: float = 0.01,
                 eps2d: float = BLUR_2D, dilate: float = 0.0) -> Projected:

@@ -35,6 +35,7 @@ from sim_a_splat_torch.ops.rasterize_tiles import (
     RasterAux, RasterConfig, _bin_gaussians, composite_dispatch,
     gather_tile_lists, pack_payload, untile_image,
 )
+from sim_a_splat_torch.utils.profiling import span
 
 
 class TileCache(NamedTuple):
@@ -62,6 +63,7 @@ def _dyn_config(config: RasterConfig, dyn_capacity: int,
     return cfg
 
 
+@span("render.tile_cache")
 def build_tile_cache_raw(means, quats, log_scales, colors, opacities,
                          camera: Camera, config: RasterConfig) -> TileCache:
     """Bin a static gaussian set against a fixed camera once."""
@@ -97,6 +99,7 @@ def build_static_composite(cache: TileCache, camera: Camera,
     return composite_dispatch(cache.payload[:T], cache.counts[:T], config, tx)
 
 
+@span("render.tiles")
 def select_touched_tiles(dcounts: torch.Tensor, sel_tiles: int, T: int):
     """Per env, the ``sel_tiles`` tiles with the most dynamic entries
     (ties: lower tile id first).  ``dcounts`` (B, T) → (ids (B, TT) int32,
@@ -110,6 +113,7 @@ def select_touched_tiles(dcounts: torch.Tensor, sel_tiles: int, T: int):
     return ids.to(torch.int32), counts_sel.to(torch.int32), n_overflow
 
 
+@span("render.gather")
 def _gather_tile_lists_sel(proj: Projected, colors, opacities, sorted_gidx,
                            starts, counts, ids, Kd: int):
     """Per-env list gather restricted to the selected tiles.
@@ -143,6 +147,7 @@ def _gather_tile_lists_sel(proj: Projected, colors, opacities, sorted_gidx,
     return lists.transpose(-1, -2).contiguous(), c_sel.to(torch.int32)
 
 
+@span("render.select")
 def rasterize_cache_sel_batch(cache: TileCache, static_composite,
                               dyn_means, dyn_quats, dyn_log_scales,
                               dyn_colors, dyn_opacities, camera: Camera,

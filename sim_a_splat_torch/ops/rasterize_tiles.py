@@ -35,6 +35,7 @@ from sim_a_splat_torch.ops import sh as sh_ops
 from sim_a_splat_torch.ops.projection import (
     Projected, project, project_raw, view_directions,
 )
+from sim_a_splat_torch.utils.profiling import span
 
 
 class RasterConfig(NamedTuple):
@@ -89,6 +90,7 @@ def _emit_tiles(tx0, ty0, bw, nt, rank, gid, M, tx, T, N):
     return key.reshape(B, -1), gidx.reshape(B, -1)
 
 
+@span("render.bin")
 def _bin_gaussians(proj: Projected, config: RasterConfig, tx: int, ty: int):
     """(tile, depth)-sorted gaussian ids + per-tile segment starts/counts.
 

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from sim_a_splat_torch.utils.profiling import span
+
 
 def moment_for_poly(mass: float, verts) -> float:
     """Chipmunk ``cpMomentForPoly`` about the body origin (host float)."""
@@ -122,6 +124,7 @@ def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
 
 
+@span("physics.solve")
 def solve_contacts(body: PlanarBody, contacts: Contact, inv_mass: float,
                    inv_inertia: float, dt: float, iterations: int = 10,
                    bias: float = 0.2, slop: float = 0.1):

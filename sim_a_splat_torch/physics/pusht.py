@@ -24,6 +24,7 @@ from sim_a_splat_torch.physics.planar import (
     Contact, PlanarBody, _shoelace, circle_poly_contact, convex_clip_area,
     moment_for_poly, rotate2d, solve_contacts,
 )
+from sim_a_splat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +175,7 @@ def _wall_planes(params: PushTParams):
     return n, b
 
 
+@span("physics.contacts")
 def _gather_contacts(params: PushTParams, state: PushTState) -> Contact:
     """Fixed 10-slot contact set per env: 2 agent-block + 4 walls × the 2
     deepest block vertices."""
@@ -246,6 +248,7 @@ def substep(params: PushTParams, state: PushTState,
     )
 
 
+@span("physics")
 def control_step(params: PushTParams, state: PushTState,
                  action: torch.Tensor) -> PushTState:
     """One 10 Hz control step = ``substeps`` physics substeps for every env;

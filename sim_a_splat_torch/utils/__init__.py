@@ -7,10 +7,10 @@ from sim_a_splat_torch.utils.config import (
 from sim_a_splat_torch.utils.episodes import (
     EpisodeRecorder, restore_checkpoint, save_checkpoint,
 )
-from sim_a_splat_torch.utils.profiling import Timer, device_trace, time_jitted
+from sim_a_splat_torch.utils.profiling import device_trace, time_jitted
 
 __all__ = [
     "CameraConfig", "ExperimentConfig", "RasterSettings", "RobotConfig",
     "SplatAssetConfig", "EpisodeRecorder", "restore_checkpoint",
-    "save_checkpoint", "Timer", "device_trace", "time_jitted",
+    "save_checkpoint", "device_trace", "time_jitted",
 ]

@@ -18,8 +18,6 @@ import json
 from pathlib import Path
 from typing import Optional
 
-from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
-
 
 @dataclasses.dataclass
 class CameraConfig:
@@ -63,6 +61,8 @@ class RasterSettings:
     sigma_cutoff: Optional[float] = 3.0
 
     def to_raster_config(self) -> RasterConfig:
+        # imported here: the ops import the tracer of this package
+        from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
         return RasterConfig(
             tile_size=self.tile_size, tile_capacity=self.tile_capacity,
             max_tiles_per_gaussian=self.max_tiles_per_gaussian,

@@ -125,7 +125,8 @@ def test_cuda_without_card_raises(entry_point):
 
 @pytest.mark.parametrize("script,needs", [("chip_smoke.py", "CUDA device"),
                                           ("chip_scaling.py",
-                                           "two CUDA devices")])
+                                           "two CUDA devices"),
+                                          ("chip_trace.py", "CUDA device")])
 def test_card_scripts_refuse_without_cards(script, needs):
     """Each card script, run as a user runs it, exits non-zero and prints
     no result where the cards it needs are missing."""
@@ -167,7 +168,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sim_a_splat_tpu",
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "chip_scaling.py",
-                                  "sim_a_splat_torch"])
+                                  "chip_trace.py", "sim_a_splat_torch"])
 def test_no_reference_import_statements(path):
     """No import statement anywhere in the port or in the card scripts
     (also inside functions) names JAX or the reference package."""
@@ -219,7 +220,7 @@ def test_port_keeps_its_own_native_sources():
         assert src.exists(), src
     files = sorted((ROOT / "sim_a_splat_torch").rglob("*.py")) + [
         ROOT / n for n in ("chip_smoke.py", "chip_scaling.py",
-                           "chip_levers.py")]
+                           "chip_levers.py", "chip_trace.py")]
     for f in files:
         hits = _reference_paths(ast.parse(f.read_text()))
         assert not hits, f"{f.relative_to(ROOT)} names {hits}"

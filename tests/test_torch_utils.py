@@ -1,6 +1,6 @@
 """The port's utils (``sim_a_splat_torch/utils``) against the reference's:
 the config JSON read both ways, episodes written by one package and read
-by the other, the checkpoint round trip, ``Timer`` and ``time_jitted``."""
+by the other, the checkpoint round trip, the tracer and ``time_jitted``."""
 
 import json
 
@@ -139,11 +139,22 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_timer_and_time_jitted():
-    t = utils.Timer()
-    x = torch.ones((64, 64))
-    with t.section("matmul", block_on=x):
-        y = x @ x
-    assert "matmul" in t.summary() and t.summary()["matmul"]["calls"] == 1
+    """The tracer in the place of the reference's ``Timer``: a section's
+    seconds and calls by name under its root span; then ``time_jitted``."""
+    from sim_a_splat_torch.utils import profiling
+    was = profiling.enabled()
+    profiling.enable(True)
+    try:
+        x = torch.ones((64, 64))
+        with profiling.span("timed"):
+            with profiling.span("matmul"):
+                y = x @ x
+        root = profiling.roots("timed", last=1)[0]
+    finally:
+        profiling.enable(was)
+        profiling.clear()
+    assert root.calls == {"matmul": 1}
+    assert 0 < root.by_name["matmul"] <= root.seconds
     mean_s, out = utils.time_jitted(lambda a: a @ a, x, iters=3, name=None)
     assert mean_s > 0 and out.shape == (64, 64)
     torch.testing.assert_close(out, y)
