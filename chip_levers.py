@@ -305,7 +305,7 @@ def main_path_inputs(dev):
         graph, RES, RES, raster, dyn_capacity=128, sel_tiles=36,
         dyn_max_tiles=9, device=dev)
     states = pusht.reset(P, torch.Generator(device=dev).manual_seed(0), B)
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(B, 1)
     seen, real = {}, composite_sel.composite_pair_sel
     real1 = composite.composite_static
 
@@ -525,8 +525,8 @@ def k3_levers(dev) -> None:
                                              device=dev, **MV_KW)
     states = pusht.reset(P, torch.Generator(device=dev).manual_seed(0),
                          B_MV_TRAIN)
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(
-        B_MV_TRAIN, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(
+        B_MV_TRAIN, 1)
     seen, real = {}, k3.composite_sel_single
 
     def capture(*args):

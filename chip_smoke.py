@@ -21,7 +21,9 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
 - the fixed camera (K1f, K1b, K2f, K2b), B=128 envs: the batched pushT
   splat env step (``entry.make_step_cached_batch``) and its train step
   (``entry.loss_and_grads``: the mean-square image loss and its gradient
-  to every gaussian parameter);
+  to every gaussian parameter), with the pushT control step's kernel P1
+  (``csrc/pusht_step.cu``, one launch a step) against the plain control
+  step on those envs, timed beside its chain bound;
 - the same envs through the reference's per-env fixed-camera step
   (``entry.make_step_cached``, K1f, K1b, K4f, K4b), B=128, forward and
   in training, its images against the selected-tile path's and its
@@ -141,6 +143,13 @@ BIG_KD = 4096   # a dynamic capacity past the backward kernels' windows
 LONG_ENVS = 2   # envs of the BIG_KD phase (its float64 plain versions)
 TS32_KD = 1024  # the dynamic capacity of the tile-size-32 phase
 ITERS = 5
+# the pushT kernel's bound, the dependent chain of one env: a PGS slot
+# visit's normal and friction impulses on the velocity chain
+# (PUSHT_SLOT_OPS float ops, the clamps' NaN tests counted), a substep's
+# contacts and integration besides (PUSHT_SUBSTEP_OPS, the sinf, cosf,
+# sqrtf and IEEE divisions at their instruction sequences), each
+# PUSHT_OP_CYCLES (an FP32 op's latency on an H100) at the SM's top clock
+PUSHT_SLOT_OPS, PUSHT_SUBSTEP_OPS, PUSHT_OP_CYCLES = 28, 150, 4
 # K2f and K2b of the first design (one thread per pixel, K2b's per-slot
 # output summed by index_add_), K4 on that walk, and K1f and K1b of the
 # first design (one block per tile walking its chunks in order): this
@@ -354,6 +363,58 @@ def device_profile(fn):
 def bound(nbytes, flops):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def pusht_row(pusht, P, state_sets, actions):
+    """Kernel P1 (``csrc/pusht_step.cu``, one launch a control step) on
+    each of ``state_sets`` against the plain control step on the card
+    (max|Δ| per field, held to the port's physics tolerances), timed by
+    CUDA events (its device time under the profiler beside) against the
+    plain path's time and the chain bound, and the plain path a call
+    whose action needs a gradient takes (forward and backward: the kernel
+    has no backward).  Returns its ``kernels`` row."""
+    import torch
+    gaps = dict.fromkeys(pusht.PushTState._fields, 0.0)
+    for st in state_sets:
+        got = pusht.control_step(P, st, actions)
+        want = pusht.control_step_plain(P, st, actions)
+        for n, g, w in zip(pusht.PushTState._fields, got, want):
+            gaps[n] = max(gaps[n], float((g - w).abs().max()))
+    st = state_sets[0]
+
+    def kernel():
+        return pusht._step_kernel(P, st, actions, P.substeps)
+    ms = cuda_ms(kernel, 50)
+    plain_ms = cuda_ms(lambda: pusht.control_step_plain(P, st, actions), 2)
+    act_g = actions.clone().requires_grad_()
+
+    def grad_step():
+        out = pusht.control_step(P, st, act_g)
+        return torch.autograd.grad(out.block_pos.sum(), act_g)
+    grad_ms = cuda_ms(grad_step, 2)
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    ops = P.substeps * (P.solver_iters * 10 * PUSHT_SLOT_OPS
+                        + PUSHT_SUBSTEP_OPS)
+    bound_ms = ops * PUSHT_OP_CYCLES / (mhz * 1e3)
+    log(f"physics, pushT control step at B={actions.shape[0]}: kernel "
+        f"pusht_step {ms:.4f} ms (events over 50 launches; device time "
+        f"under the profiler {device_ms_text(kernel, 50)}), plain path "
+        f"{plain_ms:.2f} ms (with a gradient to the action, forward and "
+        f"backward: {grad_ms:.2f} ms), chain bound {bound_ms:.4f} ms ({ops} dependent "
+        f"ops × {PUSHT_OP_CYCLES} cycles at {mhz:.0f} MHz); max|Δ| vs the "
+        "plain path: " + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()))
+    for n, g in gaps.items():
+        tol = 0.0 if n == "n_contacts" else 1e-4 if n == "block_angle" \
+            else 1e-3
+        if g > tol:
+            raise AssertionError(f"pusht_step: {n} max|Δ| {g} > {tol}")
+    return dict(name="pusht_step", route="cuda",
+                source="sim_a_splat_torch/csrc/pusht_step.cu", replaces=None,
+                max_abs_err=max(gaps.values()), ms=ms, plain_ms=plain_ms,
+                plain_grad_ms=grad_ms,
+                bound_ms=bound_ms, bound_by="dependent chain",
+                library_ms=None)
 
 
 def check_rows(name, got, want, what, rel=TOL_GRAD):
@@ -949,7 +1010,7 @@ def main() -> int:
     scene = graph.scene
     gen = torch.Generator(device=dev).manual_seed(0)
     states0 = pusht.reset(P, gen, B)
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(B, 1)
 
     # one step with the kernels' inputs captured (also the warm-up)
     seen = {}
@@ -980,6 +1041,7 @@ def main() -> int:
         for m in (composite, composite_sel, composite_single, composite_pair):
             m.launches = 0
             m.launches_bwd = 0
+        pusht.launches = 0
 
     def counts_now():
         return {"composite_static": composite.launches,
@@ -1022,6 +1084,10 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not exact:
         raise AssertionError(f"sel-dropped tiles: {drops[:, 0].tolist()}")
+    p1_fwd = pusht.launches
+    if p1_fwd != ITERS:
+        raise AssertionError(f"pusht_step launched {p1_fwd} times in "
+                             f"{ITERS} steps of the main path")
     for name in ("composite_static", "composite_pair_sel"):
         if launches[name] < ITERS:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
@@ -1047,6 +1113,8 @@ def main() -> int:
         f"{rend_ms:.2f} ms (first K2 design: 8.96 ms; its device time "
         f"{rend_dev_ms:.2f} ms); sum {prep_ms + phys_ms + rend_ms:.2f} ms vs "
         f"{step_ms:.2f} ms/step")
+    p1 = pusht_row(pusht, P, (states0, states), actions)
+    p1["launches_fwd"] = p1_fwd
 
     # image against the port's plain path on the first 8 envs
     s8 = pusht.PushTState(*(f[:8] for f in states0))
@@ -1095,6 +1163,11 @@ def main() -> int:
     launches = counts_now()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    p1["launches"] = pusht.launches
+    kernels.append(p1)
+    if p1["launches"] != ITERS:
+        raise AssertionError(f"pusht_step launched {p1['launches']} times in "
+                             f"{ITERS} train steps of the main path")
     launches = {n: launches[n] for n in fixed_names}
     train_ms = start.elapsed_time(end) / ITERS
     drops = torch.stack([o[1] for o in out_train]).cpu()
@@ -1803,7 +1876,7 @@ def moving_camera(entry, composite, composite_single, rasterize_moving,
     rollout, roll1, roll2, roll4 = (rollout_of(r) for r in (R_MV, 1, 2, 4))
     st_fwd = pusht.reset(P, gen, B_MV_FWD)
     st_train = pusht.PushTState(*(f[:B_MV_TRAIN] for f in st_fwd))
-    act = torch.tensor([[150.0, 250.0]], device=dev).expand(B_MV_FWD, 2)
+    act = torch.tensor([[150.0, 250.0]], device=dev).repeat(B_MV_FWD, 1)
     act_train = act[:B_MV_TRAIN]
     log(f"moving camera: N={N}, sh{SH_DEGREE}, {RES}², kc {MV_KW['kc']}, "
         f"margin {MV_KW['margin']}, buckets {raster.buckets}, R={R_MV}")
@@ -2050,7 +2123,7 @@ def uncached_step(entry, composite, pusht, graph, scene, P, raster,
     import torch
     step, _ = entry.make_step(graph, RES, RES, raster, device=dev)
     states0 = pusht.reset(P, torch.Generator(device=dev).manual_seed(1), B)
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(B, 1)
     log(f"uncached step (make_step): B={B}, N={N}, sh{SH_DEGREE} scene "
         f"(DC colours, as the reference's _make_step), {RES}², "
         f"tile_capacity {raster.tile_capacity}, term_eps {raster.term_eps}")

@@ -892,7 +892,7 @@ def _dryrun_inputs(B: int, device, vecs=None):
     else:
         states = pusht.set_state(params, torch.tensor(
             np.asarray(vecs), dtype=torch.float32, device=dev))
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(B, 1)
     return graph, parts, states, actions
 
 
@@ -1045,7 +1045,7 @@ def scaling_inputs(B: int = 32, N: int = 20_000, res: int = 128,
                              device=dev)
     states = pusht.reset(params, torch.Generator().manual_seed(0), B)
     states = pusht.PushTState(*(f.to(dev) for f in states))
-    actions = torch.tensor([[150.0, 250.0]], device=dev).expand(B, 2)
+    actions = torch.tensor([[150.0, 250.0]], device=dev).repeat(B, 1)
     return graph.scene, step, states, actions
 
 

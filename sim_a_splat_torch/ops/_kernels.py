@@ -9,7 +9,8 @@ an edited source rebuilds and an unchanged one is reused.
 
 ``--use_fast_math`` is never passed: it changes ``expf``, and the
 ``ALPHA_MIN`` and sigma cut-offs would turn such differences into whole
-contributions.
+contributions (and the pushT step's ``sinf``, ``cosf``, ``sqrtf`` and
+divisions, which it keeps as the plain path's).
 """
 
 from __future__ import annotations
@@ -29,9 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("composite", "composite_bwd", "composite_sel",
                   "composite_sel_bwd", "composite_single",
                   "composite_single_bwd", "composite_pair",
-                  "composite_pair_bwd")
+                  "composite_pair_bwd", "pusht_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source on top of NVCC_FLAGS: the pushT step rounds every
+# product and sum by itself, as the plain path's separate ops do
+SOURCE_FLAGS = {"pusht_step": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -49,25 +53,31 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def compile_all(jobs) -> dict:
     """Compile each (source ``.cu``, include directory, library path) job
-    with ``nvcc``, one process each, all started together.  Returns
-    {library path: nvcc's output (ptxas' report)}; raises with nvcc's
-    output on failure."""
+    with ``nvcc`` and the source's :func:`flags`, one process each, all
+    started together.  Returns {library path: nvcc's output (ptxas'
+    report)}; raises with nvcc's output on failure."""
     nvcc = nvcc_path()
     procs = []
     for src, inc, lib in jobs:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(inc), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *flags(Path(src).stem), "-I", str(inc), "-o", str(tmp),
+               str(src)]
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -7,10 +7,20 @@ solve; the reward is the share of the goal's area that the block covers
 (exact convex clipping), and the observation [agent_xy, block_xy, angle].
 Every state field has a leading env axis B (the reference's ``vmap``); its
 ``scan`` over substeps is a loop.
+
+On the card the control step (and ``set_state``'s settling substep) is one
+launch of the hand-written kernel ``csrc/pusht_step.cu``, a thread an env
+through every substep, through the dispatcher operator
+``sim_a_splat::pusht_step``; each adds one to ``launches``.  CPU tensors, and
+inputs that need a gradient while grad mode is on (the kernel has no
+backward), take the plain version, ``control_step_plain``: the CPU tests'
+path and the card tests' oracle.  Other CUDA inputs (not float32, not
+contiguous) raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -20,11 +30,14 @@ import numpy as np
 import torch
 
 from sim_a_splat_torch import resolve_device
+from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.physics.planar import (
     Contact, PlanarBody, _shoelace, circle_poly_contact, convex_clip_area,
     moment_for_poly, rotate2d, solve_contacts,
 )
 from sim_a_splat_torch.utils.profiling import span
+
+launches = 0   # pusht_step launches since the last reset (set to 0 to reset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,17 +226,22 @@ def _gather_contacts(params: PushTParams, state: PushTState) -> Contact:
 
 # --- stepping ---------------------------------------------------------------
 
-def substep(params: PushTParams, state: PushTState,
-            action: torch.Tensor | None) -> PushTState:
-    """One 100 Hz physics substep (PD control, then Chipmunk's order:
-    damp velocities → solve impulses → integrate positions)."""
+def _damp(params: PushTParams) -> float:
+    """The block's velocity factor a substep (0 without damping)."""
+    return params.damping ** params.dt if params.damping > 0 else 0.0
+
+
+def substep_plain(params: PushTParams, state: PushTState,
+                  action: torch.Tensor | None) -> PushTState:
+    """The plain version of :func:`substep` on any device: eager PyTorch,
+    ``_gather_contacts`` then ``planar.solve_contacts``."""
     dt = params.dt
     agent_vel = state.agent_vel
     if action is not None:
         acc = params.k_p * (action - state.agent_pos) + params.k_v * (-agent_vel)
         agent_vel = agent_vel + acc * dt
 
-    damp = params.damping ** dt if params.damping > 0 else 0.0
+    damp = _damp(params)
     cog = block_cog_world(params, state.block_pos, state.block_angle)
     body = PlanarBody(cog=cog, angle=state.block_angle,
                       vel=state.block_vel * damp,
@@ -248,15 +266,148 @@ def substep(params: PushTParams, state: PushTState,
     )
 
 
+def control_step_plain(params: PushTParams, state: PushTState,
+                       action: torch.Tensor) -> PushTState:
+    """The plain version of :func:`control_step` on any device: eager
+    PyTorch, substep by substep."""
+    state = state._replace(n_contacts=torch.zeros_like(state.n_contacts))
+    for _ in range(params.substeps):
+        state = substep_plain(params, state, action)
+    return state
+
+
+class KernelConstants(ctypes.Structure):
+    """The task's constants as ``csrc/pusht_step.cu`` takes them (its
+    ``PushTConstants``, by value): each rounded to float32 from the Python
+    float the plain path hands PyTorch, as PyTorch rounds a scalar operand
+    of a float32 tensor."""
+
+    _fields_ = [("polys", ctypes.c_float * 16), ("cog", ctypes.c_float * 2),
+                ("wall_n", ctypes.c_float * 8), ("wall_b", ctypes.c_float * 4),
+                *((f, ctypes.c_float) for f in (
+                    "inv_mass", "inv_inertia", "bias_rate", "slop", "k_p",
+                    "k_v", "dt", "damp", "friction", "radius")),
+                ("iterations", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_constants(params: PushTParams) -> KernelConstants:
+    """:class:`KernelConstants` of ``params`` (made once)."""
+    n, b = _wall_planes(params)
+    c = KernelConstants(
+        inv_mass=1.0 / params.mass, inv_inertia=1.0 / tee_inertia(params),
+        bias_rate=params.bias_coef / params.dt, slop=params.slop,
+        k_p=params.k_p, k_v=params.k_v, dt=params.dt, damp=_damp(params),
+        friction=params.friction, radius=params.agent_radius,
+        iterations=params.solver_iters)
+    for name, a in (("polys", tee_polys_local(params.scale, params.length)),
+                    ("cog", cog_local(params)), ("wall_n", n),
+                    ("wall_b", b)):
+        getattr(c, name)[:] = [float(x) for x in np.ravel(a)]
+    return c
+
+
+def _on_kernel(state: PushTState, action: torch.Tensor | None) -> bool:
+    """Whether the kernel steps these inputs: CUDA tensors, none of which
+    needs a gradient while grad mode is on."""
+    if state.agent_pos.device.type != "cuda":
+        return False
+    inputs = (*state, action) if action is not None else state
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in inputs))
+
+
+_STEP_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [
+    KernelConstants, ctypes.c_void_p]
+
+
+def _launch(state: list, action: torch.Tensor | None, substeps: int,
+            constants: int) -> list:
+    """The CUDA kernel of the operator ``sim_a_splat::pusht_step``
+    (:func:`_library`): one launch of ``csrc/pusht_step.cu`` on the current
+    stream; ``constants`` is the address of a :class:`KernelConstants` the
+    caller keeps alive."""
+    dev = state[0].device
+    B = state[0].shape[0]
+    out = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+           for t in state] + [torch.empty(B, dtype=torch.float32, device=dev)]
+    launch = _kernels.function("pusht_step", "pusht_step_launch", _STEP_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(*(t.data_ptr() for t in state),
+                    None if action is None else action.data_ptr(),
+                    *(t.data_ptr() for t in out), B, substeps,
+                    int(action is not None),
+                    KernelConstants.from_address(constants), stream)
+    _kernels.check(rc, "pusht_step")
+    return out
+
+
+@functools.cache
+def _library() -> torch.library.Library:
+    """The operator library ``sim_a_splat``, registered at first use and
+    kept (a registration lasts as long as its library object): its
+    ``pusht_step(state, action, substeps, constants) -> state`` is the
+    kernel's launch as an operator of PyTorch's dispatcher, with a kernel
+    for CUDA alone.  The profiler ties a kernel only to an operator around
+    its launch (a ``record_function`` is none), so through the operator the
+    kernel's device time belongs to the spans around it."""
+    lib = torch.library.Library("sim_a_splat", "DEF")
+    lib.define("pusht_step(Tensor[] state, Tensor? action, int substeps, "
+               "int constants) -> Tensor[]")
+    lib.impl("pusht_step", _launch, "CUDA")
+    return lib
+
+
+@span("physics.solve")
+def _step_kernel(params: PushTParams, state: PushTState,
+                 action: torch.Tensor | None, substeps: int) -> PushTState:
+    """``substeps`` substeps of every env in one launch of
+    ``csrc/pusht_step.cu`` (without ``action``: no PD control); the state's
+    ``n_contacts`` is not read, the result's counts these substeps'
+    contacts.  Raises on inputs it does not take."""
+    global launches
+    dev = state.agent_pos.device
+    B = state.agent_pos.shape[0]
+    inputs = dict(state._asdict(), action=action)
+    del inputs["n_contacts"]
+    for name, t in inputs.items():
+        want = (B,) if name in ("block_angle", "block_omega") else (B, 2)
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError(
+                f"pusht_step takes contiguous float32 {want} on {dev}; "
+                f"{name} is {'' if t.is_contiguous() else 'non-contiguous '}"
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    c = kernel_constants(params)
+    _library()
+    out = torch.ops.sim_a_splat.pusht_step(list(state[:-1]), action,
+                                           substeps, ctypes.addressof(c))
+    launches += 1
+    return PushTState(*out)
+
+
+def substep(params: PushTParams, state: PushTState,
+            action: torch.Tensor | None) -> PushTState:
+    """One 100 Hz physics substep (PD control, then Chipmunk's order:
+    damp velocities → solve impulses → integrate positions); on the card
+    one kernel launch."""
+    if _on_kernel(state, action):
+        out = _step_kernel(params, state, action, 1)
+        return out._replace(n_contacts=state.n_contacts + out.n_contacts)
+    return substep_plain(params, state, action)
+
+
 @span("physics")
 def control_step(params: PushTParams, state: PushTState,
                  action: torch.Tensor) -> PushTState:
     """One 10 Hz control step = ``substeps`` physics substeps for every env;
-    ``action`` (B, 2) agent targets."""
-    state = state._replace(n_contacts=torch.zeros_like(state.n_contacts))
-    for _ in range(params.substeps):
-        state = substep(params, state, action)
-    return state
+    ``action`` (B, 2) agent targets.  On the card one kernel launch."""
+    if _on_kernel(state, action):
+        return _step_kernel(params, state, action, params.substeps)
+    return control_step_plain(params, state, action)
 
 
 # --- reward / observation ---------------------------------------------------
@@ -296,9 +447,10 @@ def set_state(params: PushTParams, state_vec: torch.Tensor,
     ``legacy`` keeps the reference's ordering quirk of legacy data: the
     position was set before the angle, and the body rotates about its CoG,
     which moves its origin."""
-    agent_pos = state_vec[:, :2]
-    block_pos = state_vec[:, 2:4]
-    angle = state_vec[:, 4]
+    # contiguous copies of the columns, as the card's kernel takes them
+    agent_pos = state_vec[:, :2].contiguous()
+    block_pos = state_vec[:, 2:4].contiguous()
+    angle = state_vec[:, 4].contiguous()
     if legacy:
         cog = _constants(params, state_vec.device)["cog"]
         block_pos = _origin_from_cog(params, block_pos + cog, angle)

@@ -28,9 +28,9 @@ enters ``torch.profiler.record_function(name)``, so it sits on the
 profiler's timeline beside the kernels; with none it skips that (~12 µs a
 span on a CPU host).  A root span records, as counter events at its end,
 the change over its step of the kernels' launch counters
-(``ops/composite*.py``'s ``launches`` and ``launches_bwd``, the one count
-of launches).  Nothing here synchronises the device or reads a device
-tensor.
+(``ops/composite*.py``'s ``launches`` and ``launches_bwd``,
+``physics/pusht.py``'s ``launches``: the one count of launches).  Nothing
+here synchronises the device or reads a device tensor.
 
 Memory: the finished spans are kept in a buffer of the last ``CAPACITY``
 (65,536: ~1,600 steps of the batched train step's ~40 spans, ~15 MB), and
@@ -68,13 +68,14 @@ import torch
 
 CAPACITY = 1 << 16      # spans kept, and counter events kept
 OUTSIDE = "outside every span"
-# the kernels' launch counters, module attributes of the ops: (counter name,
-# module, attribute)
+# the kernels' launch counters, module attributes of the ops and of the
+# pushT physics: (counter name, module, attribute)
 LAUNCH_COUNTERS = tuple(
     (f"{m}.{attr}", f"sim_a_splat_torch.ops.{m}", attr)
     for m in ("composite", "composite_sel", "composite_single",
               "composite_pair")
-    for attr in ("launches", "launches_bwd"))
+    for attr in ("launches", "launches_bwd")) + (
+    ("pusht.launches", "sim_a_splat_torch.physics.pusht", "launches"),)
 
 
 class Record(NamedTuple):

@@ -33,7 +33,17 @@ against a float64 run on these near-opaque tiles with random cotangents
 forward's own accumulators, so they do not cancel.  The train step's
 gradients on the card are held to the CPU path's at 2e-4 × each field's
 largest gradient.
+
+The pushT control step's kernel (``csrc/pusht_step.cu``) runs the plain
+path's float32 operations one for one (no FMA contraction, IEEE division,
+``sqrtf``, ``sinf``, ``cosf``), so it can agree with the plain path on the
+card bit for bit; it is held to the port's physics tolerances all the same
+(positions and velocities atol 1e-3, the angle 1e-4, ``n_contacts``
+exact: the CPU tests' bounds against the reference), and each test prints
+the max|Δ| it measured.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -43,7 +53,7 @@ from test_torch_helpers import (
     K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
     k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
     k2_per_env_inputs, k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
-    rows_rel_err,
+    pusht_case_actions, pusht_case_vectors, rows_rel_err,
     selected_cotangent, torch_raster,
 )
 
@@ -1065,3 +1075,174 @@ def test_sharded_render_on_card_matches_single_device(dev):
     for r in res:
         np.testing.assert_allclose(r["img"], img, atol=1e-4, rtol=0)
         assert np.abs(r["grad_means"] - g).max() <= GRAD_REL * np.abs(g).max()
+
+
+# --- the pushT control step's kernel ---------------------------------------
+
+PUSHT_PARAMS = {"default": {}, "friction_damping": dict(friction=0.5,
+                                                        damping=0.9),
+                "cog_override": dict(block_cog=(3.0, 40.0))}
+GOLDENS = pathlib.Path(__file__).parent / "assets" / "pusht_goldens.npz"
+
+
+def _pusht_gaps(got, want, what):
+    """max|Δ| of each state field, printed, and held to the port's physics
+    tolerances."""
+    gaps = {n: float((g - w).abs().max()) if g.numel() else 0.0
+            for n, g, w in zip(pusht.PushTState._fields, got, want)}
+    print(what, "max|Δ|", gaps)
+    for n, gap in gaps.items():
+        tol = 0.0 if n == "n_contacts" else 1e-4 if n == "block_angle" \
+            else 1e-3
+        assert gap <= tol, f"{what}: {n} max|Δ| {gap} > {tol}"
+    return gaps
+
+
+def _pusht_inputs(dev, B, seed):
+    rng = np.random.default_rng(seed)
+    vec = pusht_case_vectors(rng, B)
+    return (torch.as_tensor(vec, device=dev),
+            torch.as_tensor(pusht_case_actions(rng, vec), device=dev))
+
+
+@pytest.mark.parametrize("params", list(PUSHT_PARAMS))
+@pytest.mark.parametrize("B", [1, 128, 1000])
+def test_pusht_kernel_matches_plain(dev, B, params):
+    """One control step of B envs (the last block of 32 ragged at 1,000)
+    through the kernel, one launch, against the plain path on the card:
+    states with the agent inside the T, at a face tie and an edge tie,
+    the T against the walls, no contact, and random resets."""
+    P = pusht.PushTParams(**PUSHT_PARAMS[params])
+    vec, actions = _pusht_inputs(dev, B, seed=B)
+    states = pusht.set_state(P, vec)
+    before = pusht.launches
+    got = pusht.control_step(P, states, actions)
+    torch.cuda.synchronize()
+    assert pusht.launches == before + 1
+    want = pusht.control_step_plain(P, states, actions)
+    _pusht_gaps(got, want, f"control_step B={B} {params}")
+    if B > 1:
+        assert int(want.n_contacts.sum()) > 0           # contacts exercised
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_pusht_set_state_kernel_matches_plain(dev, legacy, monkeypatch):
+    """``set_state``'s settling substep (no action) is one kernel launch,
+    against the plain substep on the card."""
+    P = pusht.PushTParams()
+    vec, _ = _pusht_inputs(dev, 128, seed=7)
+    before = pusht.launches
+    got = pusht.set_state(P, vec, legacy=legacy)
+    torch.cuda.synchronize()
+    assert pusht.launches == before + 1
+    monkeypatch.setattr(pusht, "substep", pusht.substep_plain)
+    want = pusht.set_state(P, vec, legacy=legacy)
+    assert pusht.launches == before + 1
+    _pusht_gaps(got, want, f"set_state legacy={legacy}")
+
+
+def test_pusht_goldens_through_the_kernel(dev):
+    """The committed golden trajectories' starts and actions: the plain
+    path steps each trajectory on the card, and from every state of it
+    the kernel's control step is held to the plain one."""
+    goldens = np.load(GOLDENS)
+    contacts = 0
+    for name in ("push_stem", "rotate_crossbar", "wall_pin", "legacy_push",
+                 "cog_override"):
+        cog = tuple(float(c) for c in goldens[f"{name}/block_cog"]) \
+            if name == "cog_override" else None
+        P = pusht.PushTParams(block_cog=cog)
+        state = pusht.set_state(
+            P, torch.as_tensor(goldens[f"{name}/start"][None],
+                               dtype=torch.float32, device=dev),
+            legacy=bool(goldens[f"{name}/legacy"]))
+        for k, a in enumerate(goldens[f"{name}/actions"]):
+            action = torch.as_tensor(a[None], dtype=torch.float32, device=dev)
+            want = pusht.control_step_plain(P, state, action)
+            _pusht_gaps(pusht.control_step(P, state, action), want,
+                        f"{name} step {k}")
+            contacts += int(want.n_contacts.sum())
+            state = want
+    assert contacts > 0
+
+
+def test_pusht_kernel_launches_and_gradient(dev):
+    """One launch a control step; an action that requires grad (grad mode
+    on) takes the plain path, is left unchanged, and gets the plain path's
+    gradient; under no_grad the same call launches the kernel."""
+    P = pusht.PushTParams()
+    st = pusht.set_state(P, torch.tensor([[80.0, 310.0, 149.0, 256.0, 0.0]],
+                                         device=dev))
+    act = torch.tensor([[140.0, 310.0]], device=dev)
+    before = pusht.launches
+    s = st
+    for _ in range(3):
+        s = pusht.control_step(P, s, act)
+    assert pusht.launches == before + 3
+
+    action = act.clone().requires_grad_()
+    r, _ = pusht.reward_done(P, pusht.control_step(P, st, action))
+    assert pusht.launches == before + 3
+    (g,) = torch.autograd.grad(r.sum(), action)
+    a2 = act.clone().requires_grad_()
+    r2, _ = pusht.reward_done(P, pusht.control_step_plain(P, st, a2))
+    (g2,) = torch.autograd.grad(r2.sum(), a2)
+    assert torch.equal(action.detach(), act)
+    assert bool(torch.isfinite(g).all())
+    # the same plain computation twice; its backward sums with atomics
+    torch.testing.assert_close(g, g2, rtol=1e-5, atol=0)
+    with torch.no_grad():
+        pusht.control_step(P, st, action)
+    assert pusht.launches == before + 4
+
+
+def test_pusht_substep_kernel_adds_to_n_contacts(dev):
+    """``pusht.substep`` on the card adds its contacts to the state's
+    ``n_contacts``, as the plain substep does (the kernel itself counts
+    from 0)."""
+    P = pusht.PushTParams()
+    vec, actions = _pusht_inputs(dev, 64, seed=8)
+    states = pusht.set_state(P, vec)
+    states = states._replace(n_contacts=torch.arange(
+        64, dtype=torch.float32, device=dev))
+    got = pusht.substep(P, states, actions)
+    want = pusht.substep_plain(P, states, actions)
+    _pusht_gaps(got, want, "substep")
+    assert bool((got.n_contacts >= states.n_contacts).all())
+
+
+def test_pusht_kernel_is_tied_to_its_span_by_the_profiler(dev):
+    """The profiler links the kernel to the operator that launched it,
+    ``sim_a_splat::pusht_step``, so the device time of a span around the
+    call holds it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    P = pusht.PushTParams()
+    vec, actions = _pusht_inputs(dev, 128, seed=9)
+    states = pusht.set_state(P, vec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("probe"):
+            pusht.control_step(P, states, actions)
+        torch.cuda.synchronize()
+    linked = [k for e in prof.events() if e.device_type == DeviceType.CPU
+              and e.name == "sim_a_splat::pusht_step"
+              for k in e.kernels if "pusht_step" in k.name]
+    assert linked, "the operator holds no pusht_step kernel"
+    us = sum(k.duration for k in linked)
+    print(f"pusht_step linked to a host event: {len(linked)} record(s), "
+          f"{us:.1f} us")
+    assert us > 0
+
+
+def test_pusht_kernel_rejects_inputs(dev):
+    """CUDA inputs the kernel does not take raise; nothing falls back."""
+    P = pusht.PushTParams()
+    st = pusht.set_state(P, torch.tensor([[80.0, 310.0, 149.0, 256.0, 0.0]] * 2,
+                                         device=dev))
+    act = torch.tensor([[140.0, 310.0]], device=dev)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        pusht.control_step(P, st, act.expand(2, 2))
+    with pytest.raises(ValueError, match="float64"):
+        pusht.control_step(P, st, act.repeat(2, 1).double())

@@ -79,6 +79,42 @@ def random_state_vectors(rng, B):
                     axis=1).astype(np.float32)
 
 
+# pushT state vectors the contacts' edge cases come from (the T at angle 0
+# spans x 89-209, y 256-286 with its crossbar when its origin is at
+# (149, 256)): the agent inside the crossbar; inside, 10 from two faces
+# (a tie of the deepest face); outside, diagonal from a corner (a tie of
+# the nearest edge); the T pressed into the left wall, the floor and a
+# corner of the walls; no contact at all
+PUSHT_EDGE_CASES = np.asarray([
+    [149.0, 271.0, 149.0, 256.0, 0.0],
+    [199.0, 276.0, 149.0, 256.0, 0.0],
+    [219.0, 296.0, 149.0, 256.0, 0.0],
+    [70.0, 200.0, 50.0, 256.0, 0.0],
+    [200.0, 400.0, 149.0, 20.0, 0.7],
+    [150.0, 300.0, 30.0, 30.0, 0.3],
+    [60.0, 460.0, 149.0, 256.0, 0.5],
+], np.float32)
+
+
+def pusht_case_vectors(rng, B):
+    """(B, 5) pushT state vectors: ``PUSHT_EDGE_CASES`` first, then draws
+    of the reference's reset distribution."""
+    vec = random_state_vectors(rng, B)
+    n = min(B, len(PUSHT_EDGE_CASES))
+    vec[:n] = PUSHT_EDGE_CASES[:n]
+    return vec
+
+
+def pusht_case_actions(rng, vec):
+    """(B, 2) agent targets for ``vec``: the first half near each env's
+    block (pushes), the rest anywhere in the workspace."""
+    B = len(vec)
+    act = rng.uniform((0.0, 0.0), (298.0, 512.0), (B, 2))
+    h = (B + 1) // 2
+    act[:h] = vec[:h, 2:4] + rng.normal(0.0, 30.0, (h, 2))
+    return act.astype(np.float32)
+
+
 def tile_lists(rng, tile_ids, counts, K, ts, tx, opaque=(), depth_step=0.25,
                scale=(1.0, 6.0)):
     """(len(tile_ids), 10, K) float32 payload of depth-sorted tile lists in
