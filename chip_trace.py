@@ -11,7 +11,7 @@ exit):
         [outdir, default chiprun_out/trace] [--cpu]
 
 (``--cpu``: a rehearsal on the CPU at a tiny size, B = 4, 3,000
-gaussians, 64².)
+gaussians, 64².  ``--arm``: the arm's collect step instead, below.)
 
 It builds the batched pushT step at the benchmark's width (B = 128 envs,
 100,000 SH-3 gaussians, 256², tile 16, ``sel_tiles`` 48), and then:
@@ -29,6 +29,14 @@ It builds the batched pushT step at the benchmark's width (B = 128 envs,
 4. times train steps with tracing on and off in turns, one step a turn
    (on, off, off, on, ...; host clock, synchronised after each step), and
    the difference within each pair of neighbouring steps.
+
+With ``--arm`` it builds the arm deployment of the benchmark's cells
+instead (``entry.build_product_wrapper``: 100,000 SH-3 gaussians, two
+cameras at 240×320) and runs its collect step (``entry.make_product_collect``)
+inside ``device_trace`` with tracing on: one teleop step at B = 1 after a
+120-step settle (``<outdir>/arm_b1/``), and at B = 8 after a 40-step settle
+an episode's first step, which builds the end-effector caches
+(``<outdir>/arm_b8_first/``), and the step after it (``<outdir>/arm_b8/``).
 """
 
 import json
@@ -52,7 +60,7 @@ def log(msg):
 def main() -> int:
     import torch
     cpu = "--cpu" in sys.argv[1:]
-    args = [a for a in sys.argv[1:] if a != "--cpu"]
+    args = [a for a in sys.argv[1:] if a not in ("--cpu", "--arm")]
     if not cpu and not torch.cuda.is_available():
         print("chip_trace: torch.cuda.is_available() is False — needs a "
               "CUDA device", file=sys.stderr)
@@ -75,6 +83,9 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, cuda {torch.version.cuda}")
     log(f"tracing on from import: {profiling.enabled()}")
     dev = torch.device("cpu" if cpu else "cuda")
+    if "--arm" in sys.argv[1:]:
+        profiling.enable(True)
+        return arm(out, dev, cpu)
     n, b, res, cap, sel = ((3000, 4, 64, 256, 16) if cpu
                            else (N, B, RES, 1024, 48))
     sync = torch.cuda.synchronize if not cpu else (lambda: None)
@@ -151,25 +162,7 @@ def main() -> int:
 
     # 3. one step of each under device_trace ---------------------------------
     for name, fn in (("datagen", fwd), ("train", train)):
-        with profiling.device_trace(out / name):
-            fn()
-        idle = json.loads((out / name / "idle_by_span.json").read_text())
-        outside = idle["by_span"].get(profiling.OUTSIDE, {"idle_s": 0.0})
-        log(f"{name}: window {idle['window_s']:.4f} s, busy "
-            f"{idle['busy_s']:.4f} s, idle {idle['idle_s']:.4f} s in "
-            f"{idle['gaps']} gaps; outside every span "
-            f"{100 * outside['idle_s'] / idle['idle_s']:.3f} % of the idle; "
-            f"record_function lag {idle['record_function_lag_us']} us")
-        for k, v in idle["by_span"].items():
-            log(f"  {k}: {v['idle_s'] * 1e3:.3f} ms in {v['gaps']} gaps")
-        root = profiling.roots()[-1]
-        log(f"  host ms by span in {root.name} "
-            f"({root.seconds * 1e3:.1f} ms, self {root.self_s * 1e3:.3f}): "
-            + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in
-                        sorted(root.by_name.items(), key=lambda kv: -kv[1])))
-        for c in profiling.counter_events():
-            if c.step == root.step and c.value:
-                log(f"  {c.name}: {c.value}")
+        traced(out / name, fn)
 
     # 4. train steps with tracing on and off, in turns -----------------------
     ms = {True: [], False: []}
@@ -193,6 +186,63 @@ def main() -> int:
         f"{statistics.median(diff):.2f}, quartiles {q[0]:.2f} {q[2]:.2f}; "
         f"on slower in {sum(d > 0 for d in diff)} of {len(diff)} pairs")
     log(f"spans dropped: {profiling.dropped()}")
+    return 0
+
+
+def traced(outdir: Path, fn):
+    """``fn()`` inside ``device_trace(outdir)`` with tracing on; log where
+    the device's idle time fell and the host ms of the last root's spans."""
+    from sim_a_splat_torch.utils import profiling
+    with profiling.device_trace(outdir):
+        fn()
+    idle = json.loads((outdir / "idle_by_span.json").read_text())
+    outside = idle["by_span"].get(profiling.OUTSIDE, {"idle_s": 0.0})
+    log(f"{outdir.name}: window {idle['window_s']:.4f} s, busy "
+        f"{idle['busy_s']:.4f} s, idle {idle['idle_s']:.4f} s in "
+        f"{idle['gaps']} gaps; outside every span "
+        f"{100 * outside['idle_s'] / idle['idle_s']:.3f} % of the idle; "
+        f"record_function lag {idle['record_function_lag_us']} us")
+    for k, v in idle["by_span"].items():
+        log(f"  {k}: {v['idle_s'] * 1e3:.3f} ms in {v['gaps']} gaps")
+    root = profiling.roots()[-1]
+    log(f"  host ms by span in {root.name} "
+        f"({root.seconds * 1e3:.1f} ms, self {root.self_s * 1e3:.3f}): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in
+                    sorted(root.by_name.items(), key=lambda kv: -kv[1])))
+    for c in profiling.counter_events():
+        if c.step == root.step and c.value:
+            log(f"  {c.name}: {c.value}")
+
+
+def arm(out: Path, dev, cpu: bool) -> int:
+    """The arm's collect step under ``device_trace`` (the module's notes)."""
+    import torch
+    from sim_a_splat_torch import entry
+    n, size = (3000, (48, 64)) if cpu else (100_000, (240, 320))
+    w = entry.build_product_wrapper(n_total=n, render_size=size, device=dev)
+    collect = entry.make_product_collect(w)
+    caches = w.build_render_cache()
+    for B, settle in ((1, 120), (8, 40)):
+        states, actions = entry.product_inputs(w, B, 2,
+                                               settle=3 if cpu else settle)
+        run = {"s": states, "mc": None if B > 1 else w.build_moving_caches(
+            w.env.draw_state(states), margin=16.0, kc=512, z_split=0.35,
+            near_cap=16384)}
+
+        def step(i):
+            def fn():
+                with torch.no_grad():
+                    tr, run["mc"] = collect(run["s"], actions[i], caches,
+                                            run["mc"])
+                run["s"] = tr.state
+            return fn
+
+        if B == 1:
+            step(0)()                               # warm-up
+            traced(out / "arm_b1", step(1))
+        else:
+            traced(out / "arm_b8_first", step(0))
+            traced(out / "arm_b8", step(1))
     return 0
 
 

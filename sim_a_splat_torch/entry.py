@@ -29,8 +29,10 @@ Port of ``_build_scene``, ``_make_step_cached_batch``, ``_make_step_cached``,
   an articulated arm in a splat scene (``envs/splat_wrapper.py`` over
   ``envs/manipulator_envs.py``) seen by a fixed viewport (K1 once per
   rollout, K2 every frame) and an end-effector camera (K3 every frame),
-  forward and in training (``product_loss_and_grads``), and the one-env
-  teleop step;
+  forward and in training (``product_loss_and_grads``), the one-env
+  teleop step, and the data-collection step (``make_product_collect``),
+  which rebuilds an env's end-effector caches where its camera has left
+  their margin budget;
 - the splat trainer's protocol (``benchmarks/train_scene.py``): the
   ground-truth scene, the ring cameras, the degraded init and the
   script's configs (``train_scene_inputs``), for ``splat/train.py``'s
@@ -599,27 +601,23 @@ PRODUCT_RENDER = dict(sel_tiles=256, dyn_capacity=256, dyn_max_tiles=9,
 PRODUCT_RESET = {"robot_pos": np.zeros(6),
                  "block_pos": np.array([0.45, 0.0, 0.2, 0.0])}
 PRODUCT_ACTION = (0.0, 0.3, 0.4, 0.0, 0.4, 0.0)
+PRODUCT_BLOCK_REST = (0.45, 0.0, 0.0)
 # the reference's ManipulatorState leaves (numpy, by field name; ``arm`` as
 # (q, qd, target_prev)) as the port's batched state
 product_state_from_numpy = state_from_numpy
 
 
-def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
-                          render_size=(240, 320), raster=None,
-                          device="cuda"):
-    """The arm product scene and its wrapper (``bench_product.py``'s
-    ``build_product_wrapper``): ``pusharm6`` with the end effector
-    ``push_tool``, a background cloud, one cluster per link at its rest
-    pose (the port's ``fk`` at q = 0) and a T-block cluster, drawn with the
-    reference's ``numpy.random.default_rng(seed)`` calls in its order;
-    camera key 0 a fixed viewport and key 1 on the end effector (offset
-    (0, −0.15, −1.2) in world axes), both ``render_size`` (h, w), fov 1.05
-    (moving cameras render first: ``camera_0`` of the observation is the
-    end effector's); ``raster`` default :data:`PRODUCT_RASTER`."""
+def product_scene(n_total=100_000, sh_degree=3, seed=0, chain=None,
+                  device="cuda"):
+    """The arm product scene (``bench_product.py``'s draws): a background
+    cloud, one cluster per link of ``chain`` (default ``pusharm6``) at its
+    rest pose (the port's ``fk`` at q = 0) and a T-block cluster, drawn with
+    the reference's ``numpy.random.default_rng(seed)`` calls in its order.
+    Returns ``(scene, link_masks)``: masks ``link{i}`` for link i of the
+    chain and ``task`` for the block, as :func:`build_product_wrapper`
+    takes them."""
     dev = resolve_device(device)
-    chain = kin.load_chain(PRODUCT_URDF)
-    env = ManipulatorEnvF(chain=chain, eef_link="push_tool",
-                          env_objects=True, device=str(dev))
+    chain = kin.load_chain(PRODUCT_URDF) if chain is None else chain
     rng = np.random.default_rng(seed)
     rest_fk = kin.fk(chain, torch.zeros(6))
     n_links = rest_fk.q.shape[0]
@@ -644,8 +642,8 @@ def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
     for i in range(n_links):
         parts.append(cluster(rest_t_np[i], n_link, [0.3, 0.4, 0.8], 0.05))
         sizes.append(n_link)
-    block_rest = np.asarray([0.45, 0.0, 0.0])
-    parts.append(cluster(block_rest, n_block, [0.6, 0.55, 0.5], 0.06))
+    parts.append(cluster(PRODUCT_BLOCK_REST, n_block, [0.6, 0.55, 0.5],
+                         0.06))
     sizes.append(n_block)
 
     def cat(k):
@@ -668,9 +666,34 @@ def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
     mt = np.zeros(n, bool)
     mt[off[-2]:off[-1]] = True
     masks["task"] = mt
+    return scene, masks
 
+
+def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
+                          render_size=(240, 320), raster=None,
+                          device="cuda", scene=None, link_masks=None):
+    """The arm product scene and its wrapper (``bench_product.py``'s
+    ``build_product_wrapper``): ``pusharm6`` with the end effector
+    ``push_tool`` in the scene of :func:`product_scene` (``n_total``,
+    ``sh_degree``, ``seed``), or in ``scene`` with ``link_masks`` where
+    both are given (masks ``link{i}`` for link i of the chain, ``task`` for
+    the block, whose rest pose is (0.45, 0, 0)); camera key 0 a fixed
+    viewport and key 1 on the end effector (offset (0, −0.15, −1.2) in
+    world axes), both ``render_size`` (h, w), fov 1.05 (moving cameras
+    render first: ``camera_0`` of the observation is the end effector's);
+    ``raster`` default :data:`PRODUCT_RASTER`."""
+    dev = resolve_device(device)
+    chain = kin.load_chain(PRODUCT_URDF)
+    env = ManipulatorEnvF(chain=chain, eef_link="push_tool",
+                          env_objects=True, device=str(dev))
+    if (scene is None) != (link_masks is None):
+        raise ValueError("give both scene and link_masks, or neither")
+    if scene is None:
+        scene, link_masks = product_scene(n_total, sh_degree, seed, chain,
+                                          dev)
+    rest_fk = kin.fk(chain, torch.zeros(6))
     ident = SE3.identity((1,))
-    block_t = torch.as_tensor(block_rest, dtype=torch.float32)[None]
+    block_t = torch.as_tensor(PRODUCT_BLOCK_REST, dtype=torch.float32)[None]
     rest = SE3(torch.cat([ident.q, rest_fk.q,
                           torch.tensor([[1.0, 0.0, 0.0, 0.0]])]),
                torch.cat([ident.t, rest_fk.t, block_t]))
@@ -685,9 +708,9 @@ def build_product_wrapper(n_total=100_000, sh_degree=3, seed=0,
                       fov=1.05),
     }
     return SplatEnvWrapperF.build(
-        env=env, scene=scene, link_masks=masks, camera_setup_info=cameras,
-        task_mask_key="task", rest_poses_world=rest.to(dev),
-        scene_frame="world",
+        env=env, scene=scene, link_masks=link_masks,
+        camera_setup_info=cameras, task_mask_key="task",
+        rest_poses_world=rest.to(dev), scene_frame="world",
         raster=RasterConfig(**PRODUCT_RASTER) if raster is None else raster)
 
 
@@ -751,6 +774,52 @@ def make_product_rollout(wrapper, sel_tiles=256, dyn_capacity=256,
                                            z_split=z_split, near_cap=near_cap)
 
     return rollout, step, build_moving
+
+
+def make_product_collect(wrapper):
+    """The arm product path's data-collection step at
+    :data:`PRODUCT_RENDER`: ``collect(states, actions, caches,
+    moving_caches=None) → (transition, moving_caches)`` drives every env
+    of the batch through one control step and renders both cameras.
+
+    ``caches`` are the fixed cameras' (``wrapper.build_render_cache``);
+    ``moving_caches`` the end-effector camera's from the last call, or
+    None at an episode's start, when they are built from ``states``.
+    After ``env.step`` the camera is posed at the new state, and each env
+    whose camera would use more than its cache's margin budget there
+    (``camera_budget_used`` > 1) has its moving caches rebuilt from the
+    new state (``wrapper.rebuild_moving_caches``: those envs alone, the
+    rest keep theirs); then ``render_with_cache_batch`` renders both
+    cameras, as ``step_with_cache_batch`` does, without computing the
+    budget again.  So no frame it returns is severe for the budget:
+    ``info['render_overflow']`` counts only near-set overflow and dynamics
+    dropped from unselected tiles.  ``info['render_rebuilt']`` (B,) int32
+    marks the envs rebuilt in this step.  Returns the transition and the
+    moving caches it rendered with, for the next call.  The root span of a
+    call is ``step.arm``."""
+    kw = {k: PRODUCT_RENDER[k] for k in ("sel_tiles", "dyn_capacity",
+                                         "dyn_max_tiles")}
+    build = {k: PRODUCT_RENDER[k] for k in ("margin", "kc", "z_split",
+                                            "near_cap")}
+    env = wrapper._base_env()
+
+    @span("step.arm")
+    def collect(states, actions, caches, moving_caches=None):
+        if moving_caches is None:
+            moving_caches = wrapper.build_moving_caches(
+                env.draw_state(states), **build)
+        tr = wrapper.env.step(states, actions)
+        draws = env.draw_state(tr.state)
+        moving_caches, rebuilt = wrapper.rebuild_moving_caches(
+            moving_caches, draws, **build)
+        imgs, aux = wrapper.render_with_cache_batch(
+            tr.state, caches, draws=draws, moving_caches=moving_caches,
+            within_budget=True, **kw)
+        out = wrapper._with_images(tr, imgs, aux)
+        out.info["render_rebuilt"] = rebuilt.to(torch.int32)
+        return out, moving_caches
+
+    return collect
 
 
 def product_loss_and_grads(rollout, scene: GaussianScene, states,

@@ -35,6 +35,7 @@ from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.ops.transforms import SE3
 from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import planar
+from sim_a_splat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,16 +256,21 @@ class ManipulatorEnvF:
         return state._replace(block_pos=new_pos, block_yaw=new_yaw,
                               block_vel=v, block_omega=w)
 
+    @span("physics")
     def step(self, state: ManipulatorState,
              action: torch.Tensor) -> Transition:
         """One control step for every env: joint targets ``action`` (B,
         ndof) through the PD loop, then the block pushed by the end
-        effector swept linearly over the contact substeps."""
-        prev_eef = self._eef_pose(state).t[:, :2]
-        arm = kin.arm_step(self.chain, state.arm, action, dt=self.time_step,
-                           kp=self.kp, kd=self.kd)
-        state = state._replace(arm=arm, t=state.t + self.time_step)
-        eef = self._eef_pose(state)
+        effector swept linearly over the contact substeps.  Spans:
+        ``physics``, with ``physics.arm`` (the PD loop and the end
+        effector's FK), ``physics.solve`` (each substep's contact solve)
+        and ``physics.info`` (:meth:`_get_info`)."""
+        with span("physics.arm"):
+            prev_eef = self._eef_pose(state).t[:, :2]
+            arm = kin.arm_step(self.chain, state.arm, action,
+                               dt=self.time_step, kp=self.kp, kd=self.kd)
+            state = state._replace(arm=arm, t=state.t + self.time_step)
+            eef = self._eef_pose(state)
         if self.env_objects:
             new_eef = eef.t[:, :2]
             eef_vel = (new_eef - prev_eef) / self.time_step
@@ -275,10 +281,12 @@ class ManipulatorEnvF:
                 state = self._block_substep(state, exy, eef_vel, h)
         state = state._replace(prev_eef_xy=eef.t[:, :2])
         reward = self._compute_reward(state)
+        with span("physics.info"):
+            info = self._get_info(state)
         return Transition(state=state, obs=self._get_obs(state),
                           reward=reward, terminated=torch.abs(reward) < 0.02,
                           truncated=torch.zeros_like(reward, dtype=torch.bool),
-                          info=self._get_info(state))
+                          info=info)
 
     # --- obs / info / reward -----------------------------------------------
 

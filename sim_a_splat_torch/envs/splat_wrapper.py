@@ -21,7 +21,11 @@ Three render routes, as in the reference:
 
 ``rollout_with_cache_batch`` steps R frames, each frame's render
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``).  The counters keep the reference's classes:
+``jax.checkpoint``), over moving caches built once from the first states.
+``rebuild_moving_caches`` rebuilds an env's moving caches where its camera
+has left their margin budget (the data-collection step
+``entry.make_product_collect``, which never returns a frame severe for
+the budget).  The counters keep the reference's classes:
 ``info['render_overflow']`` severe (dynamics dropped from unselected
 tiles, a moving camera past its margin budget, near-set overflow),
 ``info['render_truncated']`` bounded.  As in the reference, a moving
@@ -63,6 +67,7 @@ from sim_a_splat_torch.scenegraph.registration import (
     canonicalize, splat_to_world_pose,
 )
 from sim_a_splat_torch.splat.scene import GaussianScene
+from sim_a_splat_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,6 +392,7 @@ class SplatEnvWrapperF:
             imgs.append(img)
         return imgs
 
+    @span("render.moving_build")
     def build_moving_caches(self, draws: DrawState,
                             scene: GaussianScene | None = None,
                             margin: float = 16.0, kc: int = 1024,
@@ -413,12 +419,51 @@ class SplatEnvWrapperF:
                 t_max=t_max, near_cap=near_cap)
         return out
 
+    def rebuild_moving_caches(self, moving_caches: dict, draws: DrawState,
+                              **build) -> tuple:
+        """The moving caches made valid for ``draws`` (B, ·): an env whose
+        camera, posed by ``draws``, would use more than its cache's margin
+        budget (``rasterize_moving.camera_budget_used`` > 1, past which the
+        cache may miss gaussians) has the caches of every moving camera
+        rebuilt from its own draw state (:meth:`build_moving_caches` on
+        those envs alone, with ``build``'s settings); the other envs keep
+        theirs.  Returns ``(caches, rebuilt)``, ``rebuilt`` (B,) bool; the
+        number rebuilt goes to the counter ``render.moving_rebuilds``.  The
+        decision is read on the host: one synchronisation."""
+        over = None
+        for key, spec in self.cameras:
+            if spec.type != "moving" or key not in moving_caches:
+                continue
+            cams = self._camera(self._moving_pose(spec, draws), spec)
+            o = rasterize_moving.camera_budget_used(moving_caches[key],
+                                                    cams) > 1.0
+            over = o if over is None else over | o
+        if over is None:
+            return moving_caches, torch.zeros(
+                draws.poses.t.shape[0], dtype=torch.bool, device=self.device)
+        idx = torch.nonzero(over)[:, 0]
+        count("render.moving_rebuilds", int(idx.numel()))
+        if idx.numel() == 0:
+            return moving_caches, over
+        fresh = self.build_moving_caches(
+            DrawState(poses=SE3(draws.poses.q[idx], draws.poses.t[idx])),
+            **build)
+        out = dict(moving_caches)
+        for key, mc in fresh.items():
+            # the scalar leaves (margin, z_split, t_max) are the build's
+            out[key] = rasterize_moving.MovingCache(*(
+                old.index_copy(0, idx, new) if old.dim() else old
+                for old, new in zip(moving_caches[key], mc)))
+        return out, over
+
+    @span("render.cameras")
     def render_with_cache_batch(self, env_states, caches: dict,
                                 draws: DrawState | None = None,
                                 dyn_capacity: int = 128,
                                 sel_tiles: int = 96,
                                 dyn_max_tiles: int = 9,
-                                moving_caches: dict | None = None):
+                                moving_caches: dict | None = None,
+                                within_budget: bool = False):
         """One batched render of every camera for all envs (the product
         path).
 
@@ -428,8 +473,11 @@ class SplatEnvWrapperF:
         (the reference's route choice, here on the alignment alone), else
         the per-env cached render (``rasterize_with_cache``).  Moving
         cameras with ``moving_caches``: each env's candidate cache
-        reprojected, merged with its dynamics and the near set, kernel K3.
-        Any other camera: a full rebin per env.
+        reprojected, merged with its dynamics and the near set, kernel K3;
+        ``within_budget`` says the caller has made every env's moving caches
+        valid for ``draws`` (``rebuild_moving_caches``), so the margin
+        budget is not computed again.  Any other camera: a full rebin per
+        env.
 
         Returns ``(imgs, aux)``: one (B, 3, H, W) batch per camera in
         render order, and totals ``dropped_tiles`` (severe: dynamics
@@ -490,9 +538,10 @@ class SplatEnvWrapperF:
                     dyn_max_tiles=dyn_max_tiles, background=bg)
                 # severe: a camera past its margin budget; the build-time
                 # counters are added in every frame, as the reference does
-                overflow = (overflow + torch.sum(
-                    rasterize_moving.camera_budget_used(mc, cams) > 1.0)
-                    + torch.sum(mc.n_near_over))
+                if not within_budget:
+                    overflow = overflow + torch.sum(
+                        rasterize_moving.camera_budget_used(mc, cams) > 1.0)
+                overflow = overflow + torch.sum(mc.n_near_over)
                 truncated = (truncated + aux.n_overflowed_tiles
                              + aux.n_slot_truncated
                              + torch.sum(mc.n_build_truncated))

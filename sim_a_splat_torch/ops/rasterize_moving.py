@@ -54,6 +54,7 @@ from sim_a_splat_torch.ops.rasterize_cached import (
 from sim_a_splat_torch.ops.rasterize_tiles import (
     RasterAux, RasterConfig, _bin_gaussians, untile_image,
 )
+from sim_a_splat_torch.utils.profiling import span
 
 
 class MovingCache(NamedTuple):
@@ -437,6 +438,7 @@ def _sort_by_key(payload: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return payload.gather(-1, order.unsqueeze(-2).expand_as(payload))
 
 
+@span("render.moving")
 def render_moving_batch(caches: MovingCache, cameras: Camera, dyn_means,
                         dyn_quats, dyn_log_scales, dyn_colors, dyn_opacities,
                         config: RasterConfig, sh_degree: int,

@@ -1246,3 +1246,71 @@ def test_pusht_kernel_rejects_inputs(dev):
         pusht.control_step(P, st, act.expand(2, 2))
     with pytest.raises(ValueError, match="float64"):
         pusht.control_step(P, st, act.repeat(2, 1).double())
+
+
+# the arm deployment's collect step (entry.make_product_collect) at the
+# product shapes, held to the benchmark's plain reference
+# (perfbench/reference/pusharm.py) by the cell's own check and limits
+ARM_CELLS = {1: "teleop_b1", 8: "datagen_b8"}
+
+
+@pytest.mark.parametrize("B", sorted(ARM_CELLS))
+def test_collect_step_at_product_shapes_matches_the_reference(dev, B):
+    """Both cameras of B envs through a few collect steps at N = 100k and
+    240×320 (episodes of 4 steps at B = 8, so the episode's build and its
+    rebuilds both run), then the cell's check: states, images, the
+    rebuild decisions and the severe and bounded counts against the plain
+    reference, each within the configuration's limit."""
+    import json
+
+    from perfbench.harness import bench as harness
+    from perfbench.systems import pusharm
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "perfbench"
+    cfg = harness.load_config("pusharm6_100k_sh3")
+    mix = json.loads((root / "traffic" / f"{ARM_CELLS[B]}.json").read_text())
+    mix.update(settle=10, window_phase=2,
+               check={"steps": 2, "before": 6, "envs": B})
+    mix["walk"] = dict(mix["walk"], steps=4 if B > 1 else 32)
+    system = pusharm.System(cfg, mix, 2190000017, dev)
+    for _ in range(7):
+        system.step()
+    steps_severe, severe = system.counters()
+    system.release()
+    got = dict(system.check(), severe=severe)
+    print(f"B={B}: {got}")
+    for k in pusharm.READINGS:
+        assert got[k] <= cfg["limits"][k], (k, got[k], cfg["limits"][k])
+
+
+def test_collect_step_spans_and_rebuild_counter_on_card(dev):
+    """One traced collect step at an episode's start records the root
+    ``step.arm`` with the physics' and the cameras' spans under it, and the
+    counter ``render.moving_rebuilds`` in its step."""
+    from sim_a_splat_torch.utils import profiling
+
+    w = entry.build_product_wrapper(n_total=6000, sh_degree=3,
+                                    render_size=(240, 320), device=dev)
+    collect = entry.make_product_collect(w)
+    states, actions = entry.product_inputs(w, 2, 1, settle=5)
+    caches = w.build_render_cache()
+    was = profiling.enabled()
+    profiling.clear()
+    profiling.enable(True)
+    try:
+        with torch.no_grad():
+            tr, mc = collect(states, actions[0], caches)
+        torch.cuda.synchronize()
+        (root,) = profiling.roots("step.arm")
+        events = [c for c in profiling.counter_events()
+                  if c.name == "render.moving_rebuilds"]
+    finally:
+        profiling.enable(was)
+        profiling.clear()
+    for name in ("physics", "physics.arm", "physics.info", "render.cameras",
+                 "render.moving", "render.moving_build", "render.k2f",
+                 "render.k3f"):
+        assert root.calls.get(name, 0) >= 1, (name, root.calls)
+    assert root.calls["physics.solve"] == 4
+    assert [e.step for e in events] == [root.step]
+    assert events[0].value == int(tr.info["render_rebuilt"].sum())
