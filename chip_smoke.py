@@ -58,7 +58,10 @@ training, at N=100k gaussians, SH degree 3 (the pushT paths at 256×256):
   forward and in training (``entry.product_loss_and_grads``), the kernels
   against their plain versions at the path's inputs (the end-effector
   camera's near set on), the B=1 teleop step with its moving-cache rebuild
-  timed apart, and the arm physics' share of the rollout;
+  timed apart, and the arm physics' share of the rollout; and the arm's
+  control step's kernel P2 (``csrc/arm_step.cu``, one launch a step) at
+  B=1 and B=8 against the plain step over 32 chained steps from the
+  settled states, timed beside its chain bound;
 - the env layer: ``PushTEnvF.step`` at B=128 in each observation mode
   (state, keypoints, 96² images) beside ``control_step`` and the reward
   alone, its reward, done and observation held to the port's CPU run on
@@ -150,6 +153,13 @@ ITERS = 5
 # sqrtf and IEEE divisions at their instruction sequences), each
 # PUSHT_OP_CYCLES (an FP32 op's latency on an H100) at the SM's top clock
 PUSHT_SLOT_OPS, PUSHT_SUBSTEP_OPS, PUSHT_OP_CYCLES = 28, 150, 4
+# the arm kernel's bound, likewise: its PGS slot visits at PUSHT_SLOT_OPS,
+# a contact substep's two circle-quad contacts, per-slot constants and
+# integration (ARM_SUBSTEP_OPS), and its FKs of the end effector's 7 links
+# (ARM_FK_OPS each: a quaternion product, a normalisation and a rotation a
+# link; the one with tangents counted twice)
+ARM_SUBSTEP_OPS, ARM_FK_OPS = 120, 280
+ARM_STEP_STEPS = 32   # chained steps of the arm kernel's check
 # K2f and K2b of the first design (one thread per pixel, K2b's per-slot
 # output summed by index_add_), K4 on that walk, and K1f and K1b of the
 # first design (one block per tile walking its chunks in order): this
@@ -415,6 +425,96 @@ def pusht_row(pusht, P, state_sets, actions):
                 plain_grad_ms=grad_ms,
                 bound_ms=bound_ms, bound_by="dependent chain",
                 library_ms=None)
+
+
+def arm_fields(tr) -> dict:
+    """An arm transition's state (with reward and flags) and info, by
+    name."""
+    out = dict(zip(("q", "qd", "target_prev"), tr.state.arm))
+    out.update((n, getattr(tr.state, n)) for n in tr.state._fields[1:])
+    out.update(reward=tr.reward, terminated=tr.terminated,
+               truncated=tr.truncated)
+    return out, dict(tr.info)
+
+
+def arm_step_row(env, inputs, launches):
+    """Kernel P2 (``csrc/arm_step.cu``, one launch a control step) on each
+    of ``inputs`` ({B: (state, (R, B, 6) actions)}): R chained steps
+    against the plain step on the card from the same states (max|Δ| per
+    field; the state, reward and flags held equal, the info within 1e-5),
+    its launch timed by CUDA events (called through its C entry point,
+    whose host cost is below the kernel's; its device time under the
+    profiler beside) against the plain path's time and the chain bound,
+    and the host ms of a step through the env's wrapper.  Returns its
+    ``kernels`` row (``ms`` at the largest B, ``ms_b<B>`` at each)."""
+    import ctypes
+
+    import torch
+    from sim_a_splat_torch.envs import manipulator_envs as me
+    from sim_a_splat_torch.ops import _kernels
+    launch = _kernels.function("arm_step", "arm_step_launch", me._STEP_ARGS)
+    c = env.kernel_constants()
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    ops = (c.contact_substeps * (c.iterations * 2 * PUSHT_SLOT_OPS
+                                 + ARM_SUBSTEP_OPS) + 3 * ARM_FK_OPS)
+    bound_ms = ops * PUSHT_OP_CYCLES / (mhz * 1e3)
+    row = dict(name="arm_step", route="cuda",
+               source="sim_a_splat_torch/csrc/arm_step.cu", replaces=None,
+               launches=launches, max_abs_err=0.0, bound_ms=bound_ms,
+               bound_by="dependent chain", library_ms=None)
+    for B, (st, acts) in sorted(inputs.items()):
+        state_gap, info_gap = {}, {}
+        s = st
+        with torch.no_grad():
+            for a in acts:
+                got, want = env.step(s, a), env.step_plain(s, a)
+                for gaps, g, w in zip((state_gap, info_gap), arm_fields(got),
+                                      arm_fields(want)):
+                    for n in w:
+                        d = float((g[n].float() - w[n].float()).abs().max())
+                        gaps[n] = max(gaps.get(n, 0.0), d)
+                s = got.state
+        a0 = acts[0]
+        fields = {**st.arm._asdict(), **st._asdict()}
+        # the outputs stay referenced while the launches write them
+        outs, arrays = me.kernel_arguments(
+            [fields[n] for n in me._KERNEL_INPUTS], a0, c.ndof)
+        addr = [ctypes.addressof(x) for x in arrays]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kernel():
+            launch(*addr, B, c, stream)
+        with torch.no_grad():
+            ms = cuda_ms(kernel, 200, warmup=20)
+            plain_ms = cuda_ms(lambda: env.step_plain(st, a0), 2)
+            dev_ms = device_ms_text(kernel, 50)
+            env.step(st, a0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                env.step(st, a0)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / 50
+        del outs
+        log(f"physics, the arm's control step at B={B}: kernel arm_step "
+            f"{ms:.4f} ms (events over 200 launches; device time under the "
+            f"profiler {dev_ms}), a step through the env's wrapper "
+            f"{host_ms:.4f} ms (host clock), plain path {plain_ms:.2f} ms, "
+            f"chain bound {bound_ms:.4f} ms ({ops} dependent ops × "
+            f"{PUSHT_OP_CYCLES} cycles at {mhz:.0f} MHz); max|Δ| vs the "
+            "plain path over "
+            f"{len(acts)} chained steps: state "
+            + ", ".join(f"{n} {g:.3e}" for n, g in state_gap.items())
+            + "; info " + ", ".join(f"{n} {g:.3e}"
+                                    for n, g in info_gap.items()))
+        if any(state_gap.values()) or max(info_gap.values()) > 1e-5:
+            raise AssertionError(f"arm_step at B={B} is not the plain step: "
+                                 f"{state_gap}, {info_gap}")
+        row.update({f"ms_b{B}": ms, f"plain_ms_b{B}": plain_ms,
+                    f"host_ms_b{B}": host_ms, "ms": ms, "plain_ms": plain_ms})
+        row["max_abs_err"] = max(row["max_abs_err"], *info_gap.values())
+    return row
 
 
 def check_rows(name, got, want, what, rel=TOL_GRAD):
@@ -961,6 +1061,7 @@ def main() -> int:
         rasterize_moving,
     )
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+    from sim_a_splat_torch.envs import manipulator_envs
     from sim_a_splat_torch.physics import pusht
 
     dev = torch.device("cuda")
@@ -1042,6 +1143,7 @@ def main() -> int:
             m.launches = 0
             m.launches_bwd = 0
         pusht.launches = 0
+        manipulator_envs.launches = 0
 
     def counts_now():
         return {"composite_static": composite.launches,
@@ -2430,9 +2532,12 @@ def arm_product(entry, composite, composite_sel, composite_single,
     forward rollout and the train rollout timed (launches, counters, peak
     memory, a profile); the B=1 teleop step with its moving-cache rebuild
     timed apart; images and gradients against the port's plain path; the
-    moving camera against its full rebin where no frame is severe.  Returns
-    the six kernels' rows (names ending ``_arm``)."""
+    moving camera against its full rebin where no frame is severe; then P2
+    (``arm_step``, one launch a step: ``ARM_R`` in the forward rollout)
+    at B = 1 and B = 8 from the cells' settled states.  Returns the six
+    kernels' rows (names ending ``_arm``) and P2's."""
     import torch
+    from sim_a_splat_torch.envs import manipulator_envs
     from sim_a_splat_torch.envs.manipulator_envs import (
         ManipulatorEnvF, ManipulatorState,
     )
@@ -2527,6 +2632,10 @@ def arm_product(entry, composite, composite_sel, composite_single,
     if any(launches[n] != want.get(n, 0) for n in launches):
         raise AssertionError(f"the forward rollout launched {launches}, "
                              f"not {want}")
+    p2_launches = manipulator_envs.launches
+    if p2_launches != ARM_R:
+        raise AssertionError(f"arm_step launched {p2_launches} times in "
+                             f"{ARM_R} steps of the forward rollout")
     for i, k in enumerate(("camera_0", "camera_1")):
         img = trs.obs[k]
         if img.shape != (ARM_R, ARM_B, 3, h, w) or \
@@ -2709,6 +2818,12 @@ def arm_product(entry, composite, composite_sel, composite_single,
         log(f"  exact case: within atol {atol} / rtol {rtol}")
     else:
         log("  not gated: a severe or bounded count is nonzero")
+
+    # 25. P2, the arm's control step, at the cells' B = 1 and B = 8 --------
+    p2_inputs = {b: entry.product_inputs(wrapper, b, ARM_STEP_STEPS,
+                                         settle=ARM_SETTLE)
+                 for b in (1, ARM_B)}
+    rows.append(arm_step_row(wrapper._base_env(), p2_inputs, p2_launches))
     return rows
 
 

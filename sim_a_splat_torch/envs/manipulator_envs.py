@@ -14,10 +14,21 @@ velocities, J(q)·q̇ for the reference's two ``jax.jacfwd`` Jacobians, are
 one forward-mode derivative each (``torch.func.jvp`` along q̇).  ``reset``
 draws from a ``torch.Generator``, whose numbers differ from
 ``jax.random``'s; ``reset_to_state`` gives the reference's states.
+
+On the card the control step is one launch of the hand-written kernel
+``csrc/arm_step.cu`` (P2), a thread an env through the PD loop, the FK,
+the contact substeps and ``_get_info``'s J·q̇, through the dispatcher
+operator ``sim_a_splat::arm_step``; each adds one to ``launches``.  CPU
+tensors, and inputs that need a gradient while grad mode is on (the kernel
+has no backward), take the plain version, ``step_plain``: the CPU tests'
+path and the card tests' oracle.  Other CUDA inputs (not float32, a row
+whose elements are not adjacent, a wrong shape, a chain past the kernel's
+caps) raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -31,11 +42,17 @@ from sim_a_splat_torch.messaging.draw import (
     GEOM_MESH, DrawState, GeomSchema, LinkSchema, ROBOT_NUM_ROBOT,
     ROBOT_NUM_TASK, SceneSchema,
 )
+from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.ops.transforms import SE3
 from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import planar
 from sim_a_splat_torch.utils.profiling import span
+
+launches = 0   # arm_step launches since the last reset (set to 0 to reset)
+
+# csrc/arm_step.cu's caps on a chain: pusharm6 has 8 links and 6 joints
+ARM_MAX_LINKS, ARM_MAX_DOF = 8, 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +102,102 @@ class Transition(NamedTuple):
     terminated: torch.Tensor
     truncated: torch.Tensor
     info: dict
+
+
+class ArmKernelConstants(ctypes.Structure):
+    """The chain's and the task's constants as ``csrc/arm_step.cu`` takes
+    them (its ``ArmConstants``, by value): each rounded to float32 from the
+    Python scalar the plain path uses, as PyTorch rounds a scalar operand
+    of a float32 tensor (:meth:`ManipulatorEnvF.kernel_constants`)."""
+
+    _fields_ = [
+        *((f, ctypes.c_int * ARM_MAX_LINKS)
+          for f in ("parent", "jtype", "qidx")),
+        ("origin_q", ctypes.c_float * (4 * ARM_MAX_LINKS)),
+        ("origin_t", ctypes.c_float * (3 * ARM_MAX_LINKS)),
+        ("axis", ctypes.c_float * (3 * ARM_MAX_LINKS)),
+        *((f, ctypes.c_float * ARM_MAX_DOF) for f in ("lo", "hi", "vmax")),
+        ("weld_q", ctypes.c_float * 4), ("weld_t", ctypes.c_float * 3),
+        *((f, ctypes.c_int) for f in ("num_links", "ndof", "eef")),
+        *((f, ctypes.c_float) for f in ("kp", "kd", "pd_h", "inv_dt", "dt")),
+        ("pd_substeps", ctypes.c_int),
+        ("polys", ctypes.c_float * 16), ("cog", ctypes.c_float * 2),
+        *((f, ctypes.c_float) for f in (
+            "radius", "mu", "inv_mass", "inv_inertia", "bias_rate", "slop",
+            "contact_h", "done_below")),
+        *((f, ctypes.c_int) for f in ("contact_substeps", "iterations",
+                                      "env_objects"))]
+
+
+# the kernel's inputs after the action, and its outputs: (name, width or
+# None for a (B,) field), then the two (B,) bool flags
+_KERNEL_INPUTS = ("q", "qd", "target_prev", "block_pos", "block_yaw",
+                  "block_vel", "block_omega", "goal", "t")
+_KERNEL_OUTPUTS = (("q", "dof"), ("qd", "dof"), ("block_pos", 2),
+                   ("block_yaw", None), ("block_vel", 2),
+                   ("block_omega", None), ("prev_eef_xy", 2), ("t", None),
+                   ("reward", None), ("eef_pos", 3), ("eef_quat", 4),
+                   ("eef_pos_vel", 3), ("eef_rot_vel", 3), ("block_pose", 7),
+                   ("info_block_vel", 6))
+_STEP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ArmKernelConstants,
+                                      ctypes.c_void_p]
+
+
+def kernel_arguments(state: list, action: torch.Tensor, ndof: int):
+    """The launch's outputs, allocated: ``_KERNEL_OUTPUTS``' tensors, then
+    ``terminated`` and ``truncated``; and its three pointer arguments, as
+    ctypes arrays (the inputs ``state`` and ``action``, their row strides
+    in elements, the outputs).  Returns (outputs, arrays)."""
+    dev = action.device
+    B = action.shape[0]
+    out = [torch.empty((B,) if w is None else (B, ndof if w == "dof" else w),
+                       dtype=torch.float32, device=dev)
+           for _, w in _KERNEL_OUTPUTS]
+    out += [torch.empty(B, dtype=torch.bool, device=dev) for _ in range(2)]
+    ins = [*state, action]
+    return out, ((ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
+                 (ctypes.c_longlong * len(ins))(*(t.stride(0) for t in ins)),
+                 (ctypes.c_void_p * len(out))(*(t.data_ptr() for t in out)))
+
+
+def _launch(state: list, action: torch.Tensor, constants: int) -> list:
+    """The CUDA kernel of the operator ``sim_a_splat::arm_step``
+    (:func:`_library`): one launch of ``csrc/arm_step.cu`` on the current
+    stream over the inputs ``state`` (``_KERNEL_INPUTS``' tensors) and
+    ``action``, each read row by row through its stride; ``constants`` is
+    the address of an :class:`ArmKernelConstants` the caller keeps alive.
+    Returns :func:`kernel_arguments`' outputs."""
+    c = ArmKernelConstants.from_address(constants)
+    out, arrays = kernel_arguments(state, action, c.ndof)
+    launch = _kernels.function("arm_step", "arm_step_launch", _STEP_ARGS)
+    dev = action.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(*(ctypes.addressof(a) for a in arrays), action.shape[0],
+                    c, stream)
+    _kernels.check(rc, "arm_step")
+    return out
+
+
+@functools.cache
+def _library() -> torch.library.Library:
+    """A fragment of the operator library ``sim_a_splat`` (whose
+    definition ``physics/pusht.py`` holds), registered at first use and
+    kept: its ``arm_step(state, action, constants) -> outputs`` is the
+    kernel's launch as an operator of PyTorch's dispatcher, with a kernel
+    for CUDA alone, so that the profiler ties the kernel's device time to
+    the spans around it."""
+    lib = torch.library.Library("sim_a_splat", "FRAGMENT")
+    lib.define("arm_step(Tensor[] state, Tensor action, int constants) "
+               "-> Tensor[]")
+    lib.impl("arm_step", _launch, "CUDA")
+    return lib
+
+
+def _call(state: list, action: torch.Tensor, constants: int) -> list:
+    """The operator ``sim_a_splat::arm_step`` on these arguments."""
+    _library()
+    return torch.ops.sim_a_splat.arm_step(state, action, constants)
 
 
 def state_from_numpy(fields, device="cuda") -> ManipulatorState:
@@ -261,10 +374,117 @@ class ManipulatorEnvF:
              action: torch.Tensor) -> Transition:
         """One control step for every env: joint targets ``action`` (B,
         ndof) through the PD loop, then the block pushed by the end
-        effector swept linearly over the contact substeps.  Spans:
-        ``physics``, with ``physics.arm`` (the PD loop and the end
-        effector's FK), ``physics.solve`` (each substep's contact solve)
-        and ``physics.info`` (:meth:`_get_info`)."""
+        effector swept linearly over the contact substeps.  On the card
+        one kernel launch (:meth:`_step_kernel`, in the span
+        ``physics.solve``), else :meth:`step_plain`."""
+        if self._on_kernel(state, action):
+            return self._step_kernel(state, action)
+        return self.step_plain(state, action)
+
+    def _on_kernel(self, state: ManipulatorState,
+                   action: torch.Tensor) -> bool:
+        """Whether the kernel steps these inputs: CUDA tensors, none of
+        which needs a gradient while grad mode is on."""
+        if state.arm.q.device.type != "cuda":
+            return False
+        return not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*state.arm, *state[1:], action)))
+
+    @functools.lru_cache(maxsize=8)
+    def kernel_constants(self) -> ArmKernelConstants:
+        """:class:`ArmKernelConstants` of this env (made once): the chain,
+        its clipped limits and the weld, and the scalars of
+        :meth:`step_plain` (``kinematics.arm_step``'s 4 substeps, the
+        10-iteration solve, done below 0.02), each as the plain path rounds
+        it; the card's 1/dt is the float32 reciprocal PyTorch's CUDA
+        division by a scalar multiplies with.  Raises for a chain past the
+        kernel's caps."""
+        ch = self.chain
+        if ch.num_links > ARM_MAX_LINKS or ch.ndof > ARM_MAX_DOF:
+            raise ValueError(
+                f"arm_step takes chains of at most {ARM_MAX_LINKS} links and "
+                f"{ARM_MAX_DOF} joints; this one has {ch.num_links} links "
+                f"and {ch.ndof} joints")
+        ct = kin.chain_tensors(ch, torch.device("cpu"))
+        bp = self.block
+        h = self.time_step / self.contact_substeps
+        bias = (self.contact_bias if self.contact_bias is not None
+                else 1.0 - ((1.0 - 0.1) ** 60.0) ** h)
+        c = ArmKernelConstants(
+            num_links=ch.num_links, ndof=ch.ndof,
+            eef=ch.link_index(self.eef_link), kp=self.kp, kd=self.kd,
+            pd_h=self.time_step / 4, dt=self.time_step,
+            inv_dt=float(np.float32(1.0) / np.float32(self.time_step)),
+            pd_substeps=4, radius=self.eef_radius, mu=bp.mu,
+            inv_mass=1.0 / bp.mass, inv_inertia=1.0 / bp.izz,
+            bias_rate=bias / h, slop=self.contact_slop, contact_h=h,
+            done_below=0.02, contact_substeps=self.contact_substeps,
+            iterations=10, env_objects=int(self.env_objects))
+        L, D = ch.num_links, ch.ndof
+        for name, a in (("parent", ch.parent), ("jtype", ch.jtype),
+                        ("qidx", ch.qidx)):
+            getattr(c, name)[:L] = [int(x) for x in a]
+        for name, a in (("origin_q", ct["origin_q"]),
+                        ("origin_t", ct["origin_t"]), ("axis", ct["axis"])):
+            getattr(c, name)[:a.numel()] = a.flatten().tolist()
+        for name in ("lo", "hi", "vmax"):
+            getattr(c, name)[:D] = ct[name].tolist()
+        c.weld_q[:] = [float(x) for x in self.weld[0]]
+        c.weld_t[:] = [float(x) for x in self.weld[1]]
+        c.polys[:] = bp.polys_local().ravel().tolist()
+        c.cog[:] = [0.0, bp.cog_y]
+        return c
+
+    @span("physics.solve")
+    def _step_kernel(self, state: ManipulatorState,
+                     action: torch.Tensor) -> Transition:
+        """The control step of every env in one launch of
+        ``csrc/arm_step.cu``: the new state, reward, flags and info of
+        :meth:`step_plain` (``target_prev`` is ``action``, ``goal`` the
+        state's).  Raises on inputs it does not take."""
+        global launches
+        c = self.kernel_constants()
+        dev = state.arm.q.device
+        B, D = state.arm.q.shape[0], self.chain.ndof
+        inputs = {**state.arm._asdict(), **state._asdict(), "action": action}
+        del inputs["arm"], inputs["prev_eef_xy"]           # prev: not read
+        for name, t in inputs.items():
+            want = ((B,) if name in ("block_yaw", "block_omega", "t")
+                    else (B, 2) if name in ("block_pos", "block_vel")
+                    else (B, 4) if name == "goal" else (B, D))
+            rows = t.dim() != 2 or t.shape[1] < 2 or t.stride(1) == 1
+            if t.dtype != torch.float32 or tuple(t.shape) != want \
+                    or t.device != dev or not rows:
+                raise ValueError(
+                    f"arm_step takes float32 {want} on {dev}, each row's "
+                    f"elements adjacent; {name} is "
+                    f"{'' if rows else 'non-contiguous '}{t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+        out = _call([inputs[n] for n in _KERNEL_INPUTS], action,
+                    ctypes.addressof(c))
+        launches += 1
+        o = dict(zip((n for n, _ in _KERNEL_OUTPUTS), out))
+        new = ManipulatorState(
+            arm=kin.ArmState(o["q"], o["qd"], action),
+            block_pos=o["block_pos"], block_yaw=o["block_yaw"],
+            block_vel=o["block_vel"], block_omega=o["block_omega"],
+            goal=state.goal, prev_eef_xy=o["prev_eef_xy"], t=o["t"])
+        info = {k: o[k] for k in ("eef_pos", "eef_quat", "eef_pos_vel",
+                                  "eef_rot_vel")}
+        info["timestamp"] = o["t"]
+        if self.env_objects:
+            info["block_pose"] = o["block_pose"]
+            info["block_vel"] = o["info_block_vel"]
+        return Transition(state=new, obs=self._get_obs(new),
+                          reward=o["reward"], terminated=out[-2],
+                          truncated=out[-1], info=info)
+
+    def step_plain(self, state: ManipulatorState,
+                   action: torch.Tensor) -> Transition:
+        """The plain version of :meth:`step` on any device: eager PyTorch.
+        Spans: ``physics.arm`` (the PD loop and the end effector's FK),
+        ``physics.solve`` (each substep's contact solve) and
+        ``physics.info`` (:meth:`_get_info`)."""
         with span("physics.arm"):
             prev_eef = self._eef_pose(state).t[:, :2]
             arm = kin.arm_step(self.chain, state.arm, action,

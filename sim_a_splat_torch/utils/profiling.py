@@ -29,7 +29,8 @@ profiler's timeline beside the kernels; with none it skips that (~12 µs a
 span on a CPU host).  A root span records, as counter events at its end,
 the change over its step of the kernels' launch counters
 (``ops/composite*.py``'s ``launches`` and ``launches_bwd``,
-``physics/pusht.py``'s ``launches``: the one count of launches).  Nothing
+``physics/pusht.py``'s and ``envs/manipulator_envs.py``'s ``launches``:
+the one count of launches).  Nothing
 here synchronises the device or reads a device tensor.
 
 Memory: the finished spans are kept in a buffer of the last ``CAPACITY``
@@ -69,13 +70,14 @@ import torch
 CAPACITY = 1 << 16      # spans kept, and counter events kept
 OUTSIDE = "outside every span"
 # the kernels' launch counters, module attributes of the ops and of the
-# pushT physics: (counter name, module, attribute)
+# pushT and arm physics: (counter name, module, attribute)
 LAUNCH_COUNTERS = tuple(
     (f"{m}.{attr}", f"sim_a_splat_torch.ops.{m}", attr)
     for m in ("composite", "composite_sel", "composite_single",
               "composite_pair")
     for attr in ("launches", "launches_bwd")) + (
-    ("pusht.launches", "sim_a_splat_torch.physics.pusht", "launches"),)
+    ("pusht.launches", "sim_a_splat_torch.physics.pusht", "launches"),
+    ("arm.launches", "sim_a_splat_torch.envs.manipulator_envs", "launches"))
 
 
 class Record(NamedTuple):

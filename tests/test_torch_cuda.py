@@ -40,7 +40,10 @@ path's float32 operations one for one (no FMA contraction, IEEE division,
 card bit for bit; it is held to the port's physics tolerances all the same
 (positions and velocities atol 1e-3, the angle 1e-4, ``n_contacts``
 exact: the CPU tests' bounds against the reference), and each test prints
-the max|Δ| it measured.
+the max|Δ| it measured.  The arm's control-step kernel
+(``csrc/arm_step.cu``) follows the plain step the same way and is held
+to it bit for bit on the new state, the reward and the flags, the info
+within 1e-5.
 """
 
 import pathlib
@@ -50,8 +53,8 @@ import pytest
 import torch
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, as_float64, assert_fields_close, assert_rows_close,
-    k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
+    K_T, K_TS, K_TX, arm_case_inputs, as_float64, assert_fields_close,
+    assert_rows_close, k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
     k2_per_env_inputs, k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
     pusht_case_actions, pusht_case_vectors, rows_rel_err,
     selected_cotangent, torch_raster,
@@ -1248,6 +1251,190 @@ def test_pusht_kernel_rejects_inputs(dev):
         pusht.control_step(P, st, act.repeat(2, 1).double())
 
 
+# --- the arm's control-step kernel P2 -----------------------------------
+
+ARM_STEPS = 64
+
+
+def _arm_env(dev, **kw):
+    """The arm product path's env (pusharm6 pushing the T) on ``dev``."""
+    from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+    from sim_a_splat_torch.physics import kinematics as kin
+    return ManipulatorEnvF(chain=kin.load_chain(entry.PRODUCT_URDF),
+                           eef_link="push_tool", device=str(dev), **kw)
+
+
+def _arm_start(env, dev, B, start, steps=ARM_STEPS):
+    """(state, (steps, B, 6) actions): the cells' reset settled 40 steps
+    by the plain path, then their dither (``"settled"``); or the end
+    effector pressing into, beside and away from the T
+    (``arm_case_inputs``, ``"contact"``)."""
+    if start == "settled":
+        state, _ = env.reset(reset_to_state=entry.PRODUCT_RESET, batch=B)
+        base = torch.tensor(entry.PRODUCT_ACTION, device=dev)
+        for _ in range(40):
+            state = env.step_plain(state, base.expand(B, 6)).state
+        t = torch.arange(steps, device=dev)
+        phase = torch.sin(2 * np.pi * t / 32)
+        pattern = torch.tensor([0.0, 1.0, -1.0, 0.0, 1.0, 0.0], device=dev)
+        actions = (base + 0.004 * phase[:, None] * pattern)[:, None]
+        return state, actions.expand(steps, B, 6).contiguous()
+    reset, actions = arm_case_inputs(env, B, steps,
+                                     np.random.default_rng(B + 11))
+    state, _ = env.reset(reset_to_state=reset, batch=B)
+    return state, torch.as_tensor(actions, device=dev)
+
+
+def _arm_gaps(got, want, what):
+    """max|Δ| of every field of two arm transitions, printed; the state,
+    reward and flags held equal, the info within 1e-5."""
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()) if a.numel() \
+            else 0.0
+    state = {n: gap(a, b) for n, a, b in zip(
+        ("q", "qd", "target_prev"), got.state.arm, want.state.arm)}
+    state.update((n, gap(getattr(got.state, n), getattr(want.state, n)))
+                 for n in got.state._fields[1:])
+    state.update((n, gap(getattr(got, n), getattr(want, n)))
+                 for n in ("reward", "terminated", "truncated"))
+    info = {k: gap(got.info[k], want.info[k]) for k in want.info}
+    print(what, "max|Δ| state", state, "info", info)
+    assert list(got.info) == list(want.info)
+    assert not any(state.values()), f"{what}: {state}"
+    assert max(info.values()) <= 1e-5, f"{what}: {info}"
+    return state, info
+
+
+@pytest.mark.parametrize("start", ["settled", "contact"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_arm_kernel_matches_plain(dev, B, start):
+    """64 chained control steps through P2, one launch each, at B = 1 and
+    B = 8, from the cells' settled reset under their dither and from the
+    end effector pressing into the T: every step against ``step_plain``
+    on the card from the same state, the state, reward and flags bit for
+    bit, the info within 1e-5."""
+    from sim_a_splat_torch.envs import manipulator_envs as me
+    env = _arm_env(dev)
+    state, actions = _arm_start(env, dev, B, start)
+    pushed = 0.0
+    with torch.no_grad():
+        for k, a in enumerate(actions):
+            before = me.launches
+            got = env.step(state, a)
+            assert me.launches == before + 1
+            _arm_gaps(got, env.step_plain(state, a), f"B={B} {start} {k}")
+            pushed = max(pushed, float(got.state.block_vel.abs().max()))
+            state = got.state
+    if start == "contact":
+        assert pushed > 0                                 # contacts solved
+
+
+def test_arm_kernel_other_chains_and_settings(dev):
+    """P2 on pusharm5 and on a welded pushscara3 (a prismatic joint) with
+    every scalar of the task changed, and without the T-block, against
+    ``step_plain`` on the card over 16 chained steps of 40 envs."""
+    from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+    from sim_a_splat_torch.physics import kinematics as kin
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cases = {
+        "pusharm5": dict(),
+        "pushscara3": dict(
+            weld=((0.9659258, 0.0, 0.0, 0.258819), (0.1, -0.2, 0.05)),
+            time_step=2e-2, kp=60.0, kd=15.0, eef_radius=0.02,
+            contact_substeps=3, contact_bias=0.3, contact_slop=2e-4),
+        "pusharm6": dict(env_objects=False)}
+    for robot, kw in cases.items():
+        chain = kin.load_chain(root / "robot_description" / robot / "urdf"
+                               / f"{robot}.urdf")
+        env = ManipulatorEnvF(chain=chain, eef_link="push_tool",
+                              device=str(dev), **kw)
+        reset, actions = arm_case_inputs(env, 40, 16,
+                                         np.random.default_rng(5))
+        state, _ = env.reset(reset_to_state=reset, batch=40)
+        with torch.no_grad():
+            for k, a in enumerate(torch.as_tensor(actions, device=dev)):
+                got = env.step(state, a)
+                _arm_gaps(got, env.step_plain(state, a), f"{robot} {k}")
+                state = got.state
+
+
+def test_arm_kernel_launches_and_gradient(dev):
+    """One ``arm.launches`` a step; an action that requires grad (grad
+    mode on) takes the plain path and gets its gradient; under no_grad the
+    same call launches P2."""
+    from sim_a_splat_torch.envs import manipulator_envs as me
+    env = _arm_env(dev)
+    state, actions = _arm_start(env, dev, 8, "contact", steps=4)
+    before = me.launches
+    s = state
+    for a in actions[:3]:
+        s = env.step(s, a).state
+    assert me.launches == before + 3
+    act = actions[3].clone().requires_grad_()
+    out = env.step(state, act)
+    assert me.launches == before + 3
+    (g,) = torch.autograd.grad(out.state.block_pos.sum(), act)
+    assert bool(torch.isfinite(g).all())
+    with torch.no_grad():
+        env.step(state, act)
+    assert me.launches == before + 4
+
+
+# one collect-shaped arm step under a profiler, in a process of its own:
+# prints the device µs of each arm_step kernel linked to the operator
+_ARM_PROFILE_PROBE = """
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from sim_a_splat_torch import entry
+from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+from sim_a_splat_torch.physics import kinematics as kin
+env = ManipulatorEnvF(chain=kin.load_chain(entry.PRODUCT_URDF),
+                      eef_link="push_tool", device="cuda")
+state, _ = env.reset(reset_to_state=entry.PRODUCT_RESET, batch=8)
+action = torch.tensor(entry.PRODUCT_ACTION, device="cuda").expand(8, 6)
+with torch.no_grad():
+    state = env.step(state, action).state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("physics"):
+            env.step(state, action)
+        torch.cuda.synchronize()
+print(*(k.duration for e in prof.events() if e.device_type == DeviceType.CPU
+        and e.name == "sim_a_splat::arm_step"
+        for k in e.kernels if "arm_step" in k.name))
+"""
+
+
+def test_arm_kernel_is_tied_to_its_span_by_the_profiler(dev):
+    """The profiler links P2 to the operator that launched it,
+    ``sim_a_splat::arm_step``, and so to the ``physics`` span around the
+    call: the harness's ``physics_device_ms.arm_*`` read it.  In a process
+    of its own: a profiler session late in a process that has run others
+    may keep no device records (seen on the card in this file)."""
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _ARM_PROFILE_PROBE],
+                         cwd=pathlib.Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    linked = [float(us) for us in out.stdout.split()]
+    assert len(linked) == 1, "the operator holds no arm_step kernel"
+    print(f"arm_step linked to a host event: {linked[0]:.1f} us")
+    assert linked[0] > 0
+
+
+def test_arm_kernel_rejects_inputs(dev):
+    """CUDA inputs P2 does not take raise; nothing falls back."""
+    env = _arm_env(dev)
+    state, actions = _arm_start(env, dev, 4, "contact", steps=1)
+    with pytest.raises(ValueError, match="float64"):
+        env.step(state, actions[0].double())
+    with pytest.raises(ValueError, match="non-contiguous"):
+        env.step(state, actions[0].t().contiguous().t())
+
+
 # the arm deployment's collect step (entry.make_product_collect) at the
 # product shapes, held to the benchmark's plain reference
 # (perfbench/reference/pusharm.py) by the cell's own check and limits
@@ -1285,8 +1472,9 @@ def test_collect_step_at_product_shapes_matches_the_reference(dev, B):
 
 def test_collect_step_spans_and_rebuild_counter_on_card(dev):
     """One traced collect step at an episode's start records the root
-    ``step.arm`` with the physics' and the cameras' spans under it, and the
-    counter ``render.moving_rebuilds`` in its step."""
+    ``step.arm`` with the physics' and the cameras' spans under it (the
+    physics one launch of P2 in ``physics.solve``), and the counters
+    ``render.moving_rebuilds`` and ``arm.launches`` (1) in its step."""
     from sim_a_splat_torch.utils import profiling
 
     w = entry.build_product_wrapper(n_total=6000, sh_degree=3,
@@ -1304,13 +1492,18 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
         (root,) = profiling.roots("step.arm")
         events = [c for c in profiling.counter_events()
                   if c.name == "render.moving_rebuilds"]
+        arm = [c for c in profiling.counter_events()
+               if c.name == "arm.launches"]
     finally:
         profiling.enable(was)
         profiling.clear()
-    for name in ("physics", "physics.arm", "physics.info", "render.cameras",
-                 "render.moving", "render.moving_build", "render.k2f",
-                 "render.k3f"):
+    for name in ("physics", "render.cameras", "render.moving",
+                 "render.moving_build", "render.k2f", "render.k3f"):
         assert root.calls.get(name, 0) >= 1, (name, root.calls)
-    assert root.calls["physics.solve"] == 4
+    # on the card the physics is one launch of P2 in one physics.solve
+    assert root.calls["physics.solve"] == 1
+    assert "physics.arm" not in root.calls
+    assert "physics.info" not in root.calls
     assert [e.step for e in events] == [root.step]
     assert events[0].value == int(tr.info["render_rebuilt"].sum())
+    assert [(e.step, e.value) for e in arm] == [(root.step, 1)]

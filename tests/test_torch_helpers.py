@@ -367,3 +367,40 @@ def rows_rel_err(got, want) -> float:
     return max(float(np.abs(got[..., r, :] - want[..., r, :]).max())
                / float(np.abs(want[..., r, :]).max())
                for r in range(want.shape[-2]))
+
+
+def arm_case_inputs(env, B, steps, rng):
+    """Reset values ({robot_pos, block_pos, goal_pos}, one row an env) and
+    (steps, B, ndof) joint targets for B envs of the arm ``env``: the joints
+    drawn inside their limits; in the first third of the envs (at least
+    one) the block's origin 0.03 m beyond the end effector in y, its yaw
+    within 0.3 rad (the end effector pressing into the crossbar), in the
+    second third within 0.12 m in x and y (inside the T, on an edge or
+    beside it), in the rest 0.5 m away with the goal at the block (reward
+    0, ``terminated``); the targets a random walk about the start that
+    sweeps the end effector, every eighth env driving joint 1 past its
+    position and velocity limits."""
+    from sim_a_splat_torch.physics import kinematics as kin
+
+    ch = env.chain
+    lo = np.maximum(ch.lower, -2.0)
+    hi = np.minimum(ch.upper, 2.0)
+    q0 = (lo + (hi - lo) * rng.uniform(0.2, 0.8, (B, ch.ndof))).astype(
+        np.float32)
+    eef = kin.link_pose(ch, torch.as_tensor(q0), env.eef_link,
+                        env._base("cpu")).t.numpy()[:, :2]
+    kind = np.minimum(np.arange(B) // ((B + 2) // 3), 2)
+    off = np.where((kind == 1)[:, None], rng.uniform(-0.12, 0.12, (B, 2)),
+                   np.where((kind == 0)[:, None], [0.0, 0.03], 0.5))
+    yaw = np.where(kind == 0, rng.uniform(-0.3, 0.3, B),
+                   rng.uniform(-np.pi, np.pi, B))
+    block = np.concatenate([eef + off, np.full((B, 1), 0.2), yaw[:, None]], 1)
+    goal = np.stack([rng.uniform(0.3, 0.6, B), rng.uniform(-0.2, 0.2, B),
+                     np.full(B, 0.2), rng.uniform(-np.pi, np.pi, B)], 1)
+    goal = np.where((kind == 2)[:, None], block, goal)
+    walk = np.cumsum(rng.normal(0, 0.05, (steps, B, ch.ndof)), 0)
+    actions = (q0 + walk).astype(np.float32)
+    actions[:, 7::8, min(1, ch.ndof - 1)] = 4.0
+    reset = {"robot_pos": q0, "block_pos": block.astype(np.float32),
+             "goal_pos": goal.astype(np.float32)}
+    return reset, actions
