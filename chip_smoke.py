@@ -160,6 +160,11 @@ PUSHT_SLOT_OPS, PUSHT_SUBSTEP_OPS, PUSHT_OP_CYCLES = 28, 150, 4
 # link; the one with tangents counted twice)
 ARM_SUBSTEP_OPS, ARM_FK_OPS = 120, 280
 ARM_STEP_STEPS = 32   # chained steps of the arm kernel's check
+# the operators of K1-K4, whose launches the phases count
+RENDER_OPS = ("composite_static", "composite_pair_sel", "composite_static_bwd",
+              "composite_pair_sel_bwd", "composite_sel_single",
+              "composite_sel_single_bwd", "composite_pair",
+              "composite_pair_bwd")
 # K2f and K2b of the first design (one thread per pixel, K2b's per-slot
 # output summed by index_add_), K4 on that walk, and K1f and K1b of the
 # first design (one block per tile walking its chunks in order): this
@@ -325,6 +330,23 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps=200, warmup=20):
+    """Mean host µs of one ``fn()`` over ``reps`` back-to-back calls (the
+    enqueue: the device is synchronised before the first and after the
+    last, outside the clock; ``reps`` launches stay below the queue's
+    depth)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 class NoDeviceTime(RuntimeError):
     """The profiler recorded no device time for a call in every try."""
 
@@ -442,17 +464,20 @@ def arm_step_row(env, inputs, launches):
     of ``inputs`` ({B: (state, (R, B, 6) actions)}): R chained steps
     against the plain step on the card from the same states (max|Δ| per
     field; the state, reward and flags held equal, the info within 1e-5),
-    its launch timed by CUDA events (called through its C entry point,
-    whose host cost is below the kernel's; its device time under the
-    profiler beside) against the plain path's time and the chain bound,
-    and the host ms of a step through the env's wrapper.  Returns its
-    ``kernels`` row (``ms`` at the largest B, ``ms_b<B>`` at each)."""
+    its launch timed by CUDA events (called through the launch helper
+    ``_kernels.launch``, whose host cost is below the kernel's; its device
+    time under the profiler beside) against the plain path's time and the
+    chain bound, the host ms of a step through the env's wrapper, and the
+    host µs of one launch through each layer: the C entry point called
+    directly, ``_kernels.launch``, the operator's CUDA kernel called as a
+    Python function, and the operator ``torch.ops.sim_a_splat.arm_step``.
+    Returns its ``kernels`` row (``ms`` at the largest B, ``ms_b<B>`` at
+    each)."""
     import ctypes
 
     import torch
     from sim_a_splat_torch.envs import manipulator_envs as me
     from sim_a_splat_torch.ops import _kernels
-    launch = _kernels.function("arm_step", "arm_step_launch", me._STEP_ARGS)
     c = env.kernel_constants()
     mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                      "--format=csv,noheader,nounits"]).splitlines()[0])
@@ -477,15 +502,26 @@ def arm_step_row(env, inputs, launches):
                 s = got.state
         a0 = acts[0]
         fields = {**st.arm._asdict(), **st._asdict()}
+        inputs = [fields[n] for n in me._KERNEL_INPUTS]
         # the outputs stay referenced while the launches write them
-        outs, arrays = me.kernel_arguments(
-            [fields[n] for n in me._KERNEL_INPUTS], a0, c.ndof)
+        outs, arrays = me.kernel_arguments(inputs, a0, c.ndof)
         addr = [ctypes.addressof(x) for x in arrays]
+        entry_point = _kernels.function("arm_step", "arm_step_launch",
+                                        me._STEP_ARGS)
         stream = torch.cuda.current_stream().cuda_stream
 
         def kernel():
-            launch(*addr, B, c, stream)
+            _kernels.launch("arm_step", "arm_step", me._STEP_ARGS, a0.device,
+                            *addr, B, c)
+        calls = {
+            "C entry point": lambda: entry_point(*addr, B, c, stream),
+            "_kernels.launch": kernel,
+            "the operator's kernel": lambda: me._launch(
+                inputs, a0, ctypes.addressof(c)),
+            "the operator": lambda: torch.ops.sim_a_splat.arm_step(
+                inputs, a0, ctypes.addressof(c))}
         with torch.no_grad():
+            call_us = {k: host_us(f) for k, f in calls.items()}
             ms = cuda_ms(kernel, 200, warmup=20)
             plain_ms = cuda_ms(lambda: env.step_plain(st, a0), 2)
             dev_ms = device_ms_text(kernel, 50)
@@ -502,8 +538,10 @@ def arm_step_row(env, inputs, launches):
             f"profiler {dev_ms}), a step through the env's wrapper "
             f"{host_ms:.4f} ms (host clock), plain path {plain_ms:.2f} ms, "
             f"chain bound {bound_ms:.4f} ms ({ops} dependent ops × "
-            f"{PUSHT_OP_CYCLES} cycles at {mhz:.0f} MHz); max|Δ| vs the "
-            "plain path over "
+            f"{PUSHT_OP_CYCLES} cycles at {mhz:.0f} MHz); host µs a launch "
+            "(200 in a row): " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in call_us.items())
+            + "; max|Δ| vs the plain path over "
             f"{len(acts)} chained steps: state "
             + ", ".join(f"{n} {g:.3e}" for n, g in state_gap.items())
             + "; info " + ", ".join(f"{n} {g:.3e}"
@@ -512,7 +550,8 @@ def arm_step_row(env, inputs, launches):
             raise AssertionError(f"arm_step at B={B} is not the plain step: "
                                  f"{state_gap}, {info_gap}")
         row.update({f"ms_b{B}": ms, f"plain_ms_b{B}": plain_ms,
-                    f"host_ms_b{B}": host_ms, "ms": ms, "plain_ms": plain_ms})
+                    f"host_ms_b{B}": host_ms, "ms": ms, "plain_ms": plain_ms,
+                    f"launch_host_us_b{B}": call_us})
         row["max_abs_err"] = max(row["max_abs_err"], *info_gap.values())
     return row
 
@@ -1063,6 +1102,7 @@ def main() -> int:
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
     from sim_a_splat_torch.envs import manipulator_envs
     from sim_a_splat_torch.physics import pusht
+    from sim_a_splat_torch.utils import profiling
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1138,22 +1178,16 @@ def main() -> int:
 
 
     # 5. the main path forward, timed ----------------------------------------
-    def reset_counts():
-        for m in (composite, composite_sel, composite_single, composite_pair):
-            m.launches = 0
-            m.launches_bwd = 0
-        pusht.launches = 0
-        manipulator_envs.launches = 0
+    # the launches since the last reset_counts() (profiling.launches
+    # counts every kernel's by operator name), K1-K4's unless asked
+    base = profiling.launches.copy()
 
-    def counts_now():
-        return {"composite_static": composite.launches,
-                "composite_pair_sel": composite_sel.launches,
-                "composite_static_bwd": composite.launches_bwd,
-                "composite_pair_sel_bwd": composite_sel.launches_bwd,
-                "composite_sel_single": composite_single.launches,
-                "composite_sel_single_bwd": composite_single.launches_bwd,
-                "composite_pair": composite_pair.launches,
-                "composite_pair_bwd": composite_pair.launches_bwd}
+    def reset_counts():
+        nonlocal base
+        base = profiling.launches.copy()
+
+    def counts_now(ops=RENDER_OPS):
+        return {n: profiling.launches[n] - base[n] for n in ops}
 
     fixed_names = ("composite_static", "composite_pair_sel",
                    "composite_static_bwd", "composite_pair_sel_bwd")
@@ -1186,7 +1220,7 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not exact:
         raise AssertionError(f"sel-dropped tiles: {drops[:, 0].tolist()}")
-    p1_fwd = pusht.launches
+    p1_fwd = counts_now(("pusht_step",))["pusht_step"]
     if p1_fwd != ITERS:
         raise AssertionError(f"pusht_step launched {p1_fwd} times in "
                              f"{ITERS} steps of the main path")
@@ -1265,7 +1299,7 @@ def main() -> int:
     launches = counts_now()
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    p1["launches"] = pusht.launches
+    p1["launches"] = counts_now(("pusht_step",))["pusht_step"]
     kernels.append(p1)
     if p1["launches"] != ITERS:
         raise AssertionError(f"pusht_step launched {p1['launches']} times in "
@@ -2632,7 +2666,7 @@ def arm_product(entry, composite, composite_sel, composite_single,
     if any(launches[n] != want.get(n, 0) for n in launches):
         raise AssertionError(f"the forward rollout launched {launches}, "
                              f"not {want}")
-    p2_launches = manipulator_envs.launches
+    p2_launches = counts_now(("arm_step",))["arm_step"]
     if p2_launches != ARM_R:
         raise AssertionError(f"arm_step launched {p2_launches} times in "
                              f"{ARM_R} steps of the forward rollout")
@@ -3560,6 +3594,7 @@ def sharded_render_rank(ranks=DIST_RANKS):
     from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
     from sim_a_splat_torch.parallel import make_mesh, rasterize_sharded_sh
     from sim_a_splat_torch.parallel import render_sharding
+    from sim_a_splat_torch.utils import profiling
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(env=1, prim=ranks, device="cuda")
     group = mesh.get_group("prim")
@@ -3584,13 +3619,13 @@ def sharded_render_rank(ranks=DIST_RANKS):
         train()
     torch.cuda.synchronize()
     dist.barrier()
-    composite.launches = composite.launches_bwd = 0
+    before = profiling.launches.copy()
     t0 = time.perf_counter()
     img, g = train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"composite_static": composite.launches,
-                "composite_static_bwd": composite.launches_bwd}
+    launches = {n: profiling.launches[n] - before[n]
+                for n in ("composite_static", "composite_static_bwd")}
     fwd_ms = cuda_ms(lambda: render(means.detach()), DIST_REPS)
     train_ms = cuda_ms(train, DIST_REPS)
     send = torch.zeros((seen[0][0].shape[0], render_sharding.N_FIELDS,

@@ -80,6 +80,7 @@ from sim_a_splat_torch.physics.pusht import PushTParams
 from sim_a_splat_torch.scenegraph.graph import SceneGraph
 from sim_a_splat_torch.splat.loaders import synthetic_scene
 from sim_a_splat_torch.splat.scene import GaussianScene
+from sim_a_splat_torch.utils import profiling
 from sim_a_splat_torch.utils.profiling import span
 from sim_a_splat_torch.splat.train import TrainConfig
 
@@ -1014,9 +1015,6 @@ def _dryrun_rank(device, vecs=None):
     and its prim shard of the render; the gradient through the exchange,
     a mean over env; SGD lr 1e-6)."""
     import torch.distributed as dist
-    from sim_a_splat_torch.ops import (
-        composite, composite_pair, composite_sel, composite_single,
-    )
     from sim_a_splat_torch.parallel import (
         make_mesh, make_train_step, rasterize_sharded,
     )
@@ -1036,13 +1034,12 @@ def _dryrun_rank(device, vecs=None):
     def loss_fn(scene, batch):
         return _dryrun_loss(parts, scene, *batch, render)
 
-    for m in (composite, composite_pair, composite_sel, composite_single):
-        m.launches = m.launches_bwd = 0
+    before = profiling.launches.copy()
     loss = make_train_step(loss_fn, opt, mesh)(leaves, (states, actions))
-    launches = {f"{m.__name__.rsplit('.', 1)[-1]}{sfx}": getattr(m, attr)
-                for m in (composite, composite_pair, composite_sel,
-                          composite_single)
-                for sfx, attr in (("", "launches"), ("_bwd", "launches_bwd"))}
+    launches = {op + sfx: profiling.launches[op + sfx] - before[op + sfx]
+                for op in ("composite_static", "composite_pair_sel",
+                           "composite_sel_single", "composite_pair")
+                for sfx in ("", "_bwd")}
     return {"loss": float(loss), "mesh": dict(zip(mesh.mesh_dim_names,
                                                   mesh.shape)),
             "launches": launches,
@@ -1053,7 +1050,8 @@ def _dryrun_rank(device, vecs=None):
 def dryrun_ranks(n_ranks: int, backend: str = "nccl", device="cuda",
                  vecs=None) -> list:
     """:func:`dryrun_multichip`'s ranks' results, by rank: {"loss", "mesh",
-    "launches" (each kernel's forward and backward launches on the rank),
+    "launches" (K1-K4's forward and backward launches on the rank, by
+    operator name),
     "grads" (the gradient the SGD step took, by scene field)}; ``vecs``
     as :func:`_dryrun_inputs` takes them."""
     from sim_a_splat_torch.parallel import launch
@@ -1143,7 +1141,6 @@ def _bench_mesh_rank(B, N, res, iters, device):
     import time
 
     import torch.distributed as dist
-    from sim_a_splat_torch.ops import composite
     from sim_a_splat_torch.parallel import make_mesh
     mesh = make_mesh(device=device)
     scene, step, states, actions = scaling_inputs(B, N, res, device)
@@ -1152,7 +1149,7 @@ def _bench_mesh_rank(B, N, res, iters, device):
     _, loss, grads = fwd_bwd(scene, states, actions)      # warm-up
     sync()
     dist.barrier()
-    composite.launches = composite.launches_bwd = 0
+    before = profiling.launches.copy()
     t0 = time.perf_counter()
     for _ in range(iters):
         _, loss, grads = fwd_bwd(scene, states, actions)
@@ -1161,8 +1158,10 @@ def _bench_mesh_rank(B, N, res, iters, device):
     return {"seconds": seconds, "loss": float(loss),
             "grads": {k: v for k, v in grads._asdict().items()
                       if v is not None},
-            "launches": composite.launches,
-            "launches_bwd": composite.launches_bwd}
+            "launches": profiling.launches["composite_static"]
+            - before["composite_static"],
+            "launches_bwd": profiling.launches["composite_static_bwd"]
+            - before["composite_static_bwd"]}
 
 
 def bench_mesh(n_ranks: int, backend: str = "nccl", B: int = 32,

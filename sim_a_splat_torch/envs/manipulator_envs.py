@@ -18,12 +18,12 @@ draws from a ``torch.Generator``, whose numbers differ from
 On the card the control step is one launch of the hand-written kernel
 ``csrc/arm_step.cu`` (P2), a thread an env through the PD loop, the FK,
 the contact substeps and ``_get_info``'s J·q̇, through the dispatcher
-operator ``sim_a_splat::arm_step``; each adds one to ``launches``.  CPU
-tensors, and inputs that need a gradient while grad mode is on (the kernel
-has no backward), take the plain version, ``step_plain``: the CPU tests'
+operator ``sim_a_splat::arm_step`` (``ops/_kernels.py``).  CPU tensors,
+inputs that need a gradient while grad mode is on (the kernel has no
+backward), and a chain past the kernel's caps (``ARM_MAX_LINKS``,
+``ARM_MAX_DOF``) take the plain version, ``step_plain``: the CPU tests'
 path and the card tests' oracle.  Other CUDA inputs (not float32, a row
-whose elements are not adjacent, a wrong shape, a chain past the kernel's
-caps) raise.
+whose elements are not adjacent, a wrong shape) raise.
 """
 
 from __future__ import annotations
@@ -48,8 +48,6 @@ from sim_a_splat_torch.ops.transforms import SE3
 from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import planar
 from sim_a_splat_torch.utils.profiling import span
-
-launches = 0   # arm_step launches since the last reset (set to 0 to reset)
 
 # csrc/arm_step.cu's caps on a chain: pusharm6 has 8 links and 6 joints
 ARM_MAX_LINKS, ARM_MAX_DOF = 8, 6
@@ -160,44 +158,20 @@ def kernel_arguments(state: list, action: torch.Tensor, ndof: int):
                  (ctypes.c_void_p * len(out))(*(t.data_ptr() for t in out)))
 
 
+@_kernels.operator("arm_step(Tensor[] state, Tensor action, int constants) "
+                   "-> Tensor[]")
 def _launch(state: list, action: torch.Tensor, constants: int) -> list:
-    """The CUDA kernel of the operator ``sim_a_splat::arm_step``
-    (:func:`_library`): one launch of ``csrc/arm_step.cu`` on the current
-    stream over the inputs ``state`` (``_KERNEL_INPUTS``' tensors) and
-    ``action``, each read row by row through its stride; ``constants`` is
-    the address of an :class:`ArmKernelConstants` the caller keeps alive.
-    Returns :func:`kernel_arguments`' outputs."""
+    """One launch of ``csrc/arm_step.cu`` over the inputs ``state``
+    (``_KERNEL_INPUTS``' tensors) and ``action``, each read row by row
+    through its stride; ``constants`` is the address of an
+    :class:`ArmKernelConstants` the caller keeps alive.  Returns
+    :func:`kernel_arguments`' outputs."""
     c = ArmKernelConstants.from_address(constants)
     out, arrays = kernel_arguments(state, action, c.ndof)
-    launch = _kernels.function("arm_step", "arm_step_launch", _STEP_ARGS)
-    dev = action.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*(ctypes.addressof(a) for a in arrays), action.shape[0],
-                    c, stream)
-    _kernels.check(rc, "arm_step")
+    _kernels.launch("arm_step", "arm_step", _STEP_ARGS, action.device,
+                    *(ctypes.addressof(a) for a in arrays), action.shape[0],
+                    c)
     return out
-
-
-@functools.cache
-def _library() -> torch.library.Library:
-    """A fragment of the operator library ``sim_a_splat`` (whose
-    definition ``physics/pusht.py`` holds), registered at first use and
-    kept: its ``arm_step(state, action, constants) -> outputs`` is the
-    kernel's launch as an operator of PyTorch's dispatcher, with a kernel
-    for CUDA alone, so that the profiler ties the kernel's device time to
-    the spans around it."""
-    lib = torch.library.Library("sim_a_splat", "FRAGMENT")
-    lib.define("arm_step(Tensor[] state, Tensor action, int constants) "
-               "-> Tensor[]")
-    lib.impl("arm_step", _launch, "CUDA")
-    return lib
-
-
-def _call(state: list, action: torch.Tensor, constants: int) -> list:
-    """The operator ``sim_a_splat::arm_step`` on these arguments."""
-    _library()
-    return torch.ops.sim_a_splat.arm_step(state, action, constants)
 
 
 def state_from_numpy(fields, device="cuda") -> ManipulatorState:
@@ -384,8 +358,11 @@ class ManipulatorEnvF:
     def _on_kernel(self, state: ManipulatorState,
                    action: torch.Tensor) -> bool:
         """Whether the kernel steps these inputs: CUDA tensors, none of
-        which needs a gradient while grad mode is on."""
-        if state.arm.q.device.type != "cuda":
+        which needs a gradient while grad mode is on, of a chain within the
+        kernel's caps."""
+        ch = self.chain
+        if state.arm.q.device.type != "cuda" or ch.num_links > ARM_MAX_LINKS \
+                or ch.ndof > ARM_MAX_DOF:
             return False
         return not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (*state.arm, *state[1:], action)))
@@ -442,7 +419,6 @@ class ManipulatorEnvF:
         ``csrc/arm_step.cu``: the new state, reward, flags and info of
         :meth:`step_plain` (``target_prev`` is ``action``, ``goal`` the
         state's).  Raises on inputs it does not take."""
-        global launches
         c = self.kernel_constants()
         dev = state.arm.q.device
         B, D = state.arm.q.shape[0], self.chain.ndof
@@ -460,9 +436,8 @@ class ManipulatorEnvF:
                     f"elements adjacent; {name} is "
                     f"{'' if rows else 'non-contiguous '}{t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
-        out = _call([inputs[n] for n in _KERNEL_INPUTS], action,
-                    ctypes.addressof(c))
-        launches += 1
+        out = torch.ops.sim_a_splat.arm_step(
+            [inputs[n] for n in _KERNEL_INPUTS], action, ctypes.addressof(c))
         o = dict(zip((n for n, _ in _KERNEL_OUTPUTS), out))
         new = ManipulatorState(
             arm=kin.ArmState(o["q"], o["qd"], action),

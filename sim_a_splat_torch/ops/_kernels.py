@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels of ``sim_a_splat_torch/csrc``.
+"""Build, load and launch the CUDA kernels of ``sim_a_splat_torch/csrc``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, and loaded with ctypes.  Nothing is
@@ -6,6 +6,16 @@ built at import: the first call that needs a kernel builds it (all sources
 at once, one ``nvcc`` process each, in parallel) into
 ``sim_a_splat_torch/_build/``, named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is reused.
+
+Every kernel launches one way: as an operator of PyTorch's dispatcher in
+the library ``sim_a_splat`` (``LIBRARY``, the package's only one), whose
+CUDA kernel (:func:`operator`) allocates the outputs and calls
+:func:`launch`.  The profiler ties a kernel only to an operator around its
+launch (a ``record_function`` is none), so through the operator each
+kernel's device time belongs to the spans around the call.  Each kernel
+module registers its operators when it is imported; CPU tensors find no
+kernel for them.  :func:`launch` adds one to ``profiling.launches`` under
+the operator's name, the package's one count of launches.
 
 ``--use_fast_math`` is never passed: it changes ``expf``, and the
 ``ALPHA_MIN`` and sigma cut-offs would turn such differences into whole
@@ -23,6 +33,9 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
+from sim_a_splat_torch.utils import profiling
 from sim_a_splat_torch.utils.profiling import count, span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -38,6 +51,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"pusht_step": ("-fmad=false",), "arm_step": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+# the operator library; a registration lasts as long as its library object
+LIBRARY = torch.library.Library("sim_a_splat", "DEF")
 
 
 def nvcc_path() -> str:
@@ -140,3 +156,33 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def operator(schema: str):
+    """Decorator: the function as the CUDA kernel of the operator
+    ``sim_a_splat::<schema>`` (e.g. ``"pusht_step(Tensor[] state, ...) ->
+    Tensor[]"``), called as ``torch.ops.sim_a_splat.<name>``.  A second
+    copy of a kernel module (``chip_smoke.py --parent`` loads one) finds
+    its operators registered and leaves them as they are."""
+    name = schema[:schema.index("(")]
+
+    def register(fn):
+        if not hasattr(torch.ops.sim_a_splat, name):
+            LIBRARY.define(schema)
+            LIBRARY.impl(name, fn, "CUDA")
+        return fn
+    return register
+
+
+def launch(source: str, op: str, argtypes, device: torch.device,
+           *args) -> None:
+    """One launch of the operator ``op``'s kernel: the entry point
+    ``<op>_launch`` of ``csrc/<source>.cu``'s library (looked up on every
+    call, so a swapped library in ``_loaded`` takes effect) on ``args``
+    and the current stream of ``device``, under that device; raises on a
+    CUDA error; adds one to ``profiling.launches[op]``."""
+    fn = function(source, f"{op}_launch", argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, op)
+    profiling.launches[op] += 1

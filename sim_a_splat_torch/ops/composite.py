@@ -16,9 +16,10 @@ saved (``chunk_acc``), with K2's warp-level footprint cull in both.
 Function ``CompositeStatic``, whose forward is K1f and whose backward is
 K1b.  On a CPU tensor each direction runs its plain version
 (``composite_static_plain``, ``composite_static_bwd_plain``); on a CUDA
-tensor it launches the kernel (adding one to ``launches`` or
-``launches_bwd``) or raises.  ``composite_static_fwd`` returns K1f's saved
-state beside its outputs, for ``composite_static_bwd``.
+tensor it launches the kernel, through the operator
+``sim_a_splat::composite_static`` or ``composite_static_bwd``
+(``ops/_kernels.py``), or raises.  ``composite_static_fwd`` returns K1f's
+saved state beside its outputs, for ``composite_static_bwd``.
 
 Semantics (the reference's): payload (T, 10, K) rows [x, y, conic a b c,
 r, g, b, depth, opacity], depth-sorted per tile, active entries first;
@@ -44,9 +45,6 @@ from sim_a_splat_torch.ops.rasterize_reference import ALPHA_CLAMP, ALPHA_MIN
 from sim_a_splat_torch.utils.profiling import span
 
 CHUNK = 128   # list entries per chunk
-
-launches = 0      # K1f launches since the last reset (set to 0 to reset)
-launches_bwd = 0  # K1b launches since the last reset
 
 _ROW_RGBD = slice(5, 9)    # r, g, b, depth
 _ROW_DEPTH = 8
@@ -228,36 +226,43 @@ def composite_static_fwd(payload: torch.Tensor, counts: torch.Tensor,
     (T, P, nc), chunk_acc (T, nc, 4, P), the r, g, b, depth_acc
     accumulators at the start of every chunk), each with the payload's env
     axis in front where it has one.  CUDA tensors launch K1f (one
-    chunk-block launch and its combine over all B·T lists, counted once in
-    ``launches``); CPU tensors run the plain version, whose backward needs
-    no saved state (chunk_acc None)."""
-    global launches
+    chunk-block launch and its combine over all B·T lists, one operator
+    call); CPU tensors run the plain version, whose backward needs no saved
+    state (chunk_acc None)."""
     _check_inputs(payload, counts, skip, ts)
     if payload.device.type == "cpu":
         out, carries = composite_static_plain(payload, counts, skip, ts, tx,
                                               sigma_cutoff, term_eps)
         return out, carries, None
-    payload, counts, skip = (a.contiguous() for a in (payload, counts, skip))
+    return torch.ops.sim_a_splat.composite_static(
+        *(a.contiguous() for a in (payload, counts, skip)), ts, tx,
+        sigma_cutoff, term_eps)
+
+
+def _scalars(payload, ts, tx, sigma_cutoff, term_eps):
+    pmin = power_min_of(sigma_cutoff)
+    return (payload.shape[:-2].numel(), payload.shape[-3],
+            payload.shape[-1], ts, tx, 0.0 if pmin is None else pmin,
+            int(pmin is not None), 0.0 if term_eps is None else term_eps,
+            int(term_eps is not None))
+
+
+@_kernels.operator(
+    "composite_static(Tensor payload, Tensor counts, Tensor skip, int ts, "
+    "int tx, float? sigma_cutoff, float? term_eps) -> (Tensor, Tensor, "
+    "Tensor)")
+def _launch_fwd(payload, counts, skip, ts, tx, sigma_cutoff, term_eps):
     lead, K = tuple(payload.shape[:-2]), payload.shape[-1]
     P = ts * ts
     nc = K // CHUNK
     out = payload.new_empty(lead + (P, 8))
     carries = payload.new_empty(lead + (P, nc))
     chunk_acc = payload.new_empty(lead + (nc, 4, P))
-    pmin = power_min_of(sigma_cutoff)
-    launch = _kernels.function("composite", "composite_static_launch",
-                               _FWD_ARGS)
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream(payload.device).cuda_stream
-        rc = launch(
-            payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
-            out.data_ptr(), carries.data_ptr(), chunk_acc.data_ptr(),
-            counts.numel(), lead[-1], K, ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
-            0.0 if term_eps is None else term_eps, int(term_eps is not None),
-            stream)
-    _kernels.check(rc, "composite_static")
-    launches += 1
+    _kernels.launch(
+        "composite", "composite_static", _FWD_ARGS, payload.device,
+        payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
+        out.data_ptr(), carries.data_ptr(), chunk_acc.data_ptr(),
+        *_scalars(payload, ts, tx, sigma_cutoff, term_eps))
     return out, carries, chunk_acc
 
 
@@ -276,7 +281,6 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
     front where it has one.  CPU tensors run the plain version; CUDA
     tensors launch K1b, which restarts every applied chunk from its saved
     chunk-start transmittance and accumulators."""
-    global launches_bwd
     _check_inputs(payload, counts, skip, ts)
     lead, K = tuple(payload.shape[:-2]), payload.shape[-1]
     P = ts * ts
@@ -302,25 +306,24 @@ def composite_static_bwd(payload: torch.Tensor, counts: torch.Tensor,
                          + ("None" if chunk_acc is None else
                             f"{chunk_acc.dtype} {tuple(chunk_acc.shape)} on "
                             f"{chunk_acc.device}"))
-    payload, counts, skip, ct, out, carries, chunk_acc = (
-        a.contiguous() for a in (payload, counts, skip, ct, out, carries,
-                                 chunk_acc))
+    return torch.ops.sim_a_splat.composite_static_bwd(
+        *(a.contiguous() for a in (payload, counts, skip, ct, out, carries,
+                                   chunk_acc)), ts, tx, sigma_cutoff,
+        term_eps)
+
+
+@_kernels.operator(
+    "composite_static_bwd(Tensor payload, Tensor counts, Tensor skip, "
+    "Tensor ct, Tensor out, Tensor carries, Tensor chunk_acc, int ts, "
+    "int tx, float? sigma_cutoff, float? term_eps) -> Tensor")
+def _launch_bwd(payload, counts, skip, ct, out, carries, chunk_acc, ts, tx,
+                sigma_cutoff, term_eps):
     grad = torch.empty_like(payload)
-    pmin = power_min_of(sigma_cutoff)
-    launch = _kernels.function("composite_bwd", "composite_static_bwd_launch",
-                               _BWD_ARGS)
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream(payload.device).cuda_stream
-        rc = launch(
-            payload.data_ptr(), counts.data_ptr(), skip.data_ptr(),
-            ct.data_ptr(), out.data_ptr(), carries.data_ptr(),
-            chunk_acc.data_ptr(), grad.data_ptr(), counts.numel(), lead[-1],
-            K, ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
-            0.0 if term_eps is None else term_eps, int(term_eps is not None),
-            stream)
-    _kernels.check(rc, "composite_static_bwd")
-    launches_bwd += 1
+    _kernels.launch(
+        "composite_bwd", "composite_static_bwd", _BWD_ARGS, payload.device,
+        *(a.data_ptr() for a in (payload, counts, skip, ct, out, carries,
+                                 chunk_acc, grad)),
+        *_scalars(payload, ts, tx, sigma_cutoff, term_eps))
     return grad
 
 

@@ -20,8 +20,8 @@ Function ``CompositePair``, whose forward is K4f and whose backward is K4b.
 The static lists are shared by every env, so their gradient is summed over
 the envs (in the kernel, per tile).  CPU tensors run the plain versions
 (``composite_pair_plain``, ``composite_pair_bwd_plain``); CUDA tensors
-launch the kernels (adding one to ``launches`` or ``launches_bwd``) or
-raise.
+launch the kernels, through the operators ``sim_a_splat::composite_pair``
+and ``composite_pair_bwd`` (``ops/_kernels.py``), or raise.
 
 The plain forward follows the reference's algebra: log-space
 transmittances, the depth-indicator contractions ``logtd`` and ``ltsd``,
@@ -40,9 +40,6 @@ import torch
 from sim_a_splat_torch.ops import _kernels, composite_sel
 from sim_a_splat_torch.ops.composite import CHUNK, power_min_of
 from sim_a_splat_torch.utils.profiling import span
-
-launches = 0      # K4f launches since the last reset (set to 0 to reset)
-launches_bwd = 0  # K4b launches since the last reset
 
 # the output row of a pair with skip == 0: rgb 0, depth_acc 0, trans 1
 _EMPTY = (0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0)
@@ -149,25 +146,27 @@ def _scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps):
 def _forward(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
              term_eps):
     """K4f on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if spay.device.type == "cpu":
         return composite_pair_plain(spay, dpay, counts_s, counts_d, skip, ts,
                                     tx, sigma_cutoff, term_eps)
     composite_sel.kernel_threads(ts)
-    spay, dpay, counts_s, counts_d, skip = (
-        a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip))
+    return torch.ops.sim_a_splat.composite_pair(
+        *(a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip)), ts,
+        tx, sigma_cutoff, term_eps)
+
+
+@_kernels.operator(
+    "composite_pair(Tensor spay, Tensor dpay, Tensor counts_s, Tensor "
+    "counts_d, Tensor skip, int ts, int tx, float? sigma_cutoff, "
+    "float? term_eps) -> Tensor")
+def _launch_fwd(spay, dpay, counts_s, counts_d, skip, ts, tx, sigma_cutoff,
+                term_eps):
     B, T = skip.shape
     out = dpay.new_empty((B, T, ts * ts, 8))
-    launch = _kernels.function("composite_pair", "composite_pair_launch",
-                               _FWD_ARGS)
-    with torch.cuda.device(spay.device):
-        stream = torch.cuda.current_stream(spay.device).cuda_stream
-        rc = launch(spay.data_ptr(), dpay.data_ptr(), counts_s.data_ptr(),
-                    counts_d.data_ptr(), skip.data_ptr(), out.data_ptr(),
-                    *_scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps),
-                    stream)
-    _kernels.check(rc, "composite_pair")
-    launches += 1
+    _kernels.launch(
+        "composite_pair", "composite_pair", _FWD_ARGS, spay.device,
+        *(a.data_ptr() for a in (spay, dpay, counts_s, counts_d, skip, out)),
+        *_scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps))
     return out
 
 
@@ -180,7 +179,6 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
     of the forward's ``out``.  CPU tensors run the plain version; CUDA
     tensors launch K4b, which replays the forward's walk (so it needs no
     state beyond ``out``) and sums the static gradient per tile."""
-    global launches_bwd
     _check_inputs(spay, dpay, counts_s, counts_d, skip)
     B, T = skip.shape
     P = ts * ts
@@ -194,22 +192,24 @@ def composite_pair_bwd(spay, dpay, counts_s, counts_d, skip, ct, out,
         return composite_pair_bwd_plain(spay, dpay, counts_s, counts_d, skip,
                                         ct, ts, tx, sigma_cutoff, term_eps)
     composite_sel.kernel_threads(ts)
-    spay, dpay, counts_s, counts_d, skip, ct, out = (
-        a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip, ct,
-                                 out))
+    return torch.ops.sim_a_splat.composite_pair_bwd(
+        *(a.contiguous() for a in (spay, dpay, counts_s, counts_d, skip, ct,
+                                   out)), ts, tx, sigma_cutoff, term_eps)
+
+
+@_kernels.operator(
+    "composite_pair_bwd(Tensor spay, Tensor dpay, Tensor counts_s, Tensor "
+    "counts_d, Tensor skip, Tensor ct, Tensor out, int ts, int tx, "
+    "float? sigma_cutoff, float? term_eps) -> (Tensor, Tensor)")
+def _launch_bwd(spay, dpay, counts_s, counts_d, skip, ct, out, ts, tx,
+                sigma_cutoff, term_eps):
     gs = torch.zeros_like(spay)           # K4b adds every env's sums into it
     gd = torch.empty_like(dpay)
-    launch = _kernels.function("composite_pair_bwd",
-                               "composite_pair_bwd_launch", _BWD_ARGS)
-    with torch.cuda.device(spay.device):
-        stream = torch.cuda.current_stream(spay.device).cuda_stream
-        rc = launch(spay.data_ptr(), dpay.data_ptr(), counts_s.data_ptr(),
-                    counts_d.data_ptr(), skip.data_ptr(), ct.data_ptr(),
-                    out.data_ptr(), gs.data_ptr(), gd.data_ptr(),
-                    *_scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps),
-                    stream)
-    _kernels.check(rc, "composite_pair_bwd")
-    launches_bwd += 1
+    _kernels.launch(
+        "composite_pair_bwd", "composite_pair_bwd", _BWD_ARGS, spay.device,
+        *(a.data_ptr() for a in (spay, dpay, counts_s, counts_d, skip, ct,
+                                 out, gs, gd)),
+        *_scalars(spay, dpay, ts, tx, sigma_cutoff, term_eps))
     return gs, gd
 
 

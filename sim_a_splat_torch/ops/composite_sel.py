@@ -22,15 +22,16 @@ in a block's shared memory) and tile sizes 1 to 32 (``kernel_threads``).
 ``composite_pair_sel`` is the public entry: it goes through the autograd
 Function ``CompositePairSel``, whose forward is K2f and whose backward is
 K2b.  CPU tensors run the plain versions (``composite_pair_sel_plain``,
-``composite_pair_sel_bwd_plain``); CUDA tensors launch the kernels (adding
-one to ``launches`` or ``launches_bwd``) or raise.  In the per-env mode a
-block reads its env's static list (one stride an env in the kernels), and
-slot i's static gradient lands at row ``ids[b, i]`` of env b: with the
-dense ids ``ids[b] = arange(T)`` that the reference requires there this is
-the reference's gradient; with other ids it is the true gradient, where
-the reference places it by slot position.  ``cull_boxes``, ``warp_rects``
-and ``culled`` are the plain twin of the kernels' cull test, and
-``walk_schedule`` of their window schedule, for the tests and the chip
+``composite_pair_sel_bwd_plain``); CUDA tensors launch the kernels,
+through the operators ``sim_a_splat::composite_pair_sel`` and
+``composite_pair_sel_bwd`` (``ops/_kernels.py``), or raise.  In the per-env
+mode a block reads its env's static list (one stride an env in the
+kernels), and slot i's static gradient lands at row ``ids[b, i]`` of env b:
+with the dense ids ``ids[b] = arange(T)`` that the reference requires there
+this is the reference's gradient; with other ids it is the true gradient,
+where the reference places it by slot position.  ``cull_boxes``,
+``warp_rects`` and ``culled`` are the plain twin of the kernels' cull test,
+and ``walk_schedule`` of their window schedule, for the tests and the chip
 run's counts.
 
 The plain forward follows the reference's algebra (log-space
@@ -54,9 +55,6 @@ from sim_a_splat_torch.ops.composite import (
 )
 from sim_a_splat_torch.ops.rasterize_reference import ALPHA_MIN
 from sim_a_splat_torch.utils.profiling import span
-
-launches = 0      # K2f launches since the last reset (set to 0 to reset)
-launches_bwd = 0  # K2b launches since the last reset
 
 # shared memory a block may opt into on Hopper (H100/H200: 227 KB)
 SMEM_OPTIN_BYTES = 232_448
@@ -445,26 +443,28 @@ def _scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps):
 def _forward(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
              sigma_cutoff, term_eps):
     """K2f on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if spay_pad.device.type == "cpu":
         return composite_pair_sel_plain(spay_pad, dpay, ids, counts_s_pad,
                                         counts_d, ts, tx, sigma_cutoff,
                                         term_eps)
     kernel_threads(ts)
-    spay_pad, dpay, ids, counts_s_pad, counts_d = (
-        a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d))
+    return torch.ops.sim_a_splat.composite_pair_sel(
+        *(a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad,
+                                   counts_d)), ts, tx, sigma_cutoff, term_eps)
+
+
+@_kernels.operator(
+    "composite_pair_sel(Tensor spay_pad, Tensor dpay, Tensor ids, "
+    "Tensor counts_s_pad, Tensor counts_d, int ts, int tx, "
+    "float? sigma_cutoff, float? term_eps) -> Tensor")
+def _launch_fwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ts, tx,
+                sigma_cutoff, term_eps):
     out = dpay.new_empty((ids.shape[0], spay_pad.shape[-3], 8, ts * ts))
-    launch = _kernels.function("composite_sel", "composite_pair_sel_launch",
-                               _FWD_ARGS)
-    with torch.cuda.device(spay_pad.device):
-        stream = torch.cuda.current_stream(spay_pad.device).cuda_stream
-        rc = launch(
-            spay_pad.data_ptr(), dpay.data_ptr(), ids.data_ptr(),
-            counts_s_pad.data_ptr(), counts_d.data_ptr(), out.data_ptr(),
-            *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps),
-            stream)
-    _kernels.check(rc, "composite_pair_sel")
-    launches += 1
+    _kernels.launch(
+        "composite_sel", "composite_pair_sel", _FWD_ARGS, spay_pad.device,
+        *(a.data_ptr() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d,
+                                 out)),
+        *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps))
     return out
 
 
@@ -479,7 +479,6 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
     for the cotangent ``ct`` (B, T+1, 8, P), given the forward's ``out``.
     The kernel replays the forward's merged walk, so it needs no other
     saved state."""
-    global launches_bwd
     _check_inputs(spay_pad, dpay, ids, counts_s_pad, counts_d)
     B, TT = ids.shape
     shape = (B, spay_pad.shape[-3], 8, ts * ts)
@@ -493,23 +492,26 @@ def composite_pair_sel_bwd_tiles(spay_pad, dpay, ids, counts_s_pad,
         raise ValueError("the K2b kernel takes CUDA tensors; on the CPU use "
                          "composite_pair_sel_bwd_plain")
     kernel_threads(ts)
-    spay_pad, dpay, ids, counts_s_pad, counts_d, ct, out = (
-        a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d,
-                                 ct, out))
+    return torch.ops.sim_a_splat.composite_pair_sel_bwd(
+        *(a.contiguous() for a in (spay_pad, dpay, ids, counts_s_pad,
+                                   counts_d, ct, out)), ts, tx, sigma_cutoff,
+        term_eps)
+
+
+@_kernels.operator(
+    "composite_pair_sel_bwd(Tensor spay_pad, Tensor dpay, Tensor ids, "
+    "Tensor counts_s_pad, Tensor counts_d, Tensor ct, Tensor out, int ts, "
+    "int tx, float? sigma_cutoff, float? term_eps) -> (Tensor, Tensor)")
+def _launch_bwd(spay_pad, dpay, ids, counts_s_pad, counts_d, ct, out, ts,
+                tx, sigma_cutoff, term_eps):
     gs = torch.zeros_like(spay_pad)        # K2b adds every slot's sums to it
     gd = torch.empty_like(dpay)
-    launch = _kernels.function("composite_sel_bwd",
-                               "composite_pair_sel_bwd_launch", _BWD_ARGS)
-    with torch.cuda.device(spay_pad.device):
-        stream = torch.cuda.current_stream(spay_pad.device).cuda_stream
-        rc = launch(
-            spay_pad.data_ptr(), dpay.data_ptr(), ids.data_ptr(),
-            counts_s_pad.data_ptr(), counts_d.data_ptr(), ct.data_ptr(),
-            out.data_ptr(), gs.data_ptr(), gd.data_ptr(),
-            *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps),
-            stream)
-    _kernels.check(rc, "composite_pair_sel_bwd")
-    launches_bwd += 1
+    _kernels.launch(
+        "composite_sel_bwd", "composite_pair_sel_bwd", _BWD_ARGS,
+        spay_pad.device,
+        *(a.data_ptr() for a in (spay_pad, dpay, ids, counts_s_pad, counts_d,
+                                 ct, out, gs, gd)),
+        *_scalars(spay_pad, dpay, ids, ts, tx, sigma_cutoff, term_eps))
     return gs, gd
 
 

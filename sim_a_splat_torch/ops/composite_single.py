@@ -14,8 +14,9 @@ an H100 and what the design does about it.
 ``composite_sel_single`` is the public entry: it goes through the autograd
 Function ``CompositeSelSingle``, whose forward is K3f and whose backward is
 K3b.  CPU tensors run the plain versions (``composite_sel_single_plain``,
-``composite_sel_single_bwd_plain``); CUDA tensors launch the kernels
-(adding one to ``launches`` or ``launches_bwd``) or raise.
+``composite_sel_single_bwd_plain``); CUDA tensors launch the kernels,
+through the operators ``sim_a_splat::composite_sel_single`` and
+``composite_sel_single_bwd`` (``ops/_kernels.py``), or raise.
 
 Semantics (the reference's): slot (b, i) composites the depth-sorted list
 ``ids[b, i]`` (``spay_pad[b, ids[b, i]]`` per env, ``spay_pad[ids[b, i]]``
@@ -56,9 +57,6 @@ from sim_a_splat_torch.ops.composite import (
     CHUNK, composite_static_plain, power_min_of,
 )
 from sim_a_splat_torch.utils.profiling import span
-
-launches = 0      # K3f launches since the last reset (set to 0 to reset)
-launches_bwd = 0  # K3b launches since the last reset
 
 ROW_APPLIED = 5   # output row of the applied-chunk count (training forward)
 
@@ -171,30 +169,33 @@ def composite_sel_single_fwd(spay_pad, ids, counts_pad, ts: int, tx: int,
     """K3f → out (B, T+1, 8, P).  ``save_state`` records the applied-chunk
     count in row 5 (the training forward).  CPU tensors run the plain
     version."""
-    global launches
     _check_inputs(spay_pad, ids, counts_pad, ts)
     if spay_pad.device.type == "cpu":
         return composite_sel_single_plain(spay_pad, ids, counts_pad, ts, tx,
                                           sigma_cutoff, term_eps,
                                           save_state)
-    spay_pad, ids, counts_pad = (a.contiguous()
-                                 for a in (spay_pad, ids, counts_pad))
+    return torch.ops.sim_a_splat.composite_sel_single(
+        *(a.contiguous() for a in (spay_pad, ids, counts_pad)), ts, tx,
+        sigma_cutoff, term_eps, save_state)
+
+
+@_kernels.operator(
+    "composite_sel_single(Tensor spay_pad, Tensor ids, Tensor counts_pad, "
+    "int ts, int tx, float? sigma_cutoff, float? term_eps, bool save_state) "
+    "-> Tensor")
+def _launch_fwd(spay_pad, ids, counts_pad, ts, tx, sigma_cutoff, term_eps,
+                save_state):
     B, TT = ids.shape
     T1, _, Km = spay_pad.shape[-3:]
     out = spay_pad.new_empty((B, T1, 8, ts * ts))
     pmin = power_min_of(sigma_cutoff)
-    launch = _kernels.function("composite_single",
-                               "composite_sel_single_launch", _FWD_ARGS)
-    with torch.cuda.device(spay_pad.device):
-        stream = torch.cuda.current_stream(spay_pad.device).cuda_stream
-        rc = launch(
-            spay_pad.data_ptr(), ids.data_ptr(), counts_pad.data_ptr(),
-            out.data_ptr(), B, TT, T1, Km, ts, tx, 0.0 if pmin is None else pmin,
-            int(pmin is not None), 0.0 if term_eps is None else term_eps,
-            int(term_eps is not None), int(save_state),
-            int(spay_pad.dim() == 3), stream)
-    _kernels.check(rc, "composite_sel_single")
-    launches += 1
+    _kernels.launch(
+        "composite_single", "composite_sel_single", _FWD_ARGS,
+        spay_pad.device, spay_pad.data_ptr(), ids.data_ptr(),
+        counts_pad.data_ptr(), out.data_ptr(), B, TT, T1, Km, ts, tx,
+        0.0 if pmin is None else pmin, int(pmin is not None),
+        0.0 if term_eps is None else term_eps, int(term_eps is not None),
+        int(save_state), int(spay_pad.dim() == 3))
     return out
 
 
@@ -208,7 +209,6 @@ def composite_sel_single_bwd(spay_pad, ids, counts_pad, ct, out, ts: int,
     tensors run the plain version.  CUDA tensors launch K3b, whose blocks
     each restart an applied chunk from the chunk-start state they
     recompute."""
-    global launches_bwd
     _check_inputs(spay_pad, ids, counts_pad, ts)
     B, T1 = ids.shape[0], spay_pad.shape[-3]
     P = ts * ts
@@ -222,8 +222,17 @@ def composite_sel_single_bwd(spay_pad, ids, counts_pad, ct, out, ts: int,
     if spay_pad.device.type == "cpu":
         return composite_sel_single_bwd_plain(spay_pad, ids, counts_pad, ct,
                                               ts, tx, sigma_cutoff, term_eps)
-    spay_pad, ids, counts_pad, ct, out = (
-        a.contiguous() for a in (spay_pad, ids, counts_pad, ct, out))
+    return torch.ops.sim_a_splat.composite_sel_single_bwd(
+        *(a.contiguous() for a in (spay_pad, ids, counts_pad, ct, out)), ts,
+        tx, sigma_cutoff)
+
+
+@_kernels.operator(
+    "composite_sel_single_bwd(Tensor spay_pad, Tensor ids, Tensor "
+    "counts_pad, Tensor ct, Tensor out, int ts, int tx, float? sigma_cutoff) "
+    "-> Tensor")
+def _launch_bwd(spay_pad, ids, counts_pad, ct, out, ts, tx, sigma_cutoff):
+    B, T1 = ids.shape[0], spay_pad.shape[-3]
     shared = spay_pad.dim() == 3
     if shared:
         grad, named = torch.zeros_like(spay_pad), None
@@ -234,19 +243,13 @@ def composite_sel_single_bwd(spay_pad, ids, counts_pad, ct, out, ts: int,
                             device=spay_pad.device)
         named[torch.arange(B, device=ids.device)[:, None], ids.long()] = 1
     pmin = power_min_of(sigma_cutoff)
-    launch = _kernels.function("composite_single_bwd",
-                               "composite_sel_single_bwd_launch", _BWD_ARGS)
-    with torch.cuda.device(spay_pad.device):
-        stream = torch.cuda.current_stream(spay_pad.device).cuda_stream
-        rc = launch(
-            spay_pad.data_ptr(), ids.data_ptr(), counts_pad.data_ptr(),
-            None if named is None else named.data_ptr(), ct.data_ptr(),
-            out.data_ptr(), grad.data_ptr(),
-            B, ids.shape[1], T1, spay_pad.shape[-1], ts, tx,
-            0.0 if pmin is None else pmin, int(pmin is not None),
-            int(shared), stream)
-    _kernels.check(rc, "composite_sel_single_bwd")
-    launches_bwd += 1
+    _kernels.launch(
+        "composite_single_bwd", "composite_sel_single_bwd", _BWD_ARGS,
+        spay_pad.device, spay_pad.data_ptr(), ids.data_ptr(),
+        counts_pad.data_ptr(), None if named is None else named.data_ptr(),
+        ct.data_ptr(), out.data_ptr(), grad.data_ptr(),
+        B, ids.shape[1], T1, spay_pad.shape[-1], ts, tx,
+        0.0 if pmin is None else pmin, int(pmin is not None), int(shared))
     return grad
 
 

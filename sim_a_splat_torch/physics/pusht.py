@@ -11,7 +11,7 @@ Every state field has a leading env axis B (the reference's ``vmap``); its
 On the card the control step (and ``set_state``'s settling substep) is one
 launch of the hand-written kernel ``csrc/pusht_step.cu``, a thread an env
 through every substep, through the dispatcher operator
-``sim_a_splat::pusht_step``; each adds one to ``launches``.  CPU tensors, and
+``sim_a_splat::pusht_step`` (``ops/_kernels.py``).  CPU tensors, and
 inputs that need a gradient while grad mode is on (the kernel has no
 backward), take the plain version, ``control_step_plain``: the CPU tests'
 path and the card tests' oracle.  Other CUDA inputs (not float32, not
@@ -36,8 +36,6 @@ from sim_a_splat_torch.physics.planar import (
     moment_for_poly, rotate2d, solve_contacts,
 )
 from sim_a_splat_torch.utils.profiling import span
-
-launches = 0   # pusht_step launches since the last reset (set to 0 to reset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,42 +319,23 @@ _STEP_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [
     KernelConstants, ctypes.c_void_p]
 
 
+@_kernels.operator("pusht_step(Tensor[] state, Tensor? action, "
+                   "int substeps, int constants) -> Tensor[]")
 def _launch(state: list, action: torch.Tensor | None, substeps: int,
             constants: int) -> list:
-    """The CUDA kernel of the operator ``sim_a_splat::pusht_step``
-    (:func:`_library`): one launch of ``csrc/pusht_step.cu`` on the current
-    stream; ``constants`` is the address of a :class:`KernelConstants` the
-    caller keeps alive."""
+    """One launch of ``csrc/pusht_step.cu``; ``constants`` is the address
+    of a :class:`KernelConstants` the caller keeps alive."""
     dev = state[0].device
     B = state[0].shape[0]
     out = [torch.empty(t.shape, dtype=torch.float32, device=dev)
            for t in state] + [torch.empty(B, dtype=torch.float32, device=dev)]
-    launch = _kernels.function("pusht_step", "pusht_step_launch", _STEP_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*(t.data_ptr() for t in state),
+    _kernels.launch("pusht_step", "pusht_step", _STEP_ARGS, dev,
+                    *(t.data_ptr() for t in state),
                     None if action is None else action.data_ptr(),
                     *(t.data_ptr() for t in out), B, substeps,
                     int(action is not None),
-                    KernelConstants.from_address(constants), stream)
-    _kernels.check(rc, "pusht_step")
+                    KernelConstants.from_address(constants))
     return out
-
-
-@functools.cache
-def _library() -> torch.library.Library:
-    """The operator library ``sim_a_splat``, registered at first use and
-    kept (a registration lasts as long as its library object): its
-    ``pusht_step(state, action, substeps, constants) -> state`` is the
-    kernel's launch as an operator of PyTorch's dispatcher, with a kernel
-    for CUDA alone.  The profiler ties a kernel only to an operator around
-    its launch (a ``record_function`` is none), so through the operator the
-    kernel's device time belongs to the spans around it."""
-    lib = torch.library.Library("sim_a_splat", "DEF")
-    lib.define("pusht_step(Tensor[] state, Tensor? action, int substeps, "
-               "int constants) -> Tensor[]")
-    lib.impl("pusht_step", _launch, "CUDA")
-    return lib
 
 
 @span("physics.solve")
@@ -366,7 +345,6 @@ def _step_kernel(params: PushTParams, state: PushTState,
     ``csrc/pusht_step.cu`` (without ``action``: no PD control); the state's
     ``n_contacts`` is not read, the result's counts these substeps'
     contacts.  Raises on inputs it does not take."""
-    global launches
     dev = state.agent_pos.device
     B = state.agent_pos.shape[0]
     inputs = dict(state._asdict(), action=action)
@@ -382,11 +360,8 @@ def _step_kernel(params: PushTParams, state: PushTState,
                 f"{name} is {'' if t.is_contiguous() else 'non-contiguous '}"
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     c = kernel_constants(params)
-    _library()
-    out = torch.ops.sim_a_splat.pusht_step(list(state[:-1]), action,
-                                           substeps, ctypes.addressof(c))
-    launches += 1
-    return PushTState(*out)
+    return PushTState(*torch.ops.sim_a_splat.pusht_step(
+        list(state[:-1]), action, substeps, ctypes.addressof(c)))
 
 
 def substep(params: PushTParams, state: PushTState,

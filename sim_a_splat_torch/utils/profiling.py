@@ -26,12 +26,11 @@ on its own device thread, and its spans so nest under the span around the
 ``torch.autograd.grad`` call.  While a profiler is active a span also
 enters ``torch.profiler.record_function(name)``, so it sits on the
 profiler's timeline beside the kernels; with none it skips that (~12 µs a
-span on a CPU host).  A root span records, as counter events at its end,
-the change over its step of the kernels' launch counters
-(``ops/composite*.py``'s ``launches`` and ``launches_bwd``,
-``physics/pusht.py``'s and ``envs/manipulator_envs.py``'s ``launches``:
-the one count of launches).  Nothing
-here synchronises the device or reads a device tensor.
+span on a CPU host).  ``launches`` counts the kernels' launches by
+operator name (the kernels' launch helper adds to it, on or off); a root
+span records, as counter events named after the operators at its end, the
+change of each over its step.  Nothing here synchronises the device or
+reads a device tensor.
 
 Memory: the finished spans are kept in a buffer of the last ``CAPACITY``
 (65,536: ~1,600 steps of the batched train step's ~40 spans, ~15 MB), and
@@ -59,7 +58,6 @@ import functools
 import itertools
 import json
 import os
-import sys
 import threading
 import time
 from pathlib import Path
@@ -69,15 +67,9 @@ import torch
 
 CAPACITY = 1 << 16      # spans kept, and counter events kept
 OUTSIDE = "outside every span"
-# the kernels' launch counters, module attributes of the ops and of the
-# pushT and arm physics: (counter name, module, attribute)
-LAUNCH_COUNTERS = tuple(
-    (f"{m}.{attr}", f"sim_a_splat_torch.ops.{m}", attr)
-    for m in ("composite", "composite_sel", "composite_single",
-              "composite_pair")
-    for attr in ("launches", "launches_bwd")) + (
-    ("pusht.launches", "sim_a_splat_torch.physics.pusht", "launches"),
-    ("arm.launches", "sim_a_splat_torch.envs.manipulator_envs", "launches"))
+# the kernels' launches since the process started, by operator name (e.g.
+# "composite_static", "pusht_step"); read differences of it
+launches: collections.Counter = collections.Counter()
 
 
 class Record(NamedTuple):
@@ -94,8 +86,8 @@ class Record(NamedTuple):
 
 
 class Count(NamedTuple):
-    """A counter event: the counter's value at ``ts_ns`` (for a launch
-    counter, the launches of the root step that ended then)."""
+    """A counter event: the counter's value at ``ts_ns`` (for an
+    operator's name, its launches in the root step that ended then)."""
     name: str
     ts_ns: int
     value: int
@@ -171,15 +163,6 @@ def _innermost(stack):
     return None
 
 
-def _launch_counts() -> dict:
-    out = {}
-    for name, mod, attr in LAUNCH_COUNTERS:
-        m = sys.modules.get(mod)
-        if m is not None:
-            out[name] = getattr(m, attr)
-    return out
-
-
 def _traced(name: str, fn):
     @functools.wraps(fn)
     def traced(*args, **kwargs):
@@ -226,7 +209,7 @@ class _Span:
         if top is None:
             self.step = next(_steps)
             self._parent = None
-            self._c0 = _launch_counts()
+            self._c0 = launches.copy()
             _owner = stack
         else:
             self.step = top.step
@@ -256,12 +239,10 @@ class _Span:
         if self._parent is None:
             if _owner is self._stack:
                 _owner = None
-            now = _launch_counts()
+            now = launches.copy()
             with _lock:
                 for name, v in now.items():
-                    v0 = self._c0.get(name, 0)
-                    # a counter reset inside the step counts from the reset
-                    _counts.append(Count(name, t1, v - v0 if v >= v0 else v,
+                    _counts.append(Count(name, t1, v - self._c0[name],
                                          self.step))
                     _finished[1] += 1
         return False

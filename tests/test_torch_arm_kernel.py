@@ -21,10 +21,8 @@ CPU (it runs on the card only; its card tests are in
 - The constants handed to it are the plain path's float32 scalars and
   tensors bit for bit; its caps are the wrapper's; it builds without fast
   math and without FMA contraction.
-- The wrapper raises on inputs it does not take; CPU tensors and inputs
-  that need a gradient take the plain path; the launch is a CUDA-only
-  operator of the ``sim_a_splat`` library, whichever of it and pushT's
-  registers first.
+- The wrapper raises on inputs it does not take; CPU tensors, inputs
+  that need a gradient and a chain past the caps take the plain path.
 """
 
 import ctypes
@@ -34,7 +32,7 @@ import re
 import shutil
 import struct
 import subprocess
-import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +42,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_helpers import arm_case_inputs, np_of
+from test_torch_helpers import arm_case_inputs, arm_chain_past_caps, np_of
 
 from sim_a_splat_tpu.envs import manipulator_envs as jme
 from sim_a_splat_tpu.physics import kinematics as jk
@@ -53,6 +51,7 @@ from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.physics import kinematics as kin
 from sim_a_splat_torch.physics import planar
+from sim_a_splat_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
 ROBOTS = ("pusharm6", "pusharm5", "pushscara3")
@@ -142,23 +141,28 @@ def host_library(tmp_path_factory):
 
 
 @pytest.fixture
-def host_kernel(host_library, monkeypatch):
+def host_kernel(host_library):
     """The env's kernel path (``_step_kernel``: its checks, its constants,
-    the outputs it assembles) with the host-built kernel in the operator's
-    place, each thread run in turn."""
+    the operator ``sim_a_splat::arm_step``, the outputs it assembles) with
+    the host-built kernel as the operator's kernel for CPU tensors while
+    the test runs, each thread run in turn.  Yields the list of its
+    calls' batch sizes."""
     fn = host_library.launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
                                            me.ArmKernelConstants]
     fn.restype = None
+    calls = []
 
-    def call(state, action, constants):
+    def kernel(state, action, constants):
         c = me.ArmKernelConstants.from_address(constants)
         out, arrays = me.kernel_arguments(state, action, c.ndof)
         fn(*(ctypes.addressof(a) for a in arrays), action.shape[0], c)
+        calls.append(action.shape[0])
         return out
 
-    monkeypatch.setattr(me, "_call", call)
-    monkeypatch.setattr(me, "launches", 0)
+    with torch.library._scoped_library("sim_a_splat", "IMPL") as lib:
+        lib.impl("arm_step", kernel, "CPU")
+        yield calls
 
 
 class _CardTorch:
@@ -308,7 +312,7 @@ def test_kernel_source_on_the_host_matches_the_plain_path_and_reference(
     print(f"{robot} env_objects={env_objects}: {unresolved} of {B * STEPS} "
           "env-steps not resolved by float32")
     assert unresolved <= UNRESOLVED_SHARE * B * STEPS
-    assert me.launches == STEPS
+    assert host_kernel == [B] * STEPS
     if env_objects:
         assert 0 < pushed <= 2 * B // 3           # in and out of contact
         assert bool(got.terminated[2 * B // 3:].all())
@@ -479,11 +483,11 @@ def test_kernel_wrapper_rejects_inputs(bad, match):
 
 
 @pytest.mark.parametrize("grad", [False, True])
-def test_cpu_and_gradient_inputs_take_the_plain_path(grad, monkeypatch):
+def test_cpu_and_gradient_inputs_take_the_plain_path(grad):
     """On CPU tensors nothing launches: ``step`` is ``step_plain`` bit for
-    bit, and ``arm.launches`` stays 0; an action that needs a gradient
-    gets the plain path's."""
-    monkeypatch.setattr(me, "launches", 0)
+    bit, and the launch count stays where it was; an action that needs a
+    gradient gets the plain path's."""
+    before = profiling.launches.copy()
     env, state, action = _cpu_inputs()
     a1 = action.clone().requires_grad_(grad)
     a2 = action.clone().requires_grad_(grad)
@@ -495,37 +499,26 @@ def test_cpu_and_gradient_inputs_take_the_plain_path(grad, monkeypatch):
         (g1,) = torch.autograd.grad(got.state.block_pos.sum(), a1)
         (g2,) = torch.autograd.grad(want.state.block_pos.sum(), a2)
         assert torch.equal(g1, g2) and bool(g1.abs().sum() > 0)
-    assert me.launches == 0
+    assert profiling.launches == before
 
 
-_ORDER_PROBE = """
-import torch
-from sim_a_splat_torch.envs import manipulator_envs
-from sim_a_splat_torch.physics import pusht
-for m in ({first}, {second}):
-    m._library()
-print(torch.ops.sim_a_splat.arm_step.default._schema)
-print(torch.ops.sim_a_splat.pusht_step.default._schema)
-try:
-    torch.ops.sim_a_splat.arm_step([torch.zeros(1)], torch.zeros(1), 0)
-except NotImplementedError as e:
-    print("CPU kernel:", "CPU" in str(e))
-"""
+def _card_like(t):
+    """A stand-in for ``t`` on a CUDA device, for the dispatch decision."""
+    return types.SimpleNamespace(device=torch.device("cuda"),
+                                 requires_grad=t.requires_grad)
 
 
-@pytest.mark.parametrize("first", ["pusht", "manipulator_envs"])
-def test_arm_step_is_a_cuda_operator_in_either_order(first):
-    """``sim_a_splat::arm_step`` (a fragment of the library pushT's
-    operator defines) registers whether pushT's library is made first or
-    last, with its schema, beside ``pusht_step``, and a kernel for CUDA
-    alone: CPU tensors find none."""
-    second = "manipulator_envs" if first == "pusht" else "pusht"
-    out = subprocess.run(
-        [sys.executable, "-c", _ORDER_PROBE.format(first=first,
-                                                   second=second)],
-        capture_output=True, text=True, cwd=REPO, timeout=120, check=True)
-    lines = out.stdout.splitlines()
-    assert lines[0] == ("sim_a_splat::arm_step(Tensor[] state, Tensor "
-                        "action, int constants) -> Tensor[]")
-    assert lines[1].startswith("sim_a_splat::pusht_step(Tensor[] state")
-    assert lines[2] == "CPU kernel: True"
+@pytest.mark.parametrize("chain", ["pusharm6", "links", "joints"])
+def test_the_kernel_takes_chains_within_its_caps(chain, tmp_path):
+    """``step`` sends inputs on the card to the kernel only for a chain
+    within its caps (``ARM_MAX_LINKS``, ``ARM_MAX_DOF``): a 9th link or a
+    7th joint takes ``step_plain``, as on the CPU."""
+    env, state, action = _cpu_inputs()
+    if chain != "pusharm6":
+        env = dataclasses.replace(env,
+                                  chain=arm_chain_past_caps(chain, tmp_path))
+    card = me.ManipulatorState(
+        kin.ArmState(*map(_card_like, state.arm)),
+        *map(_card_like, state[1:]))
+    assert env._on_kernel(card, _card_like(action)) == (chain == "pusharm6")
+    assert not env._on_kernel(state, action)

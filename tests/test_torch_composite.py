@@ -1,5 +1,6 @@
 """The plain versions of kernels K1 and K2 against the reference's Pallas
-kernels (interpret mode on the CPU), and the wrappers' CPU behaviour.
+kernels (interpret mode on the CPU), the wrappers' CPU behaviour, and the
+build, load and operators of every kernel (``ops/_kernels.py``).
 
 K1 (``composite_static_plain`` vs ``pallas_composite._call_fwd``): out and
 carries atol 2e-5 — float32 on both sides; the reference forms in-chunk
@@ -17,6 +18,11 @@ mode at the same bound, and each env's rows to the shared mode run on that
 env's payload alone, bit for bit.
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +37,7 @@ from sim_a_splat_tpu.ops import pallas_composite as jk1
 from sim_a_splat_tpu.ops.pallas_composite_sel import composite_pair_sel as jk2
 
 from sim_a_splat_torch.ops import composite, composite_sel
+from sim_a_splat_torch.utils import profiling
 
 TS, TX, TY = 16, 3, 2
 T = TX * TY
@@ -139,20 +146,19 @@ def test_wrappers_run_plain_on_cpu():
     pay, counts, skip = k1_inputs(seed=2)
     args = (torch.as_tensor(pay), torch.as_tensor(counts),
             torch.as_tensor(skip), TS, TX, 3.0, 1e-4)
-    before = composite.launches
+    before = profiling.launches.copy()
     got = composite.composite_static(*args)
     want = composite.composite_static_plain(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert composite.launches == before        # no kernel on the CPU
+    assert profiling.launches == before        # no kernel on the CPU
 
     k2 = [torch.as_tensor(a) for a in k2_inputs(seed=3)]
-    before = composite_sel.launches
     out = composite_sel.composite_pair_sel(*k2, TS, TX, 3.0, 1e-4)
     ref = composite_sel.composite_pair_sel_plain(*k2, TS, TX, 3.0, 1e-4)
     ids = k2[2]
     for b in range(ids.shape[0]):
         assert torch.equal(out[b, ids[b].long()], ref[b, ids[b].long()])
-    assert composite_sel.launches == before
+    assert profiling.launches == before
 
 
 def test_wrappers_check_inputs():
@@ -208,3 +214,106 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels.nvcc_path()
+
+
+# every kernel's operator in the library sim_a_splat: its schema, and the
+# module that registers it
+OPERATORS = {
+    "composite_static": (
+        "ops.composite", "composite_static(Tensor payload, Tensor counts, "
+        "Tensor skip, int ts, int tx, float? sigma_cutoff, float? term_eps) "
+        "-> (Tensor, Tensor, Tensor)"),
+    "composite_static_bwd": (
+        "ops.composite", "composite_static_bwd(Tensor payload, Tensor "
+        "counts, Tensor skip, Tensor ct, Tensor out, Tensor carries, Tensor "
+        "chunk_acc, int ts, int tx, float? sigma_cutoff, float? term_eps) "
+        "-> Tensor"),
+    "composite_pair_sel": (
+        "ops.composite_sel", "composite_pair_sel(Tensor spay_pad, Tensor "
+        "dpay, Tensor ids, Tensor counts_s_pad, Tensor counts_d, int ts, "
+        "int tx, float? sigma_cutoff, float? term_eps) -> Tensor"),
+    "composite_pair_sel_bwd": (
+        "ops.composite_sel", "composite_pair_sel_bwd(Tensor spay_pad, Tensor "
+        "dpay, Tensor ids, Tensor counts_s_pad, Tensor counts_d, Tensor ct, "
+        "Tensor out, int ts, int tx, float? sigma_cutoff, float? term_eps) "
+        "-> (Tensor, Tensor)"),
+    "composite_sel_single": (
+        "ops.composite_single", "composite_sel_single(Tensor spay_pad, "
+        "Tensor ids, Tensor counts_pad, int ts, int tx, float? sigma_cutoff, "
+        "float? term_eps, bool save_state) -> Tensor"),
+    "composite_sel_single_bwd": (
+        "ops.composite_single", "composite_sel_single_bwd(Tensor spay_pad, "
+        "Tensor ids, Tensor counts_pad, Tensor ct, Tensor out, int ts, "
+        "int tx, float? sigma_cutoff) -> Tensor"),
+    "composite_pair": (
+        "ops.composite_pair", "composite_pair(Tensor spay, Tensor dpay, "
+        "Tensor counts_s, Tensor counts_d, Tensor skip, int ts, int tx, "
+        "float? sigma_cutoff, float? term_eps) -> Tensor"),
+    "composite_pair_bwd": (
+        "ops.composite_pair", "composite_pair_bwd(Tensor spay, Tensor dpay, "
+        "Tensor counts_s, Tensor counts_d, Tensor skip, Tensor ct, Tensor "
+        "out, int ts, int tx, float? sigma_cutoff, float? term_eps) -> "
+        "(Tensor, Tensor)"),
+    "pusht_step": (
+        "physics.pusht", "pusht_step(Tensor[] state, Tensor? action, "
+        "int substeps, int constants) -> Tensor[]"),
+    "arm_step": (
+        "envs.manipulator_envs", "arm_step(Tensor[] state, Tensor action, "
+        "int constants) -> Tensor[]"),
+}
+KERNEL_MODULES = sorted({m for m, _ in OPERATORS.values()})
+
+# imports the kernel modules in the order given, then prints, for every
+# operator, its schema and whether CPU tensors found no kernel for it
+_OPERATOR_PROBE = """
+import importlib, json, sys
+import torch
+for m in sys.argv[1:]:
+    importlib.import_module("sim_a_splat_torch." + m)
+out = {}
+for name in %r:
+    op = getattr(torch.ops.sim_a_splat, name)
+    args = []
+    for a in op.default._schema.arguments:
+        t = str(a.type)
+        args.append([torch.zeros(1)] if t == "List[Tensor]" else None
+                    if t.startswith("Optional") else torch.zeros(1)
+                    if t == "Tensor" else False if t == "bool" else 0)
+    try:
+        op(*args)
+        found = "ran"
+    except NotImplementedError as e:
+        found = str(e).splitlines()[0]
+    out[name] = [str(op.default._schema), found]
+print(json.dumps(out))
+""" % (list(OPERATORS),)
+
+
+@pytest.fixture(scope="module")
+def operators_by_first_module():
+    """{first kernel module: the probe's output}, each kernel module
+    imported first (the others after it) in a process of its own."""
+    out = {}
+    for k, first in enumerate(KERNEL_MODULES):
+        order = KERNEL_MODULES[k:] + KERNEL_MODULES[:k]
+        run = subprocess.run(
+            [sys.executable, "-c", _OPERATOR_PROBE, *order],
+            capture_output=True, text=True, check=True, timeout=300,
+            cwd=Path(__file__).resolve().parent.parent)
+        out[first] = json.loads(run.stdout.splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("name", list(OPERATORS))
+def test_each_kernel_is_a_cuda_operator_of_one_library(
+        name, operators_by_first_module):
+    """Each kernel launches through an operator of the one library
+    ``sim_a_splat`` (``ops/_kernels.py``): the operator is registered with
+    its schema whichever kernel module is imported first, and has a kernel
+    for CUDA alone (CPU tensors find none)."""
+    module, schema = OPERATORS[name]
+    for first, ops in operators_by_first_module.items():
+        got_schema, found = ops[name]
+        assert got_schema == "sim_a_splat::" + schema, first
+        assert f"'sim_a_splat::{name}'" in found, (first, found)
+        assert "'CPU' backend" in found, (first, found)

@@ -53,7 +53,8 @@ import pytest
 import torch
 
 from test_torch_helpers import (
-    K_T, K_TS, K_TX, arm_case_inputs, as_float64, assert_fields_close,
+    K_T, K_TS, K_TX, arm_case_inputs, arm_chain_past_caps, as_float64,
+    assert_fields_close,
     assert_rows_close, k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
     k2_per_env_inputs, k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
     pusht_case_actions, pusht_case_vectors, rows_rel_err,
@@ -66,12 +67,18 @@ from sim_a_splat_torch.ops import (
     composite, composite_pair, composite_sel, composite_single,
 )
 from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
 TS, TX = K_TS, K_TX
 GRAD_REL = 2e-4
 SETTINGS = [(3.0, 1e-4), (None, None)]
+
+
+def launch_counts(*ops) -> tuple:
+    """The launch counts of the operators ``ops`` so far."""
+    return tuple(profiling.launches[op] for op in ops)
 
 
 @pytest.fixture
@@ -83,24 +90,24 @@ def dev():
 
 def test_k1_kernel_matches_plain(dev):
     args = [torch.as_tensor(a, device=dev) for a in k1_inputs()]
-    before = composite.launches
+    before = profiling.launches["composite_static"]
     out, car = composite.composite_static(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
-    assert composite.launches == before + 1
+    assert profiling.launches["composite_static"] == before + 1
     ref_out, ref_car = composite.composite_static_plain(*args, TS, TX, 3.0,
                                                         1e-4)
     torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=0)
     torch.testing.assert_close(car, ref_car, atol=2e-5, rtol=0)
     # an input that requires grad goes through K1f, then K1b on backward
     leaf = args[0].clone().requires_grad_()
-    before_bwd = composite.launches_bwd
+    before_bwd = profiling.launches["composite_static_bwd"]
     out_g, _ = composite.composite_static(leaf, *args[1:], TS, TX, 3.0, 1e-4)
-    assert composite.launches == before + 2
+    assert profiling.launches["composite_static"] == before + 2
     ct = torch.randn(out_g.shape, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(0))
     (out_g * ct).sum().backward()
     torch.cuda.synchronize()
-    assert composite.launches_bwd == before_bwd + 1
+    assert profiling.launches["composite_static_bwd"] == before_bwd + 1
     want = composite.composite_static_bwd_plain(*args, ct, TS, TX, 3.0, 1e-4)
     assert_rows_close(leaf.grad, want, GRAD_REL,
                       "K1 grad through the Function")
@@ -113,12 +120,12 @@ def test_k1b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
         *args, TS, TX, sigma_cutoff, term_eps)
     ct = torch.as_tensor(np.random.default_rng(10).normal(
         size=tuple(out.shape)).astype(np.float32), device=dev)
-    before = composite.launches_bwd
+    before = profiling.launches["composite_static_bwd"]
     got = composite.composite_static_bwd(*args, ct, out, car, TS, TX,
                                          sigma_cutoff, term_eps,
                                          chunk_acc=chunk_acc)
     torch.cuda.synchronize()
-    assert composite.launches_bwd == before + 1
+    assert profiling.launches["composite_static_bwd"] == before + 1
     want = composite.composite_static_bwd_plain(*args, ct, TS, TX,
                                                 sigma_cutoff, term_eps)
     assert_rows_close(got, want, GRAD_REL, "K1b")
@@ -134,7 +141,7 @@ def test_k1_edge_cases(dev, ts, sigma_cutoff, term_eps):
     after chunk 1, skip 0), at tile sizes that fill the warps' 8 × 8
     rectangles and one (12) that does not."""
     args = [torch.as_tensor(a, device=dev) for a in k1_case_inputs(ts)]
-    before = (composite.launches, composite.launches_bwd)
+    before = launch_counts("composite_static", "composite_static_bwd")
     out, car, chunk_acc = composite.composite_static_fwd(
         *args, ts, TX, sigma_cutoff, term_eps)
     torch.cuda.synchronize()
@@ -148,7 +155,7 @@ def test_k1_edge_cases(dev, ts, sigma_cutoff, term_eps):
                                          sigma_cutoff, term_eps,
                                          chunk_acc=chunk_acc)
     torch.cuda.synchronize()
-    assert (composite.launches, composite.launches_bwd) == \
+    assert launch_counts("composite_static", "composite_static_bwd") == \
         (before[0] + 1, before[1] + 1)
     assert_rows_close(got, composite.composite_static_bwd_plain(
         *args, ct, ts, TX, sigma_cutoff, term_eps), GRAD_REL, "K1b")
@@ -159,10 +166,10 @@ def test_k1_edge_cases(dev, ts, sigma_cutoff, term_eps):
 
 def test_k2_kernel_matches_plain(dev):
     args = [torch.as_tensor(a, device=dev) for a in k2_inputs()]
-    before = composite_sel.launches
+    before = profiling.launches["composite_pair_sel"]
     out = composite_sel.composite_pair_sel(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
-    assert composite_sel.launches == before + 1
+    assert profiling.launches["composite_pair_sel"] == before + 1
     ref = composite_sel.composite_pair_sel_plain(*args, TS, TX, 3.0, 1e-4)
     for b in range(2):
         rows = args[2][b].long()
@@ -179,13 +186,13 @@ def test_k2b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     ct = torch.as_tensor(selected_cotangent(
         np.random.default_rng(11), ids.cpu().numpy(), tuple(out.shape)),
         device=dev)
-    before = composite_sel.launches_bwd
+    before = profiling.launches["composite_pair_sel_bwd"]
     gs, gd = composite_sel.composite_pair_sel_bwd_tiles(
         *args, ct, out, TS, TX, sigma_cutoff, term_eps)
     g_spay, g_dpay = composite_sel.composite_pair_sel_bwd(
         *args, ct, out, TS, TX, sigma_cutoff, term_eps)
     torch.cuda.synchronize()
-    assert composite_sel.launches_bwd == before + 2
+    assert profiling.launches["composite_pair_sel_bwd"] == before + 2
     want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
         *args, ct, TS, TX, sigma_cutoff, term_eps)
     for got_s, got_d in ((gs, gd), (g_spay, g_dpay)):
@@ -203,7 +210,7 @@ def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed,
     ``plain_dtype``)."""
     args = [torch.as_tensor(a, device=dev) for a in inputs]
     ids = args[2]
-    before = (composite_sel.launches, composite_sel.launches_bwd)
+    before = launch_counts("composite_pair_sel", "composite_pair_sel_bwd")
     out = composite_sel.composite_pair_sel(*args, ts, tx, sigma_cutoff,
                                            term_eps)
     plain = [a.to(plain_dtype) if a.is_floating_point() else a for a in args]
@@ -219,7 +226,7 @@ def _k2_both_ways(dev, inputs, ts, tx, sigma_cutoff, term_eps, seed,
     gs, gd = composite_sel.composite_pair_sel_bwd(*args, ct, out, ts, tx,
                                                   sigma_cutoff, term_eps)
     torch.cuda.synchronize()
-    assert (composite_sel.launches, composite_sel.launches_bwd) == \
+    assert launch_counts("composite_pair_sel", "composite_pair_sel_bwd") == \
         (before[0] + 1, before[1] + 1)
     want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
         *plain, ct.to(plain_dtype), ts, tx, sigma_cutoff, term_eps)
@@ -259,7 +266,7 @@ def test_k2_per_env_kernels_match_plain(dev, sigma_cutoff, term_eps,
         dpay = dpay[np.arange(2)[:, None], order]
         cd = cd[np.arange(2)[:, None], order]
     args = [torch.as_tensor(a, device=dev) for a in (spay, dpay, ids, cs, cd)]
-    before = (composite_sel.launches, composite_sel.launches_bwd)
+    before = launch_counts("composite_pair_sel", "composite_pair_sel_bwd")
     out = composite_sel.composite_pair_sel(*args, TS, TX, sigma_cutoff,
                                            term_eps)
     ref = composite_sel.composite_pair_sel_plain(*args, TS, TX, sigma_cutoff,
@@ -276,7 +283,7 @@ def test_k2_per_env_kernels_match_plain(dev, sigma_cutoff, term_eps,
     gs, gd = composite_sel.composite_pair_sel_bwd(*args, ct, out, TS, TX,
                                                   sigma_cutoff, term_eps)
     torch.cuda.synchronize()
-    assert (composite_sel.launches, composite_sel.launches_bwd) == \
+    assert launch_counts("composite_pair_sel", "composite_pair_sel_bwd") == \
         (before[0] + 3, before[1] + 1)
     want_s, want_d = composite_sel.composite_pair_sel_bwd_plain(
         *args, ct, TS, TX, sigma_cutoff, term_eps)
@@ -361,7 +368,7 @@ def test_k4_large_dyn_capacity(dev, Kd, ts):
     plain = as_float64(args)
     leaves = (args[0].clone().requires_grad_(),
               args[1].clone().requires_grad_())
-    before = (composite_pair.launches, composite_pair.launches_bwd)
+    before = launch_counts("composite_pair", "composite_pair_bwd")
     out = composite_pair.composite_pair(*leaves, *args[2:], ts, TX, 3.0, 1e-4)
     torch.testing.assert_close(out.detach(), composite_pair.composite_pair_plain(
         *plain, ts, TX, 3.0, 1e-4).float(), atol=5e-5, rtol=1e-4)
@@ -370,7 +377,7 @@ def test_k4_large_dyn_capacity(dev, Kd, ts):
     ct[args[4] == 0] = 0.0
     (out * ct).sum().backward()
     torch.cuda.synchronize()
-    assert (composite_pair.launches, composite_pair.launches_bwd) == \
+    assert launch_counts("composite_pair", "composite_pair_bwd") == \
         (before[0] + 1, before[1] + 1)
     want_s, want_d = composite_pair.composite_pair_bwd_plain(
         *plain, ct.double(), ts, TX, 3.0, 1e-4)
@@ -407,13 +414,15 @@ def test_train_step_on_card_matches_cpu(dev):
     res = {}
     for d in ("cpu", dev):
         g, prep, step, states, actions = _scene_and_states(d)
-        launched = (composite.launches_bwd, composite_sel.launches_bwd)
+        launched = launch_counts("composite_static_bwd",
+                                 "composite_pair_sel_bwd")
         _, loss, drop, grads = entry.loss_and_grads(prep, step, g.scene,
                                                     states, actions)
         assert int(drop[0]) == 0
         res[str(d)] = (loss, grads)
         if d == dev:
-            assert (composite.launches_bwd, composite_sel.launches_bwd) == \
+            assert launch_counts("composite_static_bwd",
+                                 "composite_pair_sel_bwd") == \
                 (launched[0] + 1, launched[1] + 1)
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
                                rtol=1e-5, atol=0)
@@ -423,10 +432,10 @@ def test_train_step_on_card_matches_cpu(dev):
 
 def test_k3_kernel_matches_plain(dev):
     args = [torch.as_tensor(a, device=dev) for a in k3_inputs()]
-    before = composite_single.launches
+    before = profiling.launches["composite_sel_single"]
     out = composite_single.composite_sel_single(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
-    assert composite_single.launches == before + 1
+    assert profiling.launches["composite_sel_single"] == before + 1
     ref, applied, _ = composite_single.composite_sel_single_plain(
         *args, TS, TX, 3.0, 1e-4, return_work=True)
     torch.testing.assert_close(out[:, :K_T, :5], ref[:, :K_T, :5], atol=2e-5,
@@ -435,7 +444,7 @@ def test_k3_kernel_matches_plain(dev):
     # an input that requires grad goes through K3f (which then records the
     # applied chunks in row 5), then K3b on backward
     leaf = args[0].clone().requires_grad_()
-    before_bwd = composite_single.launches_bwd
+    before_bwd = profiling.launches["composite_sel_single_bwd"]
     out_g = composite_single.composite_sel_single(leaf, *args[1:], TS, TX,
                                                   3.0, 1e-4)
     torch.testing.assert_close(out_g[:, :K_T, 5],
@@ -444,8 +453,8 @@ def test_k3_kernel_matches_plain(dev):
                      generator=torch.Generator(device=dev).manual_seed(0))
     (out_g[:, :K_T] * ct[:, :K_T]).sum().backward()
     torch.cuda.synchronize()
-    assert composite_single.launches == before + 2
-    assert composite_single.launches_bwd == before_bwd + 1
+    assert profiling.launches["composite_sel_single"] == before + 2
+    assert profiling.launches["composite_sel_single_bwd"] == before_bwd + 1
     want = composite_single.composite_sel_single_bwd_plain(
         *args, ct, TS, TX, 3.0, 1e-4)
     assert_rows_close(leaf.grad[:, :K_T], want[:, :K_T], GRAD_REL,
@@ -461,11 +470,11 @@ def test_k3b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     ct = torch.as_tensor(np.random.default_rng(13).normal(
         size=tuple(out.shape)).astype(np.float32), device=dev)
     ct[:, K_T] = 0.0
-    before = composite_single.launches_bwd
+    before = profiling.launches["composite_sel_single_bwd"]
     got = composite_single.composite_sel_single_bwd(
         *args, ct, out.detach(), TS, TX, sigma_cutoff, term_eps)
     torch.cuda.synchronize()
-    assert composite_single.launches_bwd == before + 1
+    assert profiling.launches["composite_sel_single_bwd"] == before + 1
     want = composite_single.composite_sel_single_bwd_plain(
         *args, ct, TS, TX, sigma_cutoff, term_eps)
     assert_rows_close(got[:, :K_T], want[:, :K_T], GRAD_REL, "K3b")
@@ -480,7 +489,7 @@ def k3_check(dev, args, ts, sigma_cutoff, term_eps, what):
     gradient row within GRAD_REL; returns (out, grad, ct)."""
     spay, ids, counts = args
     leaf = spay.clone().requires_grad_()
-    before = (composite_single.launches, composite_single.launches_bwd)
+    before = launch_counts("composite_sel_single", "composite_sel_single_bwd")
     out = composite_single.composite_sel_single(leaf, ids, counts, ts, TX,
                                                 sigma_cutoff, term_eps)
     ref = composite_single.composite_sel_single_plain(
@@ -498,7 +507,8 @@ def k3_check(dev, args, ts, sigma_cutoff, term_eps, what):
     ct[:, -1] = 0.0
     (out * ct).sum().backward()
     torch.cuda.synchronize()
-    assert (composite_single.launches, composite_single.launches_bwd) == \
+    assert launch_counts("composite_sel_single",
+                         "composite_sel_single_bwd") == \
         (before[0] + 1, before[1] + 1), what
     want = composite_single.composite_sel_single_bwd_plain(
         spay, ids, counts, ct, ts, TX, sigma_cutoff, term_eps)
@@ -556,13 +566,14 @@ def test_moving_rollout_on_card_matches_cpu(dev):
                           [60, 400, 180, 300, -1.0]], np.float32)
         states = pusht.set_state(P, torch.as_tensor(vec, device=d))
         actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0]], device=d)
-        launched = (composite_single.launches, composite_single.launches_bwd)
+        launched = launch_counts("composite_sel_single",
+                                 "composite_sel_single_bwd")
         _, loss, flags, grads = entry.rollout_loss_and_grads(
             rollout, g.scene, states, actions)
         res[str(d)] = (loss, flags, grads)
         if d == dev:
-            assert (composite_single.launches,
-                    composite_single.launches_bwd) == \
+            assert launch_counts("composite_sel_single",
+                                 "composite_sel_single_bwd") == \
                 (launched[0] + 2, launched[1] + 2)
     assert res["cuda"][1].tolist() == res["cpu"][1].tolist()
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0],
@@ -573,10 +584,10 @@ def test_moving_rollout_on_card_matches_cpu(dev):
 
 def test_k4_kernel_matches_plain(dev):
     args = [torch.as_tensor(a, device=dev) for a in k4_inputs()]
-    before = composite_pair.launches
+    before = profiling.launches["composite_pair"]
     out = composite_pair.composite_pair(*args, TS, TX, 3.0, 1e-4)
     torch.cuda.synchronize()
-    assert composite_pair.launches == before + 1
+    assert profiling.launches["composite_pair"] == before + 1
     ref = composite_pair.composite_pair_plain(*args, TS, TX, 3.0, 1e-4)
     torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-4)
     skip = args[4]
@@ -594,10 +605,10 @@ def test_k4b_kernel_matches_plain(dev, sigma_cutoff, term_eps):
     ct = torch.as_tensor(np.random.default_rng(14).normal(
         size=tuple(out.shape)).astype(np.float32), device=dev)
     ct[args[4] == 0] = 0.0
-    before = composite_pair.launches_bwd
+    before = profiling.launches["composite_pair_bwd"]
     (out * ct).sum().backward()
     torch.cuda.synchronize()
-    assert composite_pair.launches_bwd == before + 1
+    assert profiling.launches["composite_pair_bwd"] == before + 1
     want_s, want_d = composite_pair.composite_pair_bwd_plain(
         *args, ct, TS, TX, sigma_cutoff, term_eps)
     assert_rows_close(leaves[0].grad, want_s, GRAD_REL,
@@ -678,13 +689,13 @@ def test_per_env_step_on_card_matches_cpu(dev):
                           [60, 400, 180, 300, -1.0]], np.float32)
         states = pusht.set_state(P, torch.as_tensor(vec, device=d))
         actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0]], device=d)
-        launched = (composite_pair.launches, composite_pair.launches_bwd)
+        launched = launch_counts("composite_pair", "composite_pair_bwd")
         _, imgs, n_trunc = step(prep(g.scene), g.scene, states, actions)
         _, loss, _, grads = entry.loss_and_grads(prep, step, g.scene, states,
                                                  actions)
         res[str(d)] = (imgs, n_trunc, loss, grads)
         if d == dev:
-            assert (composite_pair.launches, composite_pair.launches_bwd) == \
+            assert launch_counts("composite_pair", "composite_pair_bwd") == \
                 (launched[0] + 2, launched[1] + 1)
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0], atol=1e-4,
                                rtol=0)
@@ -705,7 +716,7 @@ def test_k1_env_axis(dev, ts, sigma_cutoff, term_eps):
     ins = [k1_case_inputs(ts, seed=4 + b) for b in range(B)]
     args = [torch.as_tensor(np.stack([a[i] for a in ins]), device=dev)
             for i in range(3)]
-    before = (composite.launches, composite.launches_bwd)
+    before = launch_counts("composite_static", "composite_static_bwd")
     out, car, chunk_acc = composite.composite_static_fwd(
         *args, ts, TX, sigma_cutoff, term_eps)
     ct = torch.as_tensor(np.random.default_rng(ts + 1).normal(
@@ -714,7 +725,7 @@ def test_k1_env_axis(dev, ts, sigma_cutoff, term_eps):
                                          sigma_cutoff, term_eps,
                                          chunk_acc=chunk_acc)
     torch.cuda.synchronize()
-    assert (composite.launches, composite.launches_bwd) == \
+    assert launch_counts("composite_static", "composite_static_bwd") == \
         (before[0] + 1, before[1] + 1)
     want, want_car = composite.composite_static_plain(*args, ts, TX,
                                                       sigma_cutoff, term_eps)
@@ -758,7 +769,7 @@ def test_k1_padded_route_on_card(dev):
 
         composite.composite_static = spy
         try:
-            launched = composite.launches
+            launched = profiling.launches["composite_static"]
             res[str(d)] = tiles.rasterize_raw(
                 scene.means + shift, scene.quats, scene.log_scales,
                 scene.colors_dc(), scene.opacities(), cam,
@@ -767,7 +778,7 @@ def test_k1_padded_route_on_card(dev):
             composite.composite_static = real
         assert seen == [((2, 6, 10, 256), None)]   # padded, no early stop
         if d == dev:
-            assert composite.launches == launched + 1
+            assert profiling.launches["composite_static"] == launched + 1
     (img_g, aux_g), (img_c, aux_c) = res["cuda"], res["cpu"]
     torch.testing.assert_close(img_g.cpu(), img_c, atol=5e-5, rtol=0)
     torch.testing.assert_close(aux_g.alpha.cpu(), aux_c.alpha, atol=5e-5,
@@ -790,13 +801,14 @@ def test_uncached_step_on_card_matches_cpu(dev):
         states = pusht.set_state(P, torch.as_tensor(vec, device=d))
         actions = torch.as_tensor([[149.0, 256.0], [170.0, 290.0],
                                    [150.0, 150.0]], device=d)
-        launched = (composite.launches, composite.launches_bwd)
+        launched = launch_counts("composite_static", "composite_static_bwd")
         _, imgs = step(g.scene, states, actions)
         _, loss, _, grads = entry.loss_and_grads(None, step, g.scene, states,
                                                  actions)
         res[str(d)] = (imgs, loss, grads)
         if d == dev:
-            assert (composite.launches, composite.launches_bwd) == \
+            assert launch_counts("composite_static",
+                                 "composite_static_bwd") == \
                 (launched[0] + 2, launched[1] + 1)
     torch.testing.assert_close(res["cuda"][0].cpu(), res["cpu"][0], atol=1e-4,
                                rtol=0)
@@ -948,11 +960,11 @@ def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
                                                     paths["assets"]))
     state, _ = env.reset(reset_to_state={"robot_pos": ASSET_HOME})
     draw = env.draw_state(state)
-    before = composite.launches
+    before = profiling.launches["composite_static"]
     with torch.no_grad():
         got = wrapper.render(None, draw)
         torch.cuda.synchronize()
-        assert composite.launches == before + 2
+        assert profiling.launches["composite_static"] == before + 2
         real = composite.composite_static
         composite.composite_static = composite.composite_static_plain
         try:
@@ -1025,11 +1037,12 @@ def test_splat_train_step_on_card_matches_cpu(dev):
         params = train.parameters(init)
         step = train.make_train_step(cfg, raster,
                                      train.make_optimizer(cfg, params))
-        before = (composite.launches, composite.launches_bwd)
+        before = launch_counts("composite_static", "composite_static_bwd")
         _, loss, gnorm = step(params, cam, image)
         if d.type == "cuda":
             torch.cuda.synchronize()
-            assert (composite.launches, composite.launches_bwd) == \
+            assert launch_counts("composite_static",
+                                 "composite_static_bwd") == \
                 (before[0] + 1, before[1] + 1)
         grads = type(params)(*(None if p is None else p.grad.cpu()
                                for p in params))
@@ -1118,10 +1131,10 @@ def test_pusht_kernel_matches_plain(dev, B, params):
     P = pusht.PushTParams(**PUSHT_PARAMS[params])
     vec, actions = _pusht_inputs(dev, B, seed=B)
     states = pusht.set_state(P, vec)
-    before = pusht.launches
+    before = profiling.launches["pusht_step"]
     got = pusht.control_step(P, states, actions)
     torch.cuda.synchronize()
-    assert pusht.launches == before + 1
+    assert profiling.launches["pusht_step"] == before + 1
     want = pusht.control_step_plain(P, states, actions)
     _pusht_gaps(got, want, f"control_step B={B} {params}")
     if B > 1:
@@ -1134,13 +1147,13 @@ def test_pusht_set_state_kernel_matches_plain(dev, legacy, monkeypatch):
     against the plain substep on the card."""
     P = pusht.PushTParams()
     vec, _ = _pusht_inputs(dev, 128, seed=7)
-    before = pusht.launches
+    before = profiling.launches["pusht_step"]
     got = pusht.set_state(P, vec, legacy=legacy)
     torch.cuda.synchronize()
-    assert pusht.launches == before + 1
+    assert profiling.launches["pusht_step"] == before + 1
     monkeypatch.setattr(pusht, "substep", pusht.substep_plain)
     want = pusht.set_state(P, vec, legacy=legacy)
-    assert pusht.launches == before + 1
+    assert profiling.launches["pusht_step"] == before + 1
     _pusht_gaps(got, want, f"set_state legacy={legacy}")
 
 
@@ -1177,15 +1190,15 @@ def test_pusht_kernel_launches_and_gradient(dev):
     st = pusht.set_state(P, torch.tensor([[80.0, 310.0, 149.0, 256.0, 0.0]],
                                          device=dev))
     act = torch.tensor([[140.0, 310.0]], device=dev)
-    before = pusht.launches
+    before = profiling.launches["pusht_step"]
     s = st
     for _ in range(3):
         s = pusht.control_step(P, s, act)
-    assert pusht.launches == before + 3
+    assert profiling.launches["pusht_step"] == before + 3
 
     action = act.clone().requires_grad_()
     r, _ = pusht.reward_done(P, pusht.control_step(P, st, action))
-    assert pusht.launches == before + 3
+    assert profiling.launches["pusht_step"] == before + 3
     (g,) = torch.autograd.grad(r.sum(), action)
     a2 = act.clone().requires_grad_()
     r2, _ = pusht.reward_done(P, pusht.control_step_plain(P, st, a2))
@@ -1196,7 +1209,7 @@ def test_pusht_kernel_launches_and_gradient(dev):
     torch.testing.assert_close(g, g2, rtol=1e-5, atol=0)
     with torch.no_grad():
         pusht.control_step(P, st, action)
-    assert pusht.launches == before + 4
+    assert profiling.launches["pusht_step"] == before + 4
 
 
 def test_pusht_substep_kernel_adds_to_n_contacts(dev):
@@ -1313,15 +1326,14 @@ def test_arm_kernel_matches_plain(dev, B, start):
     end effector pressing into the T: every step against ``step_plain``
     on the card from the same state, the state, reward and flags bit for
     bit, the info within 1e-5."""
-    from sim_a_splat_torch.envs import manipulator_envs as me
     env = _arm_env(dev)
     state, actions = _arm_start(env, dev, B, start)
     pushed = 0.0
     with torch.no_grad():
         for k, a in enumerate(actions):
-            before = me.launches
+            before = profiling.launches["arm_step"]
             got = env.step(state, a)
-            assert me.launches == before + 1
+            assert profiling.launches["arm_step"] == before + 1
             _arm_gaps(got, env.step_plain(state, a), f"B={B} {start} {k}")
             pushed = max(pushed, float(got.state.block_vel.abs().max()))
             state = got.state
@@ -1359,25 +1371,24 @@ def test_arm_kernel_other_chains_and_settings(dev):
 
 
 def test_arm_kernel_launches_and_gradient(dev):
-    """One ``arm.launches`` a step; an action that requires grad (grad
+    """One ``arm_step`` launch a step; an action that requires grad (grad
     mode on) takes the plain path and gets its gradient; under no_grad the
     same call launches P2."""
-    from sim_a_splat_torch.envs import manipulator_envs as me
     env = _arm_env(dev)
     state, actions = _arm_start(env, dev, 8, "contact", steps=4)
-    before = me.launches
+    before = profiling.launches["arm_step"]
     s = state
     for a in actions[:3]:
         s = env.step(s, a).state
-    assert me.launches == before + 3
+    assert profiling.launches["arm_step"] == before + 3
     act = actions[3].clone().requires_grad_()
     out = env.step(state, act)
-    assert me.launches == before + 3
+    assert profiling.launches["arm_step"] == before + 3
     (g,) = torch.autograd.grad(out.state.block_pos.sum(), act)
     assert bool(torch.isfinite(g).all())
     with torch.no_grad():
         env.step(state, act)
-    assert me.launches == before + 4
+    assert profiling.launches["arm_step"] == before + 4
 
 
 # one collect-shaped arm step under a profiler, in a process of its own:
@@ -1423,6 +1434,123 @@ def test_arm_kernel_is_tied_to_its_span_by_the_profiler(dev):
     assert len(linked) == 1, "the operator holds no arm_step kernel"
     print(f"arm_step linked to a host event: {linked[0]:.1f} us")
     assert linked[0] > 0
+
+
+# one pushT datagen step and one train step under a profiler, with the
+# program's spans on, in a process of its own: prints, by the innermost of
+# the spans below around each host event that launched kernels (as the
+# benchmark's harness attributes them), each kernel's device µs, and for
+# each kernel the host events the profiler links it to
+_RENDER_PROFILE_PROBE = """
+import collections, json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from sim_a_splat_torch import entry
+from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.utils import profiling
+SPANS = ("render.prepare", "render.select", "step.backward")
+graph = entry.build_scene(n_bg=2000, n_block=400, n_agent=150, seed=0,
+                          sh_degree=3, device="cuda")
+raster = RasterConfig(tile_size=16, tile_capacity=256,
+                      max_tiles_per_gaussian=16, sigma_cutoff=3.0,
+                      term_eps=1e-4)
+prepare, step_batch, params = entry.make_step_cached_batch(
+    graph, 128, 128, raster, dyn_capacity=128, sel_tiles=16,
+    dyn_max_tiles=9, device="cuda")
+states = pusht.reset(params, torch.Generator(device="cuda").manual_seed(0),
+                     8)
+actions = states.agent_pos + 5.0
+
+def both():
+    with torch.no_grad():
+        step_batch(prepare(graph.scene), graph.scene, states, actions)
+    entry.loss_and_grads(prepare, step_batch, graph.scene, states, actions)
+
+both()
+torch.cuda.synchronize()
+profiling.enable(True)
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    both()
+    torch.cuda.synchronize()
+events = prof.events()
+spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+         if e.name in SPANS]
+out = collections.defaultdict(lambda: collections.defaultdict(float))
+linked = collections.defaultdict(set)
+for e in events:
+    if e.kernels and not e.name.startswith("cu"):
+        t = e.time_range.start
+        host = [s for s in spans if s[0] <= t <= s[1]]
+        for k in e.kernels:
+            linked[k.name].add(e.name)
+            if host:
+                out[max(host)[2]][k.name] += k.duration
+print(json.dumps({"by_span": out,
+                  "linked": {k: sorted(v) for k, v in linked.items()}}))
+"""
+
+
+def test_kernels_are_tied_to_their_spans_by_the_profiler(dev):
+    """The profiler links each of K1f, K2f, K2b and K1b to its own
+    operator (``sim_a_splat::composite_static`` …), and so ties K1f and K2f
+    to the render spans around them (``render.prepare``,
+    ``render.select``) and K2b and K1b to ``step.backward``, as it ties P1
+    and P2 to ``physics``: the device time the benchmark reads under a
+    span holds them.  In a process of its own (see the arm's profiler
+    test)."""
+    import json
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _RENDER_PROFILE_PROBE],
+                         cwd=pathlib.Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    by_span = got["by_span"]
+    for span, kernels in by_span.items():
+        print(span, {k[:40]: round(us, 1) for k, us in kernels.items()
+                     if "composite" in k})
+    for span, names in (
+            ("render.prepare", (("composite_static_chunks",
+                                 "composite_static"),
+                                ("composite_static_combine",
+                                 "composite_static"))),
+            ("render.select", (("composite_pair_sel_fwd",
+                                "composite_pair_sel"),)),
+            ("step.backward", (("composite_pair_sel_bwd",
+                                "composite_pair_sel_bwd"),
+                               ("composite_static_bwd",
+                                "composite_static_bwd")))):
+        for name, op in names:
+            us = sum(v for k, v in by_span.get(span, {}).items()
+                     if name in k)
+            assert us > 0, f"no {name} kernel under {span}"
+            hosts = {h for k, v in got["linked"].items() if name in k
+                     for h in v}
+            print(name, "linked to", sorted(hosts))
+            assert f"sim_a_splat::{op}" in hosts, (name, hosts)
+
+
+@pytest.mark.parametrize("chain", ["links", "joints"])
+def test_arm_chain_past_the_caps_takes_the_plain_path(dev, chain, tmp_path):
+    """A chain past P2's caps (a 9th link, a 7th joint) steps on the card
+    through ``step_plain``, as the reference steps any chain: the plain
+    step's results bit for bit over 4 chained steps of 8 envs, and no
+    ``arm_step`` launch."""
+    from sim_a_splat_torch.envs.manipulator_envs import ManipulatorEnvF
+    env = ManipulatorEnvF(chain=arm_chain_past_caps(chain, tmp_path),
+                          eef_link="push_tool", device=str(dev))
+    reset, actions = arm_case_inputs(env, 8, 4, np.random.default_rng(3))
+    state, _ = env.reset(reset_to_state=reset, batch=8)
+    before = profiling.launches["arm_step"]
+    with torch.no_grad():
+        for k, a in enumerate(torch.as_tensor(actions, device=dev)):
+            got = env.step(state, a)
+            _arm_gaps(got, env.step_plain(state, a), f"{chain} {k}")
+            state = got.state
+    assert profiling.launches["arm_step"] == before
 
 
 def test_arm_kernel_rejects_inputs(dev):
@@ -1474,7 +1602,7 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
     """One traced collect step at an episode's start records the root
     ``step.arm`` with the physics' and the cameras' spans under it (the
     physics one launch of P2 in ``physics.solve``), and the counters
-    ``render.moving_rebuilds`` and ``arm.launches`` (1) in its step."""
+    ``render.moving_rebuilds`` and ``arm_step`` (1) in its step."""
     from sim_a_splat_torch.utils import profiling
 
     w = entry.build_product_wrapper(n_total=6000, sh_degree=3,
@@ -1493,7 +1621,7 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
         events = [c for c in profiling.counter_events()
                   if c.name == "render.moving_rebuilds"]
         arm = [c for c in profiling.counter_events()
-               if c.name == "arm.launches"]
+               if c.name == "arm_step"]
     finally:
         profiling.enable(was)
         profiling.clear()

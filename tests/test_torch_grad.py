@@ -61,6 +61,7 @@ from sim_a_splat_tpu.ops.pallas_composite_sel import composite_pair_sel as jk2
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops import composite, composite_sel
 from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.utils import profiling
 
 SETTINGS = [(3.0, 1e-4), (None, None)]
 
@@ -240,8 +241,7 @@ def test_functions_backward_on_cpu():
     rng = np.random.default_rng(12)
     ct = torch.as_tensor(rng.normal(size=(K_T, K_TS * K_TS, 8)).astype(
         np.float32))
-    launched = (composite.launches, composite.launches_bwd,
-                composite_sel.launches, composite_sel.launches_bwd)
+    launched = profiling.launches.copy()
 
     leaf = pay.clone().requires_grad_()
     out, carries = composite.composite_static(leaf, counts, skip, K_TS, K_TX,
@@ -274,8 +274,7 @@ def test_functions_backward_on_cpu():
     want2 = torch.autograd.grad(out2_p[rows], plain2, ct2[rows])
     for got, w in zip((leaves[0].grad, leaves[1].grad), want2):
         torch.testing.assert_close(got, w, atol=0, rtol=0)
-    assert (composite.launches, composite.launches_bwd, composite_sel.launches,
-            composite_sel.launches_bwd) == launched
+    assert profiling.launches == launched
 
 
 def test_bwd_wrappers_check_inputs():

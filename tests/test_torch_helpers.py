@@ -404,3 +404,29 @@ def arm_case_inputs(env, B, steps, rng):
     reset = {"robot_pos": q0, "block_pos": block.astype(np.float32),
              "goal_pos": goal.astype(np.float32)}
     return reset, actions
+
+
+def arm_chain_past_caps(kind, tmp_path):
+    """pusharm6 grown past the arm kernel's caps (8 links, 6 joints),
+    through ``kin.load_chain``: ``"links"`` adds a 9th link, fixed on
+    ``push_tool``; ``"joints"`` makes ``tool_joint`` a 7th joint, revolute
+    about z."""
+    from sim_a_splat_torch import entry
+    from sim_a_splat_torch.physics import kinematics as kin
+
+    urdf = entry.PRODUCT_URDF.read_text()
+    if kind == "links":
+        urdf = urdf.replace(
+            "</robot>", '  <link name="mount"/>\n'
+            '  <joint name="mount_joint" type="fixed">\n'
+            '    <parent link="push_tool"/>\n'
+            '    <child link="mount"/>\n  </joint>\n</robot>')
+    else:
+        urdf = urdf.replace(
+            '<joint name="tool_joint" type="fixed">',
+            '<joint name="tool_joint" type="revolute">\n'
+            '    <axis xyz="0 0 1"/>\n'
+            '    <limit lower="-1" upper="1" velocity="3.14" effort="10"/>')
+    path = tmp_path / f"pusharm6_{kind}.urdf"
+    path.write_text(urdf)
+    return kin.load_chain(path)

@@ -52,6 +52,7 @@ from sim_a_splat_torch.ops import rasterize_moving as trm
 from sim_a_splat_torch.ops.projection import Camera
 from sim_a_splat_torch.ops.transforms import SE3
 from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.utils import profiling
 
 B = 2
 CAM_OFFSET = np.asarray([0.0, -40.0, -420.0], np.float32)
@@ -385,7 +386,7 @@ def test_k3_function_on_cpu():
     autograd through the plain forward, no kernel launches, and row 5
     carries the applied-chunk count only when the gradient is taken."""
     spay, ids, counts = (torch.as_tensor(a) for a in k3_inputs(seed=3))
-    launched = (composite_single.launches, composite_single.launches_bwd)
+    launched = profiling.launches.copy()
     leaf = spay.clone().requires_grad_()
     out = composite_single.composite_sel_single(leaf, ids, counts, K_TS, K_TX,
                                                 3.0, 1e-4)
@@ -404,8 +405,7 @@ def test_k3_function_on_cpu():
                                                        K_TS, K_TX, 3.0, 1e-4)
     assert out_ng.grad_fn is None and not out_ng[:, :, 5].any()
     torch.testing.assert_close(out_ng[:, :K_T, :5], out[:, :K_T, :5].detach())
-    assert (composite_single.launches,
-            composite_single.launches_bwd) == launched
+    assert profiling.launches == launched
 
 
 def test_k3_wrappers_check_inputs():

@@ -54,6 +54,7 @@ from sim_a_splat_tpu.ops.pallas_composite_pair import composite_pallas_pair
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops import composite, composite_pair, rasterize_cached
 from sim_a_splat_torch.physics import pusht
+from sim_a_splat_torch.utils import profiling
 
 SETTINGS = [(3.0, 1e-4), (None, None)]
 P = K_TS * K_TS
@@ -173,13 +174,13 @@ def test_fused_matches_merged_render(term_eps):
     tol = 2e-5 if term_eps is None else 2e-4
     for scomp in (None, rasterize_cached.build_static_composite(cache, cam,
                                                                 cfg)):
-        launched = composite_pair.launches
+        launched = profiling.launches.copy()
         img_f, aux_f = rasterize_cached.rasterize_with_cache(
             cache, scomp, *dyn, cam, cfg, background=torch.ones(3))
         img_m, aux_m = rasterize_cached.rasterize_with_cache(
             cache, scomp, *dyn, cam, cfg._replace(fused_pair=False),
             background=torch.ones(3))
-        assert composite_pair.launches == launched     # CPU: plain versions
+        assert profiling.launches == launched     # CPU: plain versions
         assert img_f.shape == (2, 64, 64, 3)
         np.testing.assert_allclose(np_of(img_f), np_of(img_m), atol=tol,
                                    rtol=1e-4)
@@ -260,7 +261,7 @@ def test_function_backward_on_cpu():
     spay, dpay, cs, cd, skip = (torch.as_tensor(a) for a in k4_inputs(5))
     ct = torch.as_tensor(np.random.default_rng(13).normal(
         size=(2, K_T, P, 8)).astype(np.float32))
-    launched = (composite_pair.launches, composite_pair.launches_bwd)
+    launched = profiling.launches.copy()
     leaves = (spay.clone().requires_grad_(), dpay.clone().requires_grad_())
     out = composite_pair.composite_pair(*leaves, cs, cd, skip, K_TS, K_TX,
                                         3.0, 1e-4)
@@ -275,7 +276,7 @@ def test_function_backward_on_cpu():
         out_ng = composite_pair.composite_pair(*leaves, cs, cd, skip, K_TS,
                                                K_TX)
     assert out_ng.grad_fn is None and not out_ng.requires_grad
-    assert (composite_pair.launches, composite_pair.launches_bwd) == launched
+    assert profiling.launches == launched
 
 
 def test_wrappers_check_inputs():

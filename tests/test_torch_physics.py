@@ -9,8 +9,7 @@ bit of sin/cos and in fused multiply-adds, which contacts amplify).
 
 The card's kernel ``csrc/pusht_step.cu`` (it runs on the card only; its
 tests are in ``test_torch_cuda.py``): CPU tensors take the plain path and
-launch nothing, its launch is a dispatcher operator with a CUDA kernel
-alone, the constants handed to it are the plain path's float32
+launch nothing, the constants handed to it are the plain path's float32
 scalars bit for bit, it builds without fast math and without FMA
 contraction, and its source, built for this host by ``g++`` with a shim
 for the CUDA keywords and run thread by thread, steps the envs exactly as
@@ -39,6 +38,7 @@ from test_torch_helpers import (
 from sim_a_splat_tpu.physics import pusht as jpusht
 from sim_a_splat_torch.ops import _kernels
 from sim_a_splat_torch.physics import planar, pusht
+from sim_a_splat_torch.utils import profiling
 
 GOLDENS = np.load(pathlib.Path(__file__).parent / "assets" / "pusht_goldens.npz")
 TRAJ = ("push_stem", "rotate_crossbar", "wall_pin", "legacy_push")
@@ -151,9 +151,9 @@ def _states(P, B, seed):
 @pytest.mark.parametrize("call", ["control_step", "set_state"])
 def test_cpu_tensors_take_the_plain_path(call, monkeypatch):
     """On CPU tensors nothing launches: the results are the plain path's,
-    bit for bit, and ``pusht.launches`` stays where it was."""
+    bit for bit, and the launch count stays where it was."""
     P = pusht.PushTParams()
-    monkeypatch.setattr(pusht, "launches", 0)
+    before = profiling.launches.copy()
     states, actions = _states(P, 16, seed=1)
     if call == "control_step":
         got = pusht.control_step(P, states, actions)
@@ -166,7 +166,7 @@ def test_cpu_tensors_take_the_plain_path(call, monkeypatch):
         want = pusht.set_state(P, vec, legacy=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert pusht.launches == 0
+    assert profiling.launches == before
 
 
 def _f32_bits(x) -> bytes:
@@ -227,20 +227,6 @@ def test_pusht_step_builds_without_fast_math():
                          src)
     assert _kernels._library_path("pusht_step").name.startswith(
         "libpusht_step_")
-
-
-def test_pusht_step_is_a_cuda_operator():
-    """The kernel's launch is the dispatcher operator
-    ``sim_a_splat::pusht_step`` (the profiler ties a kernel only to an
-    operator around its launch), with a kernel for CUDA alone: CPU
-    tensors find none."""
-    pusht._library()
-    schema = str(torch.ops.sim_a_splat.pusht_step.default._schema)
-    assert schema.startswith("sim_a_splat::pusht_step(Tensor[] state, "
-                             "Tensor? action, int substeps, int constants)")
-    states, actions = _states(pusht.PushTParams(), 4, seed=5)
-    with pytest.raises(NotImplementedError, match="CPU"):
-        torch.ops.sim_a_splat.pusht_step(list(states[:-1]), actions, 1, 0)
 
 
 @pytest.mark.parametrize("bad,match", [("float64", "float64"),

@@ -51,6 +51,7 @@ from sim_a_splat_torch.ops.composite import (
     CHUNK, entry_alpha, pixel_centers, power_min_of,
 )
 from sim_a_splat_torch.ops.rasterize_reference import ALPHA_CLAMP, ALPHA_MIN
+from sim_a_splat_torch.utils import profiling
 
 SETTINGS = [(3.0, 1e-4), (None, None)]
 TILE_SIZES = [8, 16, 32]
@@ -310,7 +311,7 @@ def test_k1_wrappers_on_the_cpu():
     """On CPU tensors K1f's wrapper runs the plain version (no saved state
     needed: the plain backward recomputes) and launches nothing."""
     pay, counts, skip = (torch.as_tensor(a) for a in k1_case_inputs())
-    before = (composite.launches, composite.launches_bwd)
+    before = profiling.launches.copy()
     out, car, chunk_acc = composite.composite_static_fwd(
         pay, counts, skip, 16, K_TX, 3.0, 1e-4)
     assert chunk_acc is None
@@ -322,7 +323,7 @@ def test_k1_wrappers_on_the_cpu():
                                        K_TX, 3.0, 1e-4)
     assert torch.equal(g, composite.composite_static_bwd_plain(
         pay, counts, skip, ct, 16, K_TX, 3.0, 1e-4))
-    assert (composite.launches, composite.launches_bwd) == before
+    assert profiling.launches == before
 
 
 def test_dynamic_capacities_the_card_takes():

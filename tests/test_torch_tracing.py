@@ -252,7 +252,10 @@ def test_spans_on_the_profilers_clock():
             assert s0 <= s1 and e1 <= e0      # the span holds its mark
 
 
-def test_export_is_a_chrome_trace_with_launch_counters(step_inputs, tmp_path):
+def test_export_is_a_chrome_trace_with_launch_counters(step_inputs, tmp_path,
+                                                       monkeypatch):
+    # an operator launched before: each root records its change, 0 here
+    monkeypatch.setitem(profiling.launches, "composite_static", 5)
     profiling.enable(True)
     _run(step_inputs)
     profiling.count("kernels.built", 2)
@@ -269,14 +272,16 @@ def test_export_is_a_chrome_trace_with_launch_counters(step_inputs, tmp_path):
     assert abs(base + x0["ts"] * 1e3 - first.start_ns) < 1e3
     assert {"step", "id", "parent"} <= set(x0["args"])
     n_roots = sum(r.parent is None for r in recs)
-    for name, _, _ in profiling.LAUNCH_COUNTERS:
-        assert sum(e["name"] == name for e in cs) == n_roots
+    launched = [e["args"]["value"] for e in cs
+                if e["name"] == "composite_static"]
+    assert launched == [0] * n_roots
     built = [e for e in cs if e["name"] == "kernels.built"]
     assert [e["args"]["value"] for e in built] == [2]
 
 
 def test_buffer_keeps_the_last_capacity_spans(monkeypatch):
     monkeypatch.setattr(profiling, "CAPACITY", 8)
+    monkeypatch.setitem(profiling.launches, "composite_static", 0)
     profiling.clear()
     profiling.enable(True)
     for i in range(20):
@@ -286,6 +291,7 @@ def test_buffer_keeps_the_last_capacity_spans(monkeypatch):
     assert [r.name for r in recs] == [f"s{i}" for i in range(12, 20)]
     assert profiling.dropped()[0] == 12
     assert len(profiling.counter_events()) == 8    # launch counters too
+    assert profiling.dropped()[1] == 12
 
 
 def test_kernel_load_span_and_build_counter(monkeypatch, tmp_path):
@@ -421,5 +427,5 @@ def test_backward_spans_nest_on_the_card():
         assert r[0].thread != train[0].thread     # autograd's device thread
     launches = {c.name: c.value for c in profiling.counter_events()
                 if c.step == train[0].step}
-    assert launches["composite.launches"] == 1
-    assert launches["composite_sel.launches_bwd"] == 1
+    assert launches["composite_static"] == 1
+    assert launches["composite_pair_sel_bwd"] == 1
