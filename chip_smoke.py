@@ -160,6 +160,9 @@ PUSHT_SLOT_OPS, PUSHT_SUBSTEP_OPS, PUSHT_OP_CYCLES = 28, 150, 4
 # link; the one with tangents counted twice)
 ARM_SUBSTEP_OPS, ARM_FK_OPS = 120, 280
 ARM_STEP_STEPS = 32   # chained steps of the arm kernel's check
+# kernel R1's colours against the plain reprojection's: it sums the SH
+# coefficients in order, the plain version's einsum through a gemv
+R1_COLOUR_TOL = 1e-6
 # the operators of K1-K4, whose launches the phases count
 RENDER_OPS = ("composite_static", "composite_pair_sel", "composite_static_bwd",
               "composite_pair_sel_bwd", "composite_sel_single",
@@ -553,6 +556,78 @@ def arm_step_row(env, inputs, launches):
                     f"host_ms_b{B}": host_ms, "ms": ms, "plain_ms": plain_ms,
                     f"launch_host_us_b{B}": call_us})
         row["max_abs_err"] = max(row["max_abs_err"], *info_gap.values())
+    return row
+
+
+def reproject_row(rasterize_moving, args):
+    """Kernel R1 (``csrc/reproject.cu``, one launch a moving-camera render)
+    on the arm product path's end-effector camera: the candidate caches and
+    cameras of a captured render at B = ARM_B, and env 0's alone at B = 1.
+    Held to the plain reprojection on the same inputs: every payload row
+    but the colours, and the key, bit for bit (NaN where NaN); the colours
+    within R1_COLOUR_TOL; the survivors' counts equal.  The operator's
+    launch timed by CUDA events over 200 launches (its device time under
+    the profiler beside), the whole kernel path (the camera constants and
+    the launch) and the plain version beside it, against the bytes bound:
+    each candidate's fields read once and its ten rows and key written once
+    (280 B at SH degree 3) at 3.35 TB/s.  Returns its ``kernels`` row
+    (``ms`` at B = ARM_B, ``ms_b<B>`` at each)."""
+    import torch
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.transforms import SE3
+    cache, cams, degree, cfg = args
+    op = torch.ops.sim_a_splat.reproject_candidates
+    K = (degree + 1) ** 2
+    row = dict(name="reproject_candidates", route="cuda",
+               source="sim_a_splat_torch/csrc/reproject.cu", replaces=None,
+               max_abs_err=0.0, bound_by="bytes", library_ms=None)
+    for B in (1, ARM_B):
+        c = type(cache)(*(f[:B] if f.dim() else f for f in cache))
+        cam = Camera(SE3(cams.pose.q[:B], cams.pose.t[:B]), cams.fx, cams.fy,
+                     cams.cx, cams.cy, cams.width, cams.height)
+        a = rasterize_moving.r1_arguments(c, cam, degree, cfg)
+        with torch.no_grad():
+            pay, key = op(*a)
+            wpay, wkey = rasterize_moving._reproject_plain(c, cam, degree,
+                                                           cfg)
+            rows = [r for r in range(10) if r not in range(5, 8)]
+            same = (torch.equal(key, wkey) and bool(
+                ((pay[:, :, rows] == wpay[:, :, rows])
+                 | (pay[:, :, rows].isnan() & wpay[:, :, rows].isnan()))
+                .all()))
+            colour = float((pay[:, :, 5:8] - wpay[:, :, 5:8]).abs().max())
+            counts = (pay[:, :, 9] > 0).sum(-1)
+            same_counts = torch.equal(counts, (wpay[:, :, 9] > 0).sum(-1))
+            ms = cuda_ms(lambda: op(*a), 200, warmup=20)
+            dev_ms = device_ms_text(lambda: op(*a), 50)
+            path_ms = cuda_ms(lambda: rasterize_moving._reproject_kernel(
+                c, cam, degree, cfg), 200, warmup=5)
+            plain_ms = cuda_ms(lambda: rasterize_moving._reproject_plain(
+                c, cam, degree, cfg), 20, warmup=2)
+        n = pay.shape[0] * pay.shape[1] * pay.shape[3]
+        nbytes = n * 4 * ((3 + 4 + 3 + 1 + 3 * K) + 11)
+        bound_ms = nbytes / 3.35e12 * 1e3
+        log(f"render, the end-effector camera's reprojection at B={B} "
+            f"({tuple(pay.shape)}, SH degree {degree}, "
+            f"{float((counts > 0).float().mean()):.3f} of the tiles "
+            f"holding survivors, {int(counts.sum())} survivors): kernel "
+            f"reproject_candidates {ms:.4f} ms (events over 200 launches; "
+            f"device time under the profiler {dev_ms}), the kernel path "
+            f"with its camera constants {path_ms:.4f} ms, plain path "
+            f"{plain_ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+            f"{bound_ms / ms * 100:.1f} % of it); rows but the colours and "
+            f"the key bit-equal: {same}, survivors' counts equal: "
+            f"{same_counts}, colours max|Δ| {colour:.3e}")
+        if not (same and same_counts and colour <= R1_COLOUR_TOL):
+            raise AssertionError(
+                f"reproject_candidates at B={B} is not the plain "
+                f"reprojection: rows and key equal {same}, counts equal "
+                f"{same_counts}, colours max|Δ| {colour}")
+        row.update({f"ms_b{B}": ms, f"plain_ms_b{B}": plain_ms,
+                    f"path_ms_b{B}": path_ms, f"bound_ms_b{B}": bound_ms,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
+        row["max_abs_err"] = max(row["max_abs_err"], colour)
     return row
 
 
@@ -2568,8 +2643,12 @@ def arm_product(entry, composite, composite_sel, composite_single,
     timed apart; images and gradients against the port's plain path; the
     moving camera against its full rebin where no frame is severe; then P2
     (``arm_step``, one launch a step: ``ARM_R`` in the forward rollout)
-    at B = 1 and B = 8 from the cells' settled states.  Returns the six
-    kernels' rows (names ending ``_arm``) and P2's."""
+    at B = 1 and B = 8 from the cells' settled states; R1
+    (``reproject_candidates``, one launch a frame of the forward rollout,
+    none in the train rollout, whose gradient takes the plain
+    reprojection) on a teleop step's end-effector camera at B = 8 and
+    B = 1 (:func:`reproject_row`).  Returns the six kernels' rows (names
+    ending ``_arm``), P2's and R1's."""
     import torch
     from sim_a_splat_torch.envs import manipulator_envs
     from sim_a_splat_torch.envs.manipulator_envs import (
@@ -2639,6 +2718,19 @@ def arm_product(entry, composite, composite_sel, composite_single,
         r["name"] += "_arm"
     del seen, mc
 
+    # 20b. kernel R1 on a teleop step's end-effector camera, B = 8 and 1 ----
+    r1_args = {}
+
+    def capture_r1(cache, cams, degree, cfg, **kw):
+        r1_args.setdefault("args", (cache, cams, degree, cfg))
+        return real_r1(cache, cams, degree, cfg, **kw)
+
+    with torch.no_grad(), replaced(rasterize_moving, "reproject_candidates",
+                                   capture_r1) as real_r1:
+        step(states, actions_seq[0], wrapper.build_render_cache(),
+             build_moving(states))
+    r1_row = reproject_row(rasterize_moving, r1_args.pop("args"))
+
     # 21. the forward rollout, timed and profiled -----------------------------
     reset_counts()
     torch.cuda.synchronize()
@@ -2670,6 +2762,12 @@ def arm_product(entry, composite, composite_sel, composite_single,
     if p2_launches != ARM_R:
         raise AssertionError(f"arm_step launched {p2_launches} times in "
                              f"{ARM_R} steps of the forward rollout")
+    r1_row["launches"] = counts_now(("reproject_candidates",))[
+        "reproject_candidates"]
+    if r1_row["launches"] != ARM_R:
+        raise AssertionError(f"reproject_candidates launched "
+                             f"{r1_row['launches']} times in {ARM_R} frames "
+                             "of the forward rollout")
     for i, k in enumerate(("camera_0", "camera_1")):
         img = trs.obs[k]
         if img.shape != (ARM_R, ARM_B, 3, h, w) or \
@@ -2760,6 +2858,11 @@ def arm_product(entry, composite, composite_sel, composite_single,
     if any(launches[n] != want.get(n, 0) for n in launches):
         raise AssertionError(f"the train rollout launched {launches}, not "
                              f"{want}")
+    r1_train = counts_now(("reproject_candidates",))["reproject_candidates"]
+    if r1_train:
+        raise AssertionError(f"reproject_candidates launched {r1_train} "
+                             "times in the train rollout (its gradient takes "
+                             "the plain reprojection)")
     if not finite:
         raise AssertionError("a gradient of the train rollout is not finite")
     del trs, grads
@@ -2858,6 +2961,7 @@ def arm_product(entry, composite, composite_sel, composite_single,
                                          settle=ARM_SETTLE)
                  for b in (1, ARM_B)}
     rows.append(arm_step_row(wrapper._base_env(), p2_inputs, p2_launches))
+    rows.append(r1_row)
     return rows
 
 

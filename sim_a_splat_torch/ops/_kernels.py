@@ -20,7 +20,8 @@ the operator's name, the package's one count of launches.
 ``--use_fast_math`` is never passed: it changes ``expf``, and the
 ``ALPHA_MIN`` and sigma cut-offs would turn such differences into whole
 contributions (and the pushT and arm steps' ``sinf``, ``cosf``,
-``atan2f``, ``sqrtf`` and divisions, which they keep as the plain path's).
+``atan2f``, ``sqrtf`` and divisions, and the reprojection's ``expf``,
+``sqrtf`` and divisions, which they keep as the plain path's).
 """
 
 from __future__ import annotations
@@ -43,12 +44,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("composite", "composite_bwd", "composite_sel",
                   "composite_sel_bwd", "composite_single",
                   "composite_single_bwd", "composite_pair",
-                  "composite_pair_bwd", "pusht_step", "arm_step")
+                  "composite_pair_bwd", "pusht_step", "arm_step",
+                  "reproject")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source on top of NVCC_FLAGS: the pushT and arm steps round
-# every product and sum by itself, as the plain path's separate ops do
-SOURCE_FLAGS = {"pusht_step": ("-fmad=false",), "arm_step": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS: the pushT and arm steps and the
+# candidate reprojection round every product and sum by itself, as the plain
+# path's separate ops do
+SOURCE_FLAGS = {"pusht_step": ("-fmad=false",), "arm_step": ("-fmad=false",),
+                "reproject": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

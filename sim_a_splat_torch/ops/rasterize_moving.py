@@ -30,17 +30,25 @@ Parity with the reference, named where each is handled:
   is real and their opacity 0, and they are culled before binning;
 - the reprojection is recomputed in the backward
   (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+
+On the card the reprojection is one launch of kernel R1
+(``csrc/reproject.cu``, the operator ``sim_a_splat::reproject_candidates``)
+where its inputs need no gradient and the SH degree is at most 3
+(``_on_kernel``); it computes the plain version's (``_reproject_plain``)
+expressions op for op, so every payload row but the colours, and the key,
+are the plain version's bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from sim_a_splat_torch.ops import composite_single
+from sim_a_splat_torch.ops import _kernels, composite_single
 from sim_a_splat_torch.ops import quaternion as quat
 from sim_a_splat_torch.ops import sh as sh_ops
 from sim_a_splat_torch.ops.composite import CHUNK
@@ -320,11 +328,159 @@ def reproject_candidates(cache: MovingCache, camera: Camera, sh_degree: int,
     ``project_raw``'s): the ceil'd radius and the tile test below decide
     which candidates survive, and their count sets where the 128-entry
     chunks start, so the early stop, and with it the image, depends on
-    them.  Colors are the exact SH for the current view directions.
+    them.  Colors are the exact SH for the current view directions.  On
+    the card one launch of kernel R1 (``_reproject_kernel``) where
+    ``_on_kernel`` says so, else ``_reproject_plain``.
 
     With ``sort`` returns (spay (B, T, 10, Kc) depth-sorted kernel payload,
     counts (B, T) int32); without, the unsorted payload (B, T, 10, Kc) and
     its sort key (B, T, Kc) for the caller to merge with the dynamics."""
+    if _on_kernel(cache, camera, sh_degree):
+        payload, key = _reproject_kernel(cache, camera, sh_degree, config,
+                                         near, eps2d)
+    else:
+        payload, key = _reproject_plain(cache, camera, sh_degree, config,
+                                        near, eps2d)
+    if not sort:
+        return payload, key
+    counts = torch.sum(payload[:, :, 9] > 0.0, dim=-1).to(torch.int32)
+    return _sort_by_key(payload, key), counts
+
+
+# kernel R1's largest SH degree (16 coefficients a channel)
+R1_MAX_DEGREE = 3
+
+
+def _on_kernel(cache: MovingCache, camera: Camera, sh_degree: int) -> bool:
+    """Whether kernel R1 reprojects these inputs: CUDA tensors, none of
+    which needs a gradient while grad mode is on, of SH degree at most
+    ``R1_MAX_DEGREE``.  Otherwise the plain version runs (the CPU path, and
+    the gradient's, recomputed in the backward)."""
+    if cache.mean.device.type != "cuda" or sh_degree > R1_MAX_DEGREE:
+        return False
+    tensors = (*cache, *camera.pose, camera.fx, camera.fy, camera.cx,
+               camera.cy)
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))
+
+
+class ReprojectInputs(ctypes.Structure):
+    """The cache's fields as ``csrc/reproject.cu`` takes them (its
+    ``ReprojectInputs``, by value): pointers, then each field's strides in
+    elements over its leading axes (the Kc axis is contiguous)."""
+
+    _fields_ = [*((f, ctypes.c_void_p) for f in (
+                    "mean", "quat", "log_scales", "opacity", "sh")),
+                ("mean_s", ctypes.c_longlong * 3),
+                ("quat_s", ctypes.c_longlong * 3),
+                ("ls_s", ctypes.c_longlong * 3),
+                ("op_s", ctypes.c_longlong * 2),
+                ("sh_s", ctypes.c_longlong * 4)]
+
+
+# the launch's arguments after the inputs: the camera constants, payload,
+# keys, B, T, Kc, tx, ts, degree, near, eps2d, then the stream
+_R1_ARGS = [ReprojectInputs] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+# an env's camera constants: w2c R row-major, w2c t, w2c q, the pose's t,
+# fx, fy, cx, cy
+R1_CAMERA = 23
+# the grid's tile and env axes (CUDA's limit on gridDim.y and .z)
+R1_MAX_GRID = 65535
+
+
+@_kernels.operator("reproject_candidates(Tensor mean, Tensor quat, "
+                   "Tensor log_scales, Tensor opacity, Tensor sh, "
+                   "Tensor cams, int tx, int ts, int degree, float near, "
+                   "float eps2d) -> (Tensor, Tensor)")
+def _launch(mean, quat, log_scales, opacity, sh, cams, tx: int, ts: int,
+            degree: int, near: float, eps2d: float):
+    """One launch of ``csrc/reproject.cu`` over the cache's fields (each
+    read through its strides) and the (B, 23) camera constants ``cams``;
+    returns the unsorted payload (B, T, 10, Kc) and the key (B, T, Kc)."""
+    B, T, _, Kc = mean.shape
+    dev = mean.device
+    payload = torch.empty((B, T, 10, Kc), dtype=torch.float32, device=dev)
+    key = torch.empty((B, T, Kc), dtype=torch.float32, device=dev)
+    fields = (mean, quat, log_scales, opacity, sh)
+    inputs = ReprojectInputs(*(f.data_ptr() for f in fields),
+                             *(f.stride()[:-1] for f in fields))
+    _kernels.launch("reproject", "reproject_candidates", _R1_ARGS, dev,
+                    inputs, cams.data_ptr(), payload.data_ptr(),
+                    key.data_ptr(), B, T, Kc, tx, ts, degree, near, eps2d)
+    return payload, key
+
+
+def _reproject_kernel(cache: MovingCache, camera: Camera, sh_degree: int,
+                      config: RasterConfig, near: float = 0.01,
+                      eps2d: float = BLUR_2D):
+    """:func:`_reproject_plain`'s (payload, key) in one launch of kernel R1
+    (``csrc/reproject.cu``) on :func:`r1_arguments`."""
+    return torch.ops.sim_a_splat.reproject_candidates(*r1_arguments(
+        cache, camera, sh_degree, config, near, eps2d))
+
+
+def r1_arguments(cache: MovingCache, camera: Camera, sh_degree: int,
+                 config: RasterConfig, near: float = 0.01,
+                 eps2d: float = BLUR_2D) -> tuple:
+    """The arguments of the operator ``sim_a_splat::reproject_candidates``
+    for this cache and camera: the cache's five fields (SH cut to the
+    degree's coefficients), the (B, 23) camera constants, tx, ts, the
+    degree, ``near`` and ``eps2d``.  The camera constants are the plain
+    version's own torch calls (``pose.inverse()``, ``rotation_matrix()``),
+    stacked per env.  Raises on inputs the kernel does not take: fields not
+    float32 on one device, shapes that disagree, a Kc axis that is not
+    contiguous, an SH degree past ``R1_MAX_DEGREE`` or a grid past CUDA's
+    limits."""
+    mean = cache.mean
+    if mean.dim() != 4:
+        raise ValueError(f"reproject_candidates: the cache's mean is "
+                         f"{tuple(mean.shape)}, not (B, T, 3, Kc)")
+    B, T, _, Kc = mean.shape
+    K = sh_ops.num_coeffs(sh_degree)
+    if not 0 <= sh_degree <= R1_MAX_DEGREE or B > R1_MAX_GRID \
+            or T > R1_MAX_GRID:
+        raise ValueError(
+            f"reproject_candidates: kernel R1 takes SH degrees 0 to "
+            f"{R1_MAX_DEGREE} and at most {R1_MAX_GRID} envs and tiles; "
+            f"got degree {sh_degree}, B {B}, T {T}")
+    want = {"mean": (B, T, 3, Kc), "quat": (B, T, 4, Kc),
+            "log_scales": (B, T, 3, Kc), "opacity": (B, T, Kc),
+            "sh": (B, T, K, 3, Kc)}
+    fields = {name: getattr(cache, name) for name in want}
+    fields["sh"] = fields["sh"][:, :, :K]
+    for name, t in fields.items():
+        dense = t.stride(-1) == 1 or t.shape[-1] == 1
+        if t.dtype != torch.float32 or tuple(t.shape) != want[name] \
+                or t.device != mean.device or not dense:
+            raise ValueError(
+                f"reproject_candidates takes float32 {want[name]} on "
+                f"{mean.device}, the Kc axis contiguous; {name} is "
+                f"{'' if dense else 'non-contiguous '}{t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    w2c = camera.pose.inverse()
+    parts = [w2c.rotation_matrix().reshape(-1, 9), w2c.t.reshape(-1, 3),
+             w2c.q.reshape(-1, 4), camera.pose.t.reshape(-1, 3)]
+    intr = torch.stack([camera.fx, camera.fy, camera.cx, camera.cy])
+    parts.append(intr.reshape(1, 4).expand(parts[0].shape[0], 4))
+    if parts[0].shape[0] not in (1, B) or any(
+            p.dtype != torch.float32 or p.device != mean.device
+            for p in parts):
+        raise ValueError(
+            f"reproject_candidates takes float32 cameras on {mean.device}, "
+            f"one or {B}; the pose is {camera.pose.q.dtype} "
+            f"{tuple(camera.pose.q.shape)} on {camera.pose.q.device}")
+    cams = torch.cat(parts, dim=1).expand(B, R1_CAMERA).contiguous()
+    tx, _ = _grid(camera, config)
+    return (*fields.values(), cams, tx, config.tile_size, sh_degree, near,
+            eps2d)
+
+
+def _reproject_plain(cache: MovingCache, camera: Camera, sh_degree: int,
+                     config: RasterConfig, near: float = 0.01,
+                     eps2d: float = BLUR_2D):
+    """The plain version of the reprojection in eager PyTorch, on any
+    device: (payload (B, T, 10, Kc) unsorted, key (B, T, Kc))."""
     T, Kc = cache.mean.shape[1], cache.mean.shape[-1]
     ts = config.tile_size
     tx, _ = _grid(camera, config)
@@ -423,10 +579,7 @@ def reproject_candidates(cache: MovingCache, camera: Camera, sh_degree: int,
     key = torch.where(op_eff > 0.0, z, torch.full_like(z, math.inf)).detach()
     payload = torch.stack([u, v, ca, cb, cc, cols[:, :, 0], cols[:, :, 1],
                            cols[:, :, 2], z, op_eff], dim=2)
-    if not sort:
-        return payload, key
-    counts = torch.sum(op_eff > 0.0, dim=-1).to(torch.int32)
-    return _sort_by_key(payload, key), counts
+    return payload, key
 
 
 def _sort_by_key(payload: torch.Tensor, key: torch.Tensor) -> torch.Tensor:

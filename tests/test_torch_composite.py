@@ -260,6 +260,11 @@ OPERATORS = {
     "arm_step": (
         "envs.manipulator_envs", "arm_step(Tensor[] state, Tensor action, "
         "int constants) -> Tensor[]"),
+    "reproject_candidates": (
+        "ops.rasterize_moving", "reproject_candidates(Tensor mean, Tensor "
+        "quat, Tensor log_scales, Tensor opacity, Tensor sh, Tensor cams, "
+        "int tx, int ts, int degree, float near, float eps2d) -> (Tensor, "
+        "Tensor)"),
 }
 KERNEL_MODULES = sorted({m for m, _ in OPERATORS.values()})
 

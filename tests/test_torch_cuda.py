@@ -43,7 +43,11 @@ exact: the CPU tests' bounds against the reference), and each test prints
 the max|Δ| it measured.  The arm's control-step kernel
 (``csrc/arm_step.cu``) follows the plain step the same way and is held
 to it bit for bit on the new state, the reward and the flags, the info
-within 1e-5.
+within 1e-5.  The candidate reprojection's kernel (``csrc/reproject.cu``,
+R1) follows the plain reprojection op for op and is held to it bit for bit
+on every payload row but the three colours, and on the sort key; the
+colours within 1e-6 (it sums the SH coefficients in order, the plain
+version's einsum goes through cuBLAS's gemv).
 """
 
 import pathlib
@@ -54,7 +58,7 @@ import torch
 
 from test_torch_helpers import (
     K_T, K_TS, K_TX, arm_case_inputs, arm_chain_past_caps, as_float64,
-    assert_fields_close,
+    assert_fields_close, assert_r1_matches_plain, reproject_case_inputs,
     assert_rows_close, k1_case_inputs, k1_inputs, k2_full_dyn_inputs, k2_inputs,
     k2_per_env_inputs, k2_shared_tile_inputs, k3_inputs, k3_shared_inputs, k4_inputs,
     pusht_case_actions, pusht_case_vectors, rows_rel_err,
@@ -65,6 +69,7 @@ from chip_smoke import k2_slots_of_k4
 from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops import (
     composite, composite_pair, composite_sel, composite_single,
+    rasterize_moving,
 )
 from sim_a_splat_torch.physics import pusht
 from sim_a_splat_torch.utils import profiling
@@ -931,6 +936,61 @@ def test_k3_at_product_shapes_with_near_set(product_inputs):
                       "K3b at 240×320")
 
 
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("B,contiguous", [(1, False), (8, False), (8, True)])
+def test_r1_matches_plain(dev, B, contiguous, degree):
+    """Kernel R1 against the plain reprojection on the card at the
+    end-effector camera's shapes (T = 300, Kc = 512), its edge cases
+    included (candidates behind the near plane, det ≤ 0 and NaN, pads at
+    opacity 0, footprints exactly on tile borders): every payload row but
+    the colours, and the key, bit for bit; the colours within 1e-6; the
+    survivors' counts equal; one launch."""
+    cache, cam, cfg = reproject_case_inputs(B, seed=10 + degree,
+                                            contiguous=contiguous, device=dev)
+    (before,) = launch_counts("reproject_candidates")
+    with torch.no_grad():
+        got = rasterize_moving.reproject_candidates(cache, cam, degree, cfg,
+                                                    sort=False)
+        want = rasterize_moving._reproject_plain(cache, cam, degree, cfg)
+    assert launch_counts("reproject_candidates") == (before + 1,)
+    gap = assert_r1_matches_plain(got, want)
+    live = float((want[0][:, :, 9] > 0).float().mean())
+    print(f"R1 B={B} degree {degree}: colours max|Δ| {gap:.3e}, "
+          f"{live:.3f} of the candidates survive")
+
+
+def test_render_moving_batch_on_r1_matches_plain(dev):
+    """One teleop-shaped step of the arm product path (N = 6,000, both
+    cameras at 240×320, 8 envs) with the end-effector camera's
+    reprojection on R1 against the same step on the plain reprojection:
+    the end-effector camera's images within 1e-5 (only the colours may
+    differ, by ulps), the viewport's images and the render counters equal,
+    one R1 launch against none."""
+    w = entry.build_product_wrapper(n_total=6000, sh_degree=3,
+                                    render_size=(240, 320), device=dev)
+    _, step, build_moving = entry.make_product_rollout(w)
+    states, actions = entry.product_inputs(w, 8, 1, settle=5)
+    with torch.no_grad():
+        caches = w.build_render_cache()
+        mc = build_moving(states)
+        (before,) = launch_counts("reproject_candidates")
+        got = step(states, actions[0], caches, mc)
+        assert launch_counts("reproject_candidates") == (before + 1,)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rasterize_moving, "_on_kernel", lambda *a: False)
+            want = step(states, actions[0], caches, mc)
+        assert launch_counts("reproject_candidates") == (before + 1,)
+    eef, view = got.obs["camera_0"], got.obs["camera_1"]
+    gap = float((eef - want.obs["camera_0"]).abs().max())
+    print(f"end-effector camera on R1: max|Δ| {gap:.3e}, mean "
+          f"{float(eef.mean()):.4f}")
+    torch.testing.assert_close(eef, want.obs["camera_0"], atol=1e-5, rtol=0)
+    assert torch.equal(view, want.obs["camera_1"])
+    assert float(eef.std()) > 0.01
+    for k in ("render_overflow", "render_truncated"):
+        assert torch.equal(got.info[k], want.info[k]), k
+
+
 def test_asset_wrapper_cameras_on_k1(dev, tmp_path):
     """The splat env built from asset files (``envs/splat_assets.py``) on a
     ``build_demo_assets`` tree, the demo scripts' two cameras at 240×320:
@@ -1436,11 +1496,11 @@ def test_arm_kernel_is_tied_to_its_span_by_the_profiler(dev):
     assert linked[0] > 0
 
 
-# one pushT datagen step and one train step under a profiler, with the
-# program's spans on, in a process of its own: prints, by the innermost of
-# the spans below around each host event that launched kernels (as the
-# benchmark's harness attributes them), each kernel's device µs, and for
-# each kernel the host events the profiler links it to
+# one pushT datagen step, one train step and one arm collect step under a
+# profiler, with the program's spans on, in a process of its own: prints, by
+# the innermost of the spans below around each host event that launched
+# kernels (as the benchmark's harness attributes them), each kernel's device
+# µs, and for each kernel the host events the profiler links it to
 _RENDER_PROFILE_PROBE = """
 import collections, json
 import torch
@@ -1449,7 +1509,7 @@ from sim_a_splat_torch import entry
 from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
 from sim_a_splat_torch.physics import pusht
 from sim_a_splat_torch.utils import profiling
-SPANS = ("render.prepare", "render.select", "step.backward")
+SPANS = ("render.prepare", "render.select", "step.backward", "render.moving")
 graph = entry.build_scene(n_bg=2000, n_block=400, n_agent=150, seed=0,
                           sh_degree=3, device="cuda")
 raster = RasterConfig(tile_size=16, tile_capacity=256,
@@ -1462,9 +1522,16 @@ states = pusht.reset(params, torch.Generator(device="cuda").manual_seed(0),
                      8)
 actions = states.agent_pos + 5.0
 
+arm = entry.build_product_wrapper(n_total=6000, sh_degree=3,
+                                  render_size=(240, 320), device="cuda")
+collect = entry.make_product_collect(arm)
+arm_states, arm_actions = entry.product_inputs(arm, 2, 1, settle=5)
+arm_caches = arm.build_render_cache()
+
 def both():
     with torch.no_grad():
         step_batch(prepare(graph.scene), graph.scene, states, actions)
+        collect(arm_states, arm_actions[0], arm_caches)
     entry.loss_and_grads(prepare, step_batch, graph.scene, states, actions)
 
 both()
@@ -1493,10 +1560,11 @@ print(json.dumps({"by_span": out,
 
 
 def test_kernels_are_tied_to_their_spans_by_the_profiler(dev):
-    """The profiler links each of K1f, K2f, K2b and K1b to its own
+    """The profiler links each of K1f, K2f, K2b, K1b and R1 to its own
     operator (``sim_a_splat::composite_static`` …), and so ties K1f and K2f
     to the render spans around them (``render.prepare``,
-    ``render.select``) and K2b and K1b to ``step.backward``, as it ties P1
+    ``render.select``), K2b and K1b to ``step.backward`` and R1 to
+    ``render.moving`` (inside the arm's ``render.cameras``), as it ties P1
     and P2 to ``physics``: the device time the benchmark reads under a
     span holds them.  In a process of its own (see the arm's profiler
     test)."""
@@ -1511,7 +1579,7 @@ def test_kernels_are_tied_to_their_spans_by_the_profiler(dev):
     by_span = got["by_span"]
     for span, kernels in by_span.items():
         print(span, {k[:40]: round(us, 1) for k, us in kernels.items()
-                     if "composite" in k})
+                     if "composite" in k or "reproject" in k})
     for span, names in (
             ("render.prepare", (("composite_static_chunks",
                                  "composite_static"),
@@ -1522,7 +1590,9 @@ def test_kernels_are_tied_to_their_spans_by_the_profiler(dev):
             ("step.backward", (("composite_pair_sel_bwd",
                                 "composite_pair_sel_bwd"),
                                ("composite_static_bwd",
-                                "composite_static_bwd")))):
+                                "composite_static_bwd"))),
+            ("render.moving", (("reproject_candidates",
+                                "reproject_candidates"),))):
         for name, op in names:
             us = sum(v for k, v in by_span.get(span, {}).items()
                      if name in k)
@@ -1602,7 +1672,8 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
     """One traced collect step at an episode's start records the root
     ``step.arm`` with the physics' and the cameras' spans under it (the
     physics one launch of P2 in ``physics.solve``), and the counters
-    ``render.moving_rebuilds`` and ``arm_step`` (1) in its step."""
+    ``render.moving_rebuilds``, ``arm_step`` (1) and
+    ``reproject_candidates`` (one a ``render.moving`` call) in its step."""
     from sim_a_splat_torch.utils import profiling
 
     w = entry.build_product_wrapper(n_total=6000, sh_degree=3,
@@ -1622,6 +1693,8 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
                   if c.name == "render.moving_rebuilds"]
         arm = [c for c in profiling.counter_events()
                if c.name == "arm_step"]
+        r1 = [c for c in profiling.counter_events()
+              if c.name == "reproject_candidates"]
     finally:
         profiling.enable(was)
         profiling.clear()
@@ -1635,3 +1708,6 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
     assert [e.step for e in events] == [root.step]
     assert events[0].value == int(tr.info["render_rebuilt"].sum())
     assert [(e.step, e.value) for e in arm] == [(root.step, 1)]
+    # the end-effector camera's reprojection: one R1 launch a render
+    assert [(e.step, e.value) for e in r1] == [
+        (root.step, root.calls["render.moving"])]

@@ -430,3 +430,112 @@ def arm_chain_past_caps(kind, tmp_path):
     path = tmp_path / f"pusharm6_{kind}.urdf"
     path.write_text(urdf)
     return kin.load_chain(path)
+
+
+# the arm product path's end-effector camera: 240×320 at fov 1.05, a 15 × 20
+# grid of 16-px tiles, 512 candidates a tile (kernel R1's shapes)
+R1_HW, R1_TS, R1_KC = (240, 320), 16, 512
+
+
+def reproject_case_inputs(B, seed=0, Kc=R1_KC, contiguous=False,
+                          device="cpu"):
+    """A candidate cache (SH degree 3) and B cameras for the reprojection
+    at the end-effector camera's shapes, with its edge cases: about 10 %
+    of the candidates behind the near plane, 5 % needles (log-scales
+    (5, −9, −9), whose det rounds to ≤ 0 in about half), 2 % with scales
+    that overflow (det NaN), 30 % pads (opacity 0), and in env 0 (identity
+    rotation) 5 % on the camera's x = 0 plane, so u is cx = 160 exactly, a
+    tile border, and u ± r (r an integer) meets the borders exactly.  The
+    rest lie around their own tile, 0.05-4 m deep.  Fields are views of one
+    gathered (B, T, 59, Kc) block, as ``build_moving_cache`` leaves them, or
+    each contiguous.  Returns (cache, camera, config)."""
+    from sim_a_splat_torch.ops import rasterize_moving as trm
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.transforms import SE3
+
+    rng = np.random.default_rng(seed)
+    (H, W), ts = R1_HW, R1_TS
+    tx, ty = W // ts, H // ts
+    T = tx * ty
+    q = rng.normal(0, 0.15, (B, 4)) + [1.0, 0, 0, 0]
+    q[0] = [1.0, 0, 0, 0]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    pos = rng.uniform(-0.5, 0.5, (B, 3))
+    cam = Camera.from_fov(SE3(torch.as_tensor(q, dtype=torch.float32),
+                              torch.as_tensor(pos, dtype=torch.float32)),
+                          1.05, W, H)
+    f = float(cam.fx)
+    tiles = np.arange(T)
+    shape = (B, T, Kc)
+    z = rng.uniform(0.05, 4.0, shape)
+    kind = rng.uniform(size=shape)
+    z = np.where(kind < 0.10, rng.uniform(-0.5, 0.01, shape), z)
+    zp = np.maximum(np.abs(z), 0.05)
+    u = ((tiles % tx) * ts)[:, None] + rng.uniform(-40, 56, shape)
+    v = ((tiles // tx) * ts)[:, None] + rng.uniform(-40, 56, shape)
+    p_cam = np.stack([(u - W / 2) * zp / f, (v - H / 2) * zp / f, z], -1)
+    p_cam[0, ..., 0] = np.where(kind[0] > 0.95, 0.0, p_cam[0, ..., 0])
+    # camera → world: R(q) p + t, per env
+    w, x, y, zq = q.T
+    R = np.stack([
+        np.stack([1 - 2 * (y * y + zq * zq), 2 * (x * y - w * zq),
+                  2 * (x * zq + w * y)], -1),
+        np.stack([2 * (x * y + w * zq), 1 - 2 * (x * x + zq * zq),
+                  2 * (y * zq - w * x)], -1),
+        np.stack([2 * (x * zq - w * y), 2 * (y * zq + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+    means = np.einsum("bij,btkj->btki", R, p_cam) + pos[:, None, None]
+    means[0] = np.where((kind[0] > 0.95)[..., None],
+                        np.concatenate([np.broadcast_to(
+                            np.float32(pos[0, 0]), shape[1:] + (1,)),
+                            means[0, ..., 1:]], -1), means[0])
+    quats = rng.normal(size=shape + (4,))
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    ls = rng.uniform(-6.0, -1.0, shape + (3,))
+    needle = (kind >= 0.10) & (kind < 0.15)
+    ls[needle] = [5.0, -9.0, -9.0]
+    ls[(kind >= 0.15) & (kind < 0.17)] = 40.0
+    op = np.where(rng.uniform(size=shape) < 0.3, 0.0,
+                  rng.uniform(0.05, 1.0, shape))
+    sh = rng.normal(0, 0.4, shape + (48,))
+    raw = np.concatenate([means, quats, ls, op[..., None], sh], -1)
+    raw = torch.as_tensor(np.ascontiguousarray(
+        np.moveaxis(raw, -1, 2)), dtype=torch.float32, device=device)
+    fields = dict(mean=raw[:, :, 0:3], quat=raw[:, :, 3:7],
+                  log_scales=raw[:, :, 7:10], opacity=raw[:, :, 10],
+                  sh=raw[:, :, 11:].reshape(B, T, 16, 3, Kc))
+    if contiguous:
+        fields = {k: t.contiguous() for k, t in fields.items()}
+    zeros = torch.zeros(B, device=device)
+    cache = trm.MovingCache(
+        **fields, counts=torch.full((B, T), Kc, dtype=torch.int32,
+                                    device=device),
+        base_q=cam.pose.q.to(device), base_t=cam.pose.t.to(device),
+        s_trans=zeros, s_rot=zeros, z_min=zeros, near_gap=zeros,
+        g_gap=zeros, margin=torch.tensor(16.0, device=device),
+        n_build_truncated=zeros.int(),
+        near_mean=torch.zeros(B, 8, 3, device=device),
+        near_quat=torch.zeros(B, 8, 4, device=device),
+        near_ls=torch.zeros(B, 8, 3, device=device),
+        near_op=torch.zeros(B, 8, device=device),
+        near_sh=torch.zeros(B, 8, 16, 3, device=device),
+        z_split=torch.tensor(0.0, device=device),
+        t_max=torch.tensor(0.05, device=device),
+        n_near_over=zeros.int())
+    return cache, cam.to(device), torch_raster(tile_size=ts)
+
+
+def assert_r1_matches_plain(got, want):
+    """R1's (payload, key) against the plain version's: every row but the
+    colours and the key exactly (NaN where NaN), the colours within 1e-6;
+    the survivors' counts equal.  Returns the colours' max|Δ| (tensors on
+    any device)."""
+    (pay, key), (wpay, wkey) = got, want
+    rows = [r for r in range(10) if r not in range(5, 8)]
+    torch.testing.assert_close(pay[:, :, rows], wpay[:, :, rows], rtol=0,
+                               atol=0, equal_nan=True)
+    torch.testing.assert_close(key, wkey, rtol=0, atol=0)
+    torch.testing.assert_close(pay[:, :, 5:8], wpay[:, :, 5:8],
+                               rtol=0, atol=1e-6)
+    assert torch.equal((pay[:, :, 9] > 0).sum(-1), (wpay[:, :, 9] > 0).sum(-1))
+    return float((pay[:, :, 5:8] - wpay[:, :, 5:8]).abs().max())

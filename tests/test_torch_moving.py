@@ -175,6 +175,56 @@ def test_reproject_candidates_matches_reference(case):
     np.testing.assert_allclose(np_of(tspay), np_of(jspay), atol=1e-5, rtol=0)
 
 
+def test_reproject_candidates_at_the_arm_shapes():
+    """The plain reprojection (kernel R1's twin, the CPU path) against the
+    reference at the arm's end-effector camera's shapes: a 240×320 camera
+    (a 15 × 20 grid, T = 300, tx ≠ ty) and 512 candidates a tile, SH
+    degree 3, two envs: counts exact, the sorted payload atol 1e-5 and rtol
+    1e-6 (the same expressions; pixel coordinates reach 320 here, where a
+    float32 ulp is 3e-5, and XLA and PyTorch round some of them apart)."""
+    H, W, kc = 240, 320, 512
+    graph = graft._build_scene(n_bg=256, n_block=64, n_agent=32, seed=3,
+                               sh_degree=3)
+    ids = np.asarray(graph.link_ids)
+    cam_t = np.asarray([[150.0, 210.0, -420.0], [260.0, 300.0, -380.0]],
+                       np.float32)
+    q = np.asarray([[1.0, 0.0, 0.0, 0.0], [0.995, 0.05, -0.08, 0.02]],
+                   np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    jcfg, tcfg = jax_raster(), torch_raster()
+    jst = graph.scene.select(jnp.asarray(np.where(ids == 0)[0], jnp.int32))
+    n = jst.means.shape[0]
+
+    def jcams(t):
+        return jax.vmap(lambda ti, qi: JCamera.from_fov(
+            JSE3(qi, ti), 1.05, W, H))(jnp.asarray(t), jnp.asarray(q))
+
+    def tcams(t):
+        return Camera.from_fov(SE3(torch.as_tensor(q), torch.as_tensor(t)),
+                               1.05, W, H)
+
+    jcaches = jax.jit(jax.vmap(lambda cam: jrm.build_moving_cache(
+        jst.means, jst.quats, jst.log_scales, jst.sh_coeffs().reshape(n, -1),
+        jst.opacities(), cam, jrm.dilated_build_config(jcfg, 8.0), kc=kc,
+        margin=8.0)))(jcams(cam_t))
+    g = entry.graph_from_numpy(graph_leaves(graph), device="cpu")
+    tst = g.scene.select(np.where(ids == 0)[0])
+    tcaches = trm.build_moving_cache(
+        tst.means, tst.quats, tst.log_scales, tst.sh_coeffs().reshape(n, -1),
+        tst.opacities(), tcams(cam_t), trm.dilated_build_config(tcfg, 8.0),
+        kc=kc, margin=8.0)
+    assert tuple(tcaches.mean.shape) == (B, 300, 3, kc)
+
+    t = cam_t + np.asarray([2.5, -1.5, 0.5], np.float32)
+    jspay, jcounts = jax.jit(jax.vmap(lambda c, cam: jrm.reproject_candidates(
+        c, cam, 3, jcfg)))(jcaches, jcams(t))
+    tspay, tcounts = trm.reproject_candidates(tcaches, tcams(t), 3, tcfg)
+    np.testing.assert_array_equal(np_of(tcounts), np_of(jcounts))
+    assert np_of(tcounts).sum() > 0
+    np.testing.assert_allclose(np_of(tspay), np_of(jspay), atol=1e-5,
+                               rtol=1e-6)
+
+
 def _dyn_inputs(case, shift):
     """Posed-looking dynamics from numpy: the scene's block and agent
     gaussians moved by each env's block position, numpy colors."""
