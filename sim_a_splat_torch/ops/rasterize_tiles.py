@@ -104,10 +104,11 @@ def _bin_gaussians(proj: Projected, config: RasterConfig, tx: int, ty: int):
     M = config.max_tiles_per_gaussian
     T = tx * ty
     B, N = proj.depth.shape
-    if (T + 1) * N >= 2**31:
-        raise ValueError(
-            f"binning key overflow: (T+1)·N = {(T + 1) * N} ≥ 2^31 — "
-            "shard the gaussians or reduce N")
+    # keys, bounds and list starts are int64; a tile's count goes to the
+    # kernels as int32, and a count is at most N
+    if N >= 2**31:
+        raise ValueError(f"per-tile count overflow: N = {N} ≥ 2^31, and the "
+                         "kernels take each tile's count as int32")
     dev = proj.depth.device
 
     x, y = proj.xy[..., 0], proj.xy[..., 1]

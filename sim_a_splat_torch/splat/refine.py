@@ -26,7 +26,8 @@ SPLIT_SCALE_SHRINK = 1.6   # splatfacto's size_fac
 _LOG_SHRINK = np.log(np.float32(SPLIT_SCALE_SHRINK))
 
 
-def _rows(scene: GaussianScene, mask: torch.Tensor) -> GaussianScene:
+def rows(scene: GaussianScene, mask: torch.Tensor) -> GaussianScene:
+    """The scene's rows where ``mask`` (N,) is set."""
     return GaussianScene(*(None if f is None else f[mask] for f in scene))
 
 
@@ -37,6 +38,14 @@ def _device_mask(scene: GaussianScene, mask) -> torch.Tensor:
     return mask.to(device=scene.means.device, dtype=torch.bool)
 
 
+def cull_mask(scene: GaussianScene, cull_alpha_thresh: float = 0.1,
+              cull_scale_thresh: float = 0.5) -> torch.Tensor:
+    """(N,) bool, on the scene's device: the gaussians a cull keeps, those
+    with opacity ≥ α-thresh and max scale ≤ scale-thresh."""
+    return ((scene.opacities() >= cull_alpha_thresh)
+            & (scene.scales().amax(-1) <= cull_scale_thresh))
+
+
 def cull_gaussians(
     scene: GaussianScene,
     cull_alpha_thresh: float = 0.1,
@@ -44,9 +53,8 @@ def cull_gaussians(
 ) -> GaussianScene:
     """Drop gaussians with opacity < α-thresh or max scale > scale-thresh
     (splatfacto's cull_params)."""
-    keep = ((scene.opacities() >= cull_alpha_thresh)
-            & (scene.scales().amax(-1) <= cull_scale_thresh))
-    return _rows(scene, keep)
+    return rows(scene, cull_mask(scene, cull_alpha_thresh,
+                                  cull_scale_thresh))
 
 
 def standard_normal(seed: int, shape, device) -> torch.Tensor:
@@ -63,7 +71,7 @@ def split_with_draws(scene: GaussianScene, mask: torch.Tensor,
     (n, m, 3): offsets eps·scales in each gaussian's frame, rotated to the
     world; the kept gaussians first, then the n samples, sample-major."""
     n = eps.shape[0]
-    sel = _rows(scene, mask)
+    sel = rows(scene, mask)
     m = sel.num_gaussians
     offsets = eps * sel.scales()[None]                      # local frame
     world_off = quat.rotate(sel.quats.expand(n, m, 4), offsets)
@@ -80,7 +88,7 @@ def split_with_draws(scene: GaussianScene, mask: torch.Tensor,
         sh_dc=rep(sel.sh_dc),
         sh_rest=None if sel.sh_rest is None else rep(sel.sh_rest),
     )
-    keep = _rows(scene, ~mask)
+    keep = rows(scene, ~mask)
     if keep.num_gaussians == 0:
         return split
     return concat_scenes(keep, split)
@@ -105,4 +113,4 @@ def split_gaussians(
 
 def duplicate_gaussians(scene: GaussianScene, dup_mask) -> GaussianScene:
     """Append copies of the masked gaussians (splatfacto dup_gaussians)."""
-    return concat_scenes(scene, _rows(scene, _device_mask(scene, dup_mask)))
+    return concat_scenes(scene, rows(scene, _device_mask(scene, dup_mask)))

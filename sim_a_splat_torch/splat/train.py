@@ -22,6 +22,32 @@ densify/cull rounds built from ``splat/refine.py``.
   refinement round (and where ``log_every`` or ``eval_fn`` asks).  After
   every round the optimizer is built anew, as the reference rebuilds it:
   fresh moments, and the means schedule starts again from ``lr_means``.
+- :class:`Trainer` holds a run one iteration at a time (the scene, the
+  optimizer, the densify accumulators and the count of iterations done):
+  ``Trainer.step(camera, image)`` is one iteration, with the refinement
+  round run inside the step that reaches it; ``start_step`` starts the
+  count part-way through a run (the means schedule of its first optimizer
+  and ``stop_split_at`` read it).  ``train`` is a loop over it.  From
+  ``stop_split_at`` on a round only culls (splatfacto's
+  ``continue_cull_post_densification``).
+- Tracing (``utils/profiling.py``): a step is the root span ``step.splat``
+  over ``train.loss`` (the render, ``train.render``, and the loss),
+  ``train.backward``, ``train.optimizer`` (‖∇means‖ and Adam) and, in a
+  round, ``train.refine``; the counter ``train.gaussians`` moves by each
+  step's change of N (one trainer in a process: it reads N) and
+  ``train.culled`` by the gaussians a round drops, counted where the round
+  reads the device anyway.  Outside a round nothing here waits for the
+  device.
+
+Departures from splatfacto (``nerfstudio/models/splatfacto.py``), kept
+because the JAX package has them:
+
+- the densify statistic is the world-space ‖∇means‖ averaged over the
+  steps since the last round, not the screen-space ‖∇xy‖;
+- the optimizer is built anew after every round: its moments and the means
+  schedule restart (splatfacto removes the culled rows from its moments);
+- Adam's ε is 1e-8, not 1e-15;
+- the background is fixed (``TrainConfig.background``), not random.
 """
 
 from __future__ import annotations
@@ -40,6 +66,7 @@ from sim_a_splat_torch.ops.rasterize_tiles import (
 from sim_a_splat_torch.ops.ssim import ssim_loss
 from sim_a_splat_torch.splat import refine
 from sim_a_splat_torch.splat.scene import GaussianScene
+from sim_a_splat_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +98,9 @@ class TrainConfig:
     # 2·cull_alpha_thresh (splatfacto's opacity reset); 0 ⇒ off
     reset_alpha_every: int = 0
     background: tuple = (0.0, 0.0, 0.0)
+    # a round at iteration count ≥ stop_split_at only culls: no duplication,
+    # split or opacity reset (splatfacto's stop_split_at); None ⇒ never
+    stop_split_at: Optional[int] = None
 
 
 def _default_raster() -> RasterConfig:
@@ -101,10 +131,12 @@ def _detached(scene: GaussianScene) -> GaussianScene:
     return GaussianScene(*(None if f is None else f.detach() for f in scene))
 
 
-def make_optimizer(config: TrainConfig, scene: GaussianScene):
+def make_optimizer(config: TrainConfig, scene: GaussianScene,
+                   start: int = 0):
     """Per-field ``torch.optim.Adam`` over the parameters ``scene`` (see
     :func:`parameters`), splatfacto's LR table; no group for a missing
-    ``sh_rest``.  The means group carries its schedule (``means_lr``)."""
+    ``sh_rest``.  The means group carries its schedule (``means_lr``), its
+    update t taking ``means_lr(config, start + t)``."""
     lrs = {"means": config.lr_means, "quats": config.lr_quats,
            "log_scales": config.lr_scales,
            "logit_opacities": config.lr_opacities,
@@ -113,7 +145,7 @@ def make_optimizer(config: TrainConfig, scene: GaussianScene):
               for name, lr in lrs.items() if getattr(scene, name) is not None]
     for group in groups:
         if group["name"] == "means":
-            group["schedule"] = lambda t: means_lr(config, t)
+            group["schedule"] = lambda t: means_lr(config, start + t)
     return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -145,22 +177,46 @@ def adam_state_from_numpy(mu, nu, count, optimizer):
     return optimizer
 
 
-def train_loss(scene: GaussianScene, camera: Camera, image: torch.Tensor,
-               config: TrainConfig, raster: RasterConfig) -> torch.Tensor:
-    """(1 − λ)·(w·mean|err| + (1 − w)·mean(err²)) + λ·(1 − SSIM) of the
-    render of ``scene`` from ``camera`` against ``image`` (H, W, 3)."""
+def _render_loss(scene: GaussianScene, camera: Camera, image: torch.Tensor,
+                 config: TrainConfig, raster: RasterConfig):
+    """(loss, render (H, W, 3), RasterAux): see :func:`train_loss`."""
     bg = torch.as_tensor(config.background, dtype=torch.float32,
                          device=image.device)
-    img, _ = rasterize_raw_sh(
-        scene.means, scene.quats, scene.log_scales, scene.sh_coeffs(),
-        scene.opacities(), camera, scene.sh_degree, raster, background=bg)
+    with span("train.render"):
+        img, aux = rasterize_raw_sh(
+            scene.means, scene.quats, scene.log_scales, scene.sh_coeffs(),
+            scene.opacities(), camera, scene.sh_degree, raster,
+            background=bg)
     err = img - image
     photometric = (config.l1_weight * torch.mean(torch.abs(err))
                    + (1.0 - config.l1_weight) * torch.mean(err ** 2))
     if config.ssim_lambda <= 0.0:
-        return photometric
+        return photometric, img, aux
     return ((1.0 - config.ssim_lambda) * photometric
-            + config.ssim_lambda * ssim_loss(img, image))
+            + config.ssim_lambda * ssim_loss(img, image)), img, aux
+
+
+def train_loss(scene: GaussianScene, camera: Camera, image: torch.Tensor,
+               config: TrainConfig, raster: RasterConfig) -> torch.Tensor:
+    """(1 − λ)·(w·mean|err| + (1 − w)·mean(err²)) + λ·(1 − SSIM) of the
+    render of ``scene`` from ``camera`` against ``image`` (H, W, 3)."""
+    return _render_loss(scene, camera, image, config, raster)[0]
+
+
+def _train_step(scene, camera, image, config, raster, optimizer):
+    """One update of the parameters ``scene`` in place → (loss, ‖∇means‖
+    (N,), the render, its RasterAux), all without waiting for the
+    device."""
+    with span("train.loss"):
+        optimizer.zero_grad(set_to_none=True)
+        loss, img, aux = _render_loss(scene, camera, image, config, raster)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        gnorm = torch.linalg.vector_norm(scene.means.grad, dim=-1)
+        _apply_schedules(optimizer)
+        optimizer.step()
+    return loss.detach(), gnorm, img.detach(), aux
 
 
 def make_train_step(config: TrainConfig, raster: RasterConfig,
@@ -171,38 +227,117 @@ def make_train_step(config: TrainConfig, raster: RasterConfig,
     The fields' gradients stay in their ``.grad``."""
 
     def step(scene, camera, image):
-        optimizer.zero_grad(set_to_none=True)
-        loss = train_loss(scene, camera, image, config, raster)
-        loss.backward()
-        gnorm = torch.linalg.vector_norm(scene.means.grad, dim=-1)
-        _apply_schedules(optimizer)
-        optimizer.step()
-        return scene, loss.detach(), gnorm
+        loss, gnorm, _, _ = _train_step(scene, camera, image, config, raster,
+                                        optimizer)
+        return scene, loss, gnorm
 
     return step
 
 
-def refine_scene(scene: GaussianScene, grad_acc,
-                 config: TrainConfig) -> GaussianScene:
-    """One splatfacto refinement round: duplicate the small high-grad
-    gaussians, split the large ones (the copies never split), then cull
-    the transparent and oversized ones.  ``grad_acc`` (N,) is the mean
-    ‖∇means‖ since the last round."""
+def refine_scene(scene: GaussianScene, grad_acc, config: TrainConfig,
+                 densify: bool = True):
+    """One splatfacto refinement round → (the new scene, the cull's (N',)
+    keep mask over the scene it culled).  Where ``densify``, duplicate the
+    small high-grad gaussians, then split the large ones (the copies never
+    split); then cull the transparent and oversized ones.  ``grad_acc``
+    (N,) is the mean ‖∇means‖ since the last round."""
     scene = _detached(scene)
-    grad_acc = torch.as_tensor(grad_acc, device=scene.means.device)
-    scales = scene.scales().amax(-1)
-    high = grad_acc > config.densify_grad_thresh
-    split_mask = high & (scales > config.densify_size_thresh)
-    dup_mask = high & ~split_mask
-    if bool(dup_mask.any()):
-        scene = refine.duplicate_gaussians(scene, dup_mask)
-        split_mask = torch.cat([split_mask, split_mask.new_zeros(
-            int(dup_mask.sum()))])
-    if bool(split_mask.any()):
-        scene = refine.split_gaussians(
-            scene, split_mask, n_split_samples=config.n_split_samples)
-    return refine.cull_gaussians(
-        scene, config.cull_alpha_thresh, config.cull_scale_thresh)
+    if densify:
+        grad_acc = torch.as_tensor(grad_acc, device=scene.means.device)
+        scales = scene.scales().amax(-1)
+        high = grad_acc > config.densify_grad_thresh
+        split_mask = high & (scales > config.densify_size_thresh)
+        dup_mask = high & ~split_mask
+        if bool(dup_mask.any()):
+            scene = refine.duplicate_gaussians(scene, dup_mask)
+            split_mask = torch.cat([split_mask, split_mask.new_zeros(
+                int(dup_mask.sum()))])
+        if bool(split_mask.any()):
+            scene = refine.split_gaussians(
+                scene, split_mask, n_split_samples=config.n_split_samples)
+    keep = refine.cull_mask(scene, config.cull_alpha_thresh,
+                            config.cull_scale_thresh)
+    return refine.rows(scene, keep), keep
+
+
+class Trainer:
+    """A training run held one iteration at a time: ``scene`` (the
+    optimizer's parameters, leaf tensors on ``device``), ``optimizer``, the
+    densify accumulators and ``step_count``, the iterations done (from
+    ``start_step``).  After a step, ``image`` and ``aux`` are its render
+    and RasterAux, and ``keep`` is the last round's (N,) mask of the
+    gaussians its cull kept."""
+
+    def __init__(self, scene: GaussianScene,
+                 config: TrainConfig = TrainConfig(),
+                 raster: Optional[RasterConfig] = None, start_step: int = 0,
+                 device="cuda"):
+        self.config = config
+        self.raster = _default_raster() if raster is None else raster
+        self.step_count = int(start_step)
+        self.n_refines = 0
+        self.image = self.aux = self.keep = None
+        self._counted = 0
+        self._reset(parameters(scene, resolve_device(device)),
+                    start=self.step_count)
+
+    def _reset(self, scene: GaussianScene, start: int = 0) -> None:
+        self.scene = scene
+        self.optimizer = make_optimizer(self.config, scene, start)
+        self.grad_acc = torch.zeros(scene.num_gaussians,
+                                    device=scene.means.device)
+        self.n_acc = 0
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.scene.num_gaussians
+
+    def _densifies(self, r: int) -> bool:
+        """Whether a round after ``r`` iterations densifies."""
+        stop = self.config.stop_split_at
+        return stop is None or r < stop
+
+    def _round_due(self) -> bool:
+        c, r = self.config, self.step_count
+        return bool(c.refine_every and r >= c.refine_start
+                    and r % c.refine_every == 0 and r < c.iters)
+
+    def step(self, camera: Camera, image: torch.Tensor) -> torch.Tensor:
+        """One iteration against ``image`` (H, W, 3) seen from ``camera``,
+        and the refinement round where it reaches one; returns the loss (a
+        device scalar)."""
+        with span("step.splat"):
+            loss, gnorm, self.image, self.aux = _train_step(
+                self.scene, camera, image, self.config, self.raster,
+                self.optimizer)
+            self.step_count += 1
+            if self._densifies(self.step_count):
+                self.grad_acc += gnorm
+                self.n_acc += 1
+            if self._round_due():
+                self._refine()
+            n = self.num_gaussians
+            count("train.gaussians", n - self._counted)
+            self._counted = n
+        return loss
+
+    def _refine(self) -> None:
+        c = self.config
+        with span("train.refine"):
+            densify = self._densifies(self.step_count)
+            new, self.keep = refine_scene(
+                self.scene, self.grad_acc / max(self.n_acc, 1), c, densify)
+            count("train.culled", self.keep.numel() - new.num_gaussians)
+            self.n_refines += 1
+            if (densify and c.reset_alpha_every
+                    and self.n_refines % c.reset_alpha_every == 0):
+                # splatfacto opacity reset: cap at 2·cull_alpha_thresh
+                # (logit space) so every gaussian re-earns its opacity
+                cap = float(np.log(2 * c.cull_alpha_thresh
+                                   / (1 - 2 * c.cull_alpha_thresh)))
+                new = new._replace(logit_opacities=torch.clamp(
+                    new.logit_opacities, max=cap))
+            self._reset(parameters(new))
 
 
 def _on(image, dev) -> torch.Tensor:
@@ -228,58 +363,30 @@ def train(
     ``loss`` and ``n_gaussians`` per iteration.
 
     Views are visited round-robin (splatfacto samples one camera per step).
-    ``eval_fn(scene, it)`` is called every ``eval_every`` iterations (e.g. a
-    PSNR probe for a training curve).
+    ``eval_fn(scene, it)`` is called every ``eval_every`` iterations, after
+    the iteration and its refinement round (e.g. a PSNR probe for a
+    training curve).  ``n_gaussians`` is each iteration's N, before its
+    round.
     """
     dev = resolve_device(device)
-    if raster is None:
-        raster = _default_raster()
     if len(cameras) != len(images) or not cameras:
         raise ValueError("need equally many cameras and images (≥1)")
     cams = [c.to(dev) for c in cameras]
     imgs = [_on(im, dev) for im in images]
-
-    scene = parameters(scene, dev)
-    optimizer = make_optimizer(config, scene)
-    step = make_train_step(config, raster, optimizer)
-
+    trainer = Trainer(scene, config, raster, device=dev)
     losses, n_gaussians = [], []
-    grad_acc = torch.zeros(scene.num_gaussians, device=dev)
-    n_acc = 0
-    n_refines = 0
     for it in range(config.iters):
         v = it % len(cams)
-        scene, loss, gnorm = step(scene, cams[v], imgs[v])
-        grad_acc += gnorm
-        n_acc += 1
-        losses.append(loss)
-        n_gaussians.append(scene.num_gaussians)
+        n_gaussians.append(trainer.num_gaussians)
+        losses.append(trainer.step(cams[v], imgs[v]))
         if log_every and (it + 1) % log_every == 0:
-            log_fn(f"iter {it + 1}: loss {float(loss):.5f} "
-                   f"N={scene.num_gaussians}")
+            log_fn(f"iter {it + 1}: loss {float(losses[-1]):.5f} "
+                   f"N={n_gaussians[-1]}")
         if eval_every and eval_fn is not None and (it + 1) % eval_every == 0:
-            eval_fn(_detached(scene), it + 1)
-        if (config.refine_every and it + 1 >= config.refine_start
-                and (it + 1) % config.refine_every == 0
-                and it + 1 < config.iters):
-            new = refine_scene(scene, grad_acc / max(n_acc, 1), config)
-            n_refines += 1
-            if (config.reset_alpha_every
-                    and n_refines % config.reset_alpha_every == 0):
-                # splatfacto opacity reset: cap at 2·cull_alpha_thresh
-                # (logit space) so every gaussian re-earns its opacity
-                cap = float(np.log(2 * config.cull_alpha_thresh
-                                   / (1 - 2 * config.cull_alpha_thresh)))
-                new = new._replace(logit_opacities=torch.clamp(
-                    new.logit_opacities, max=cap))
-            scene = parameters(new)
-            optimizer = make_optimizer(config, scene)
-            step = make_train_step(config, raster, optimizer)
-            grad_acc = torch.zeros(scene.num_gaussians, device=dev)
-            n_acc = 0
+            eval_fn(_detached(trainer.scene), it + 1)
     history = {"loss": torch.stack(losses).tolist() if losses else [],
                "n_gaussians": n_gaussians}
-    return _detached(scene), history
+    return _detached(trainer.scene), history
 
 
 def psnr(img, ref) -> float:

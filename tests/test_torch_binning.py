@@ -130,7 +130,10 @@ def test_gather_tile_lists_sel_exact():
 
 
 def test_binning_key_guard():
-    n = 2**31 // (TX * TY + 1) + 1            # (T+1)·N just past 2^31
+    """The keys are int64, so (T+1)·N past 2^31 bins
+    (``test_torch_splatfacto.py``); what stays int32 is a tile's count,
+    at most N, which the kernels take as int32: N = 2^31 raises."""
+    n = 2**31                                 # a tile's count past int32
     big = Projected(xy=torch.zeros(1, 2).expand(n, 2),    # no storage
                     depth=torch.zeros(1).expand(n),
                     conic=torch.zeros(1, 3).expand(n, 3),

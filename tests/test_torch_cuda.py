@@ -1711,3 +1711,69 @@ def test_collect_step_spans_and_rebuild_counter_on_card(dev):
     # the end-effector camera's reprojection: one R1 launch a render
     assert [(e.step, e.value) for e in r1] == [
         (root.step, root.calls["render.moving"])]
+
+
+def test_splatfacto_step_past_the_old_binning_guard(dev):
+    """One ``splat.train.Trainer`` step at 400,000 SH-3 gaussians and
+    1600×900 (5,700 tiles: (T+1)·N past 2^31, which the binning refused
+    before) runs through K1f and K1b, one launch each, and matches the
+    benchmark's plain splatfacto step (``perfbench/reference/
+    splatfacto.py``, in bands of tile rows) on the same inputs: nothing
+    cut on either side; the image within 0.025 (a pixel whose α sits at
+    the 3σ cutoff or the 1/255 floor switches on one side alone, by up to
+    e^-4.5 ≈ 0.0111 of a colour each), the loss rtol 2e-3 (K1f's early
+    stop at ``term_eps`` 1e-4 leaves out what the reference composites
+    past it, in every opaque tile), each field's gradient within 0.1 of
+    its largest (a switched pixel moves a small gaussian's gradient by its
+    own share)."""
+    import json
+    from perfbench.reference import splatfacto as ref
+    from perfbench.reference.splatfacto_scene import orbit, scenes
+    from perfbench.systems.splatfacto import FIELDS, train_config
+    from sim_a_splat_torch.ops.projection import Camera
+    from sim_a_splat_torch.ops.rasterize_tiles import RasterConfig
+    from sim_a_splat_torch.ops.transforms import SE3
+    from sim_a_splat_torch.splat import train
+    from sim_a_splat_torch.splat.scene import GaussianScene
+    cfg = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                      / "perfbench/configs/splatfacto_1m_sh3_1600.json")
+                     .read_text())
+    cfg["n_gaussians"] = 400_000
+    gt, init = scenes(cfg, 41, torch.Generator(device=dev).manual_seed(41))
+    v = orbit(cfg, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cam = Camera(SE3(v.q[7], v.center[7]), *(torch.tensor(x, **f32) for x in
+                                            (v.fx, v.fy, v.cx, v.cy)),
+                 v.width, v.height)
+    raster = RasterConfig(
+        tile_size=cfg["tile_size"], tile_capacity=cfg["tile_capacity"],
+        max_tiles_per_gaussian=cfg["max_tiles_per_gaussian"],
+        sigma_cutoff=cfg["sigma_cutoff"], term_eps=cfg["term_eps"],
+        buckets=tuple(tuple(b) for b in cfg["buckets"]))
+    T = -(-v.width // cfg["tile_size"]) * -(-v.height // cfg["tile_size"])
+    assert (T + 1) * cfg["n_gaussians"] >= 2**31
+    target = torch.as_tensor(train.render_view(
+        GaussianScene(**gt), cam, raster, device=dev), device=dev)
+    tr = train.Trainer(GaussianScene(**init), train_config(cfg), raster,
+                       start_step=15000, device=dev)
+    live = tr.scene
+    before = launch_counts("composite_static", "composite_static_bwd")
+    loss = tr.step(cam, target)
+    torch.cuda.synchronize()
+    assert launch_counts("composite_static", "composite_static_bwd") == \
+        (before[0] + 1, before[1] + 1)
+    assert int(tr.aux.n_overflowed_tiles) == int(tr.aux.n_slot_truncated) == 0
+    want = ref.step(init, ref.camera(v.q[7], v.center[7], v.fx, v.fy, v.cx,
+                                     v.cy, v.width, v.height), target,
+                    ref.raster_of(cfg), cfg["sh_degree"], cfg["ssim_lambda"],
+                    cfg["background"])
+    assert want.overflowed == want.slot_truncated == 0
+    gap = float((tr.image - want.image).abs().max())
+    print(f"image {gap:.3e} loss {float(loss):.6f} {float(want.loss):.6f}")
+    assert gap <= 0.025
+    np.testing.assert_allclose(float(loss), float(want.loss), rtol=2e-3)
+    for k, p in zip(FIELDS, live):
+        g = want.grads[k]
+        rel = float((p.grad - g).abs().max()) / float(g.abs().max())
+        print(f"{k}: gradient gap {rel:.3e} of its largest")
+        assert rel <= 0.1, k

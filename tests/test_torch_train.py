@@ -339,7 +339,9 @@ def test_refine_scene_matches_reference(monkeypatch):
 
     monkeypatch.setattr(refine, "standard_normal", reference_draws)
     want = jtrain.refine_scene(js, grad_acc, cfg)
-    got = train.refine_scene(ts, grad_acc, train.TrainConfig(**vars(cfg)))
+    got, keep = train.refine_scene(ts, grad_acc,
+                                   train.TrainConfig(**vars(cfg)))
+    assert int(keep.sum()) == got.num_gaussians
     assert len(draws) == 1 and draws[0][0] == 3
     assert got.num_gaussians == want.num_gaussians
     n_kept = 40 + int((high & ~big).sum()) + 2 * int((high & big).sum())
